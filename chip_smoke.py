@@ -4,25 +4,42 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in this checkout (nvcc for the
-CUDA ones, Triton for the fused one), holds each kernel against its plain
-PyTorch version at the shapes the serving path gives it, then serves
-bi-date scenes at full BiDateNet width (13 bands, base 64, patch 64, batch
-256, bf16, BatchNorm folded, weights drawn from seed 0) through
-``ScenePredictor.predict`` and ``predict_many``, checks the masks against
-the same forward run on the plain versions, and shows from the launch
-counters that the serve went through every kernel.  Prints the card, each
-check, per-kernel times beside their bound and a library yardstick, the
-end-to-end rate, a JSON ``kernels`` line, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
+CUDA ones, Triton for the others) and drives its two paths at full
+BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
+
+- serving: holds each conv and fusion kernel against its plain PyTorch
+  version at the serving shapes, then serves bi-date scenes (patch 64,
+  batch 256, bf16, BatchNorm folded) through ``ScenePredictor.predict``
+  and ``predict_many``, checks the masks against the same forward on the
+  plain versions, and shows from the launch counters that the serve went
+  through every kernel;
+- training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
+  one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
+  96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
+  inference of the validation city and periodic checkpoints; the launch
+  counters show the eval-BatchNorm and fusion kernels ran, and the patch
+  pipeline, the step and a periodic save are timed apart.  Then it holds
+  the eval-BatchNorm kernel against its plain version at every shape of
+  the eval forward (bf16 and fp32), the fused gradient against autograd,
+  one fp32 train step on the card against the same step on the CPU, and
+  serves the trained checkpoint folded (conv kernels) and unfolded
+  (eval-BatchNorm kernel) on the validation city.
+
+Prints the card, each check, per-kernel times beside their bound and a
+library yardstick, the serving rate and the training rate, a JSON
+``kernels`` line, and as its last line ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,6 +52,10 @@ PEAK_BYTES = 3.35e12       # B/s, H100 SXM HBM3
 SEED = 0
 SCENE = 2048               # side of the main scene
 PATCH, BATCH, BASE = 64, 256, 64
+# training phase: patch, batch, epochs x steps, the synthetic cities
+T_PATCH, T_BATCH, T_EPOCHS, T_STEPS = 96, 128, 2, 20
+T_CITIES = {"alpha": (1024, 1024), "beta": (960, 1088),
+            "gamma": (1088, 960), "val": (1024, 1024)}
 
 
 def fail(msg: str) -> None:
@@ -222,6 +243,366 @@ def plain_mask_and_margin(model, d1, d2):
             stitch(torch.cat(margins)).cpu().numpy(), first, kernel_first)
 
 
+def eval_bn_shapes():
+    """(level, x shape) of the 9 BatchNorm levels of one eval forward at
+    the training phase's eval batch; each level runs the kernel twice."""
+    from fabric_tpu_torch.weights import block_channels
+
+    side = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
+            "up1": 8, "up2": 4, "up3": 2, "up4": 1}
+    return [(level, (2 * T_BATCH if level == "inc" or level.startswith(
+        "down") else T_BATCH, T_PATCH // side[level], T_PATCH // side[level],
+        cout)) for level, (_, cout) in block_channels(13, BASE).items()]
+
+
+def check_bn_kernel():
+    """The eval-BatchNorm kernel against its plain version at every shape
+    of the eval forward, bf16 and fp32, with its time beside its byte
+    bound, the plain version's and F.batch_norm + relu_'s (two calls).
+    Returns the bf16 rows, one per launch of a forward."""
+    from fabric_tpu_torch.ops import bn_relu
+
+    g = torch.Generator().manual_seed(SEED)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for level, shape in eval_bn_shapes():
+            c = shape[-1]
+            x = torch.randn(*shape, generator=g).cuda().to(dtype)
+            scale, bias, mean = (torch.randn(c, generator=g).cuda()
+                                 for _ in range(3))
+            var = (torch.rand(c, generator=g) + 0.1).cuda()
+            args = (x, scale, bias, mean, var)
+            got = bn_relu.bn_relu_inference(*args)
+            torch.cuda.synchronize()
+            ref = bn_relu.bn_relu_inference_reference(*args)
+            diff = (got.float() - ref.float()).abs()
+            err = diff.max().item()
+            # element by element: the kernel may fuse x*s + t into one FMA
+            # where the plain version rounds the product first, so the
+            # fp32 values differ by at most 2^-22 (|x s| + |t|); bf16 adds
+            # one ulp of the output (2^-7 of the larger output, at most)
+            s, t = bn_relu._scale_shift(scale, bias, mean, var, 1e-5)
+            tol = 2.0 ** -22 * (x.float().abs() * s.abs() + t.abs())
+            if dtype == torch.bfloat16:
+                tol += 2.0 ** -7 * torch.maximum(got.float().abs(),
+                                                 ref.float().abs())
+            worst = (diff / tol.clamp_min(1e-30)).max().item()
+            ok = bool((diff <= tol).all()) and bool(
+                torch.isfinite(got.float()).all())
+            del diff, tol
+            xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view
+            kms = device_ms(lambda: bn_relu.bn_relu_inference(*args), 10)
+            pms = device_ms(lambda: bn_relu.bn_relu_inference_reference(
+                *args), 3)
+            lms = device_ms(lambda: torch.relu_(F.batch_norm(
+                xc, mean, var, scale, bias, training=False, eps=1e-5)), 10)
+            nbytes = 2 * x.numel() * x.element_size() + 4 * c * 4
+            t_ops, t_bytes = bound(3 * x.numel(), nbytes, PEAK_ELEMENTWISE)
+            print(f"kernel bn_relu_inference {level} {tuple(shape)} "
+                  f"{str(dtype)[6:]}: max_abs_err {err:.4g}, largest "
+                  f"error / per-element tol {worst:.3g} "
+                  f"{'ok' if ok else 'MISMATCH'} | {kms:.4f} ms, plain "
+                  f"{pms:.4f} ms, library {lms:.4f} ms (F.batch_norm + "
+                  f"relu_, two calls), bound {max(t_ops, t_bytes):.4f} ms "
+                  f"(bytes: x read once, y written once, 4 x C fp32)",
+                  flush=True)
+            if not ok:
+                fail(f"bn_relu_inference {shape} {dtype} disagrees with "
+                     "its plain version")
+            if dtype == torch.bfloat16:
+                row = dict(name="bn_relu_inference", err=err, ms=kms,
+                           plain_ms=pms, library_ms=lms, t_ops=t_ops,
+                           t_bytes=t_bytes)
+                rows += [row, row]  # conv1's and conv2's epilogue
+            del args, got, ref, x, xc
+    return rows
+
+
+def check_fused_grad():
+    """The fused Function's gradients against autograd of relu(a*b) on
+    the card, exactly, at the first fusion's training shape."""
+    from fabric_tpu_torch.ops import fused
+
+    g = torch.Generator().manual_seed(SEED)
+    a0, b0, go = (torch.randn(T_BATCH, T_PATCH, T_PATCH, BASE,
+                              generator=g).cuda().to(torch.bfloat16)
+                  for _ in range(3))
+    a1, b1 = a0.clone().requires_grad_(), b0.clone().requires_grad_()
+    fused.FusedMulRelu.apply(a1, b1).backward(go)
+    a2, b2 = a0.clone().requires_grad_(), b0.clone().requires_grad_()
+    torch.relu(a2 * b2).backward(go)
+    same = torch.equal(a1.grad, a2.grad) and torch.equal(b1.grad, b2.grad)
+    print(f"fused gradient vs autograd of relu(a*b), bf16 "
+          f"{tuple(a0.shape)}: {'equal' if same else 'DIFFERENT'}",
+          flush=True)
+    if not same:
+        fail("the fused Function's gradients differ from autograd's")
+
+
+def train_phase(root: str):
+    """Run train.loop.train on a synthetic dataset through the normal entry
+    point; returns (cfg, state, history, launches, eval forwards, tracker
+    records)."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.data.oscd import patch_grid
+    from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from fabric_tpu_torch.ops import bn_relu, conv, double_conv, fused
+    from fabric_tpu_torch.train.loop import train
+
+    cfg = Config(dataset_dir=os.path.join(root, "data"),
+                 weight_dir=os.path.join(root, "weights"),
+                 log_dir=os.path.join(root, "logs"), patch_size=T_PATCH,
+                 stride=32, batch_size=T_BATCH, epochs=T_EPOCHS,
+                 steps_per_epoch=T_STEPS, checkpoint_every=5,
+                 learning_rate=0.05, loss_function="tversky",
+                 optimizer="sgd", dtype="bfloat16", model_base=BASE,
+                 validation_cities=["val"], num_workers=4, seed=SEED)
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(cfg.dataset_dir, cfg, cities=list(T_CITIES),
+                               sizes=list(T_CITIES.values()), seed=SEED)
+    print(f"synthetic dataset {T_CITIES} written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, bn_relu.bn_relu_inference)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, history = train(cfg)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    n = {c: len(patch_grid(hw, T_PATCH, cfg.stride))
+         for c, hw in T_CITIES.items()}
+    n_train = sum(v for c, v in n.items() if c != "val")
+    steps = T_EPOCHS * min(T_STEPS, -(-n_train // T_BATCH))
+    tiles = 1  # the scene grid plus its edge stops
+    for side in T_CITIES["val"]:
+        tiles *= -(-side // T_PATCH)
+    evals = T_EPOCHS * (min(T_STEPS, -(-n["val"] // T_BATCH))
+                        + -(-tiles // T_BATCH))
+    expected = {"conv3x3_bias_relu": 0, "double_conv3x3_bias_relu": 0,
+                "fused_mul_relu": 5 * (steps + evals),
+                "bn_relu_inference": 18 * evals}
+    print(f"train.loop.train: {wall:.1f} s wall; kernels launched "
+          f"{launches} (expected {expected}: {steps} train steps, {evals} "
+          f"eval forwards)", flush=True)
+    if launches != expected:
+        fail("training did not go through the kernels as planned")
+    run_dir = os.path.join(cfg.log_dir, os.listdir(cfg.log_dir)[0])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fin:
+        records = [json.loads(line) for line in fin]
+    return cfg, state, history, launches, evals, records
+
+
+def card_vs_cpu_step():
+    """One fp32 train step (TF32 off) at full width, batch 4 at patch 96,
+    on the card and on the CPU from the same weights and batch."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.train.state import create_state
+    from fabric_tpu_torch.train.steps import make_train_step
+    from fabric_tpu_torch.weights import init_variables, variables_of
+
+    cfg = Config(model_base=BASE, patch_size=T_PATCH, batch_size=4,
+                 dtype="float32", learning_rate=0.05)
+    variables = init_variables(13, 2, BASE,
+                               torch.Generator().manual_seed(SEED + 1))
+    rng = np.random.RandomState(SEED)
+    img1 = rng.randn(4, T_PATCH, T_PATCH, 13).astype(np.float32)
+    label = (rng.rand(4, T_PATCH, T_PATCH) < 0.3).astype(np.int32)
+    img2 = img1 + 0.3 * rng.randn(*img1.shape).astype(np.float32)
+    img2[label == 1] += 1.5
+    batch = {"img1": img1, "img2": img2, "label": label,
+             "weight": np.ones(4, np.float32)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev, fold_bn=False, variables=variables,
+                            train=True)
+        state = create_state(cfg, model)
+        t0 = time.perf_counter()
+        _, stats = make_train_step(model, get_loss_fn(cfg))(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        loss = stats["loss"].item()
+        out[dev] = (loss, variables_of(model), time.perf_counter() - t0)
+    (l_gpu, (p_gpu, s_gpu), t_gpu), (l_cpu, (p_cpu, s_cpu), t_cpu) = (
+        out["cuda"], out["cpu"])
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+    p0 = dict(leaves(variables[0]))
+    pc, pg = dict(leaves(p_cpu)), dict(leaves(p_gpu))
+    sc, sg = dict(leaves(s_cpu)), dict(leaves(s_gpu))
+    step_max = max(np.abs(pc[k] - p0[k]).max() for k in pc)
+    p_err, p_worst = max((np.abs(pg[k] - pc[k]).max(), k) for k in pc)
+    s_err = max((np.abs(sg[k] - sc[k]) / (np.abs(sc[k]) + 1e-3)).max()
+                for k in sc)
+    l_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    # fp32 convolutions and sums in another order on the card (cuDNN, TF32
+    # off) than on the CPU, over 19 conv layers forward and backward.
+    # Train-mode BatchNorm takes the variance as E[x^2] - E[x]^2, which
+    # cancels where the mean is large against the spread, so its
+    # statistics, and the gradients through them, keep fewer bits than
+    # the loss: the loss within 1e-5 relative, every updated parameter
+    # within 1e-2 of the largest update, the BatchNorm running statistics
+    # within 1e-3 relative (1e-3 floor)
+    ok = (l_err <= 1e-5 and p_err <= 1e-2 * step_max and s_err <= 1e-3)
+    print(f"fp32 train step, card vs CPU (full width, batch 4, patch "
+          f"{T_PATCH}): loss {l_gpu:.7f} vs {l_cpu:.7f} (rel {l_err:.3g}, "
+          f"bound 1e-5); params max diff {p_err:.3g} at {p_worst} (bound "
+          f"1e-2 x largest update {step_max:.4g}); BN stats rel diff "
+          f"{s_err:.3g} (bound 1e-3); card {t_gpu:.2f} s with first-call "
+          f"set-up, CPU {t_cpu:.2f} s: {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        fail("the train step on the card disagrees with the CPU's")
+
+
+def cross_check_serving(cfg):
+    """The trained checkpoint served folded (ScenePredictor, conv kernels)
+    and unfolded (infer_city, eval-BatchNorm kernel) on the validation
+    city: masks agree but for near-ties."""
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.data.oscd import load_city
+    from fabric_tpu_torch.infer.device_tiling import (_gather_tiles,
+                                                      _plan_grid, _stitch)
+    from fabric_tpu_torch.infer.runner import infer_city, scene_dims
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.models import build_model
+
+    city = "val"
+    path = ckpt.resolve(cfg.weight_dir)
+    d1, d2 = load_city(cfg.dataset_dir, city, cfg,
+                       out_shape=scene_dims(cfg.dataset_dir, city))
+    folded = ScenePredictor(cfg, checkpoint=path, bucket=512,
+                            device="cuda").predict(d1, d2)
+    model = build_model(cfg, "cuda", fold_bn=False,
+                        variables=ckpt.load_variables(path))
+    unfolded = infer_city(model, cfg, city)
+    h, w = d1.shape[:2]
+    ys, xs, k, _, _ = _plan_grid(h, w, T_PATCH, T_PATCH, T_BATCH)
+    t1, t2 = (_gather_tiles(torch.from_numpy(d).cuda().to(torch.bfloat16),
+                            ys, xs, T_PATCH) for d in (d1, d2))
+    with torch.inference_mode():
+        logits = torch.cat([model(t1[i:i + T_BATCH], t2[i:i + T_BATCH])
+                            for i in range(0, k, T_BATCH)])
+    margin = _stitch((logits[..., 1] - logits[..., 0]).abs(), ys, xs, k, h,
+                     w, T_PATCH).cpu().numpy()
+    scale = logits.abs().max().item()
+    flips = folded != unfolded
+    worst = float(margin[flips].max()) if flips.any() else 0.0
+    print(f"trained checkpoint {os.path.basename(path)} on the {h}x{w} "
+          f"validation city, folded (ScenePredictor) vs unfolded "
+          f"(infer_city): agreement {1 - flips.mean():.6f} "
+          f"({int(flips.sum())} flips, largest margin at a flip "
+          f"{worst:.4g}, bound {scale / 16:.4g}); change share "
+          f"{unfolded.mean():.4f}", flush=True)
+    if unfolded.shape != (h, w) or worst > scale / 16 or flips.mean() > 1e-3:
+        fail("folded and unfolded serving of the trained checkpoint "
+             "disagree")
+    return model
+
+
+def loop_split(cfg, state, step):
+    """What a loop step holds, timed apart on the host clock over one
+    epoch's batches as the loop draws them (the last epoch's seed): the
+    patch pipeline alone (batches prefetched to the card, no step), the
+    pipeline with the train step and no periodic saves, and one periodic
+    save (median of 3, the card idle first).  Returns ms per batch, per
+    step and per save."""
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.data.oscd import full_load, get_train_val_metadata
+    from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_iterator,
+                                                prefetch_to_device)
+
+    data = full_load(cfg.dataset_dir, cfg,
+                     max_workers=cfg.num_workers or None)
+    train_md, _ = get_train_val_metadata(
+        cfg.dataset_dir, cfg.validation_cities, cfg.patch_size, cfg.stride)
+
+    def ms_per_batch(consume) -> float:
+        batches = prefetch_to_device(batch_iterator(
+            PatchSampler(data, train_md, cfg.patch_size,
+                         augment=cfg.augmentation),
+            cfg.batch_size, shuffle=cfg.shuffle_train, pad_mode="wrap",
+            seed=cfg.seed + T_EPOCHS - 1, max_batches=cfg.steps_per_epoch),
+            "cuda", size=cfg.prefetch)
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 0
+        for batch in batches:
+            consume(batch)
+            n += 1
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    pipe_ms = ms_per_batch(lambda b: None)
+    nosave_ms = ms_per_batch(lambda b: step(state, b))
+    saves = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(state, os.path.join(os.path.dirname(cfg.weight_dir),
+                                      "split"), T_EPOCHS - 1, tag="periodic",
+                  metadata={"periodic": True, "batches_done": 5},
+                  keep_last=cfg.keep_last)
+        saves.append(1e3 * (time.perf_counter() - t0))
+    return pipe_ms, nosave_ms, statistics.median(saves)
+
+
+def report_training(cfg, state, history, records, smi, model):
+    """Print the training rate and step, eval-forward and epoch times;
+    the device-resident step time (one batch kept on the card) beside the
+    loop's host-clock step time splits host from device."""
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.train.steps import make_train_step
+
+    epochs = {r["_step"]: r for r in records if "train_examples_per_sec" in r}
+    seconds = {r["_step"]: r["epoch_seconds"] for r in records
+               if "epoch_seconds" in r}
+    last = epochs[T_EPOCHS - 1]
+    g = torch.Generator().manual_seed(SEED)
+    t1, t2 = (torch.randn(T_BATCH, T_PATCH, T_PATCH, 13, generator=g).cuda()
+              for _ in range(2))
+    with torch.inference_mode():
+        eval_ms = device_ms(lambda: model(t1, t2), 5)
+    batch = {"img1": t1, "img2": t2,
+             "label": (t1[..., 0] > t2[..., 0]).to(torch.int32),
+             "weight": torch.ones(T_BATCH, device=t1.device)}
+    step = make_train_step(state.model, get_loss_fn(cfg))
+    step_ms = device_ms(lambda: step(state, batch), 5)
+    losses = [h["cd_losses"] for h in history["train"]]
+    loop_ms = 1e3 * last["train_seconds"] / last["train_steps"]
+    epoch_s = [round(seconds[e], 2) for e in sorted(seconds)]
+    print(f"training rate ({smi}): {last['train_examples_per_sec']:.1f} "
+          f"train examples/s in epoch {T_EPOCHS - 1} (steady state, after "
+          f"epoch 0's warm-up; {epochs[0]['train_examples_per_sec']:.1f} in "
+          f"epoch 0), patch {T_PATCH}, batch {T_BATCH}, full width, bf16, "
+          f"tversky + SGD; {loop_ms:.1f} ms per train step in the loop "
+          f"(host clock, pipeline included), {step_ms:.1f} ms with the "
+          f"batch resident on the card (CUDA events); {eval_ms:.2f} ms per "
+          f"eval forward of {T_BATCH} tiles (CUDA events); epoch seconds "
+          f"{epoch_s}", flush=True)
+    pipe_ms, nosave_ms, save_ms = loop_split(cfg, state, step)
+    n_saves = T_STEPS // cfg.checkpoint_every
+    print(f"loop step split (host clock, {smi}): patch pipeline alone "
+          f"{pipe_ms:.1f} ms per batch; pipeline + train step, no periodic "
+          f"saves {nosave_ms:.1f} ms per step; one periodic save "
+          f"{save_ms:.1f} ms (median of 3, card idle first), x {n_saves} "
+          f"saves per {T_STEPS} steps = {save_ms * n_saves / T_STEPS:.1f} ms "
+          f"per step; the loop {loop_ms:.1f} ms per step", flush=True)
+    print(f"train cd_losses per epoch {[round(v, 4) for v in losses]}; "
+          f"validation cd_f1scores "
+          f"{[round(v['cd_f1scores'], 4) for v in history['val']]}; scene F1 "
+          f"{[round(v.get('val_scene_f1', -1), 4) for v in history['val']]}",
+          flush=True)
+    if history["status"] != "complete" or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        fail("training did not complete with a falling, finite loss")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -336,6 +717,18 @@ def main() -> int:
           f"{fwd_ms / (SCENE * SCENE / (PATCH * PATCH) / BATCH):.2f} ms",
           flush=True)
 
+    # --- the training path, then its kernel and cross checks ---
+    with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:
+        cfg_t, state, history, t_launches, evals, records = train_phase(
+            root)
+        bn_rows = check_bn_kernel()
+        check_fused_grad()
+        card_vs_cpu_step()
+        model = cross_check_serving(cfg_t)
+        report_training(cfg_t, state, history, records, smi, model)
+    rows += bn_rows
+    launches["bn_relu_inference"] = t_launches["bn_relu_inference"]
+
     sources = {
         "conv3x3_bias_relu": ("cuda",
                               "fabric_tpu_torch/csrc/conv3x3_bias_relu.cu",
@@ -345,6 +738,8 @@ def main() -> int:
             "fabric_tpu/ops/pallas_double_conv.py:190"),
         "fused_mul_relu": ("triton", "fabric_tpu_torch/ops/fused.py",
                            "fabric_tpu/ops/pallas_fused.py:53"),
+        "bn_relu_inference": ("triton", "fabric_tpu_torch/ops/bn_relu.py",
+                              "fabric_tpu/ops/pallas_fused.py:77"),
     }
     kernels = []
     for name, (route, source, replaces) in sources.items():
@@ -364,7 +759,11 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in mine),
         })
     print("per-kernel ms, plain_ms, bound_ms and library_ms are summed over "
-          f"the kernel's launches in one {BATCH}-tile forward")
+          f"the kernel's launches in one forward: {BATCH} serving tiles at "
+          f"patch {PATCH} for the conv and fusion kernels (launches: the "
+          f"serve), {T_BATCH} eval tiles at patch {T_PATCH} in bf16 for "
+          f"bn_relu_inference (launches: the training run, {evals} eval "
+          "forwards)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

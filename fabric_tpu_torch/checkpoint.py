@@ -1,11 +1,18 @@
-"""Read ``fabric_tpu`` checkpoints without JAX or flax (read-only).
+"""Checkpoints in ``fabric_tpu``'s format, without JAX or flax.
 
 ``fabric_tpu/checkpoint.py`` writes ``<tag>_epoch_<N>.msgpack`` files with
 flax's serializer: a msgpack map whose array leaves are msgpack ext type 1
 (numpy scalars ext type 3), each holding a msgpack'd ``(shape, dtype name,
-C-order bytes)`` triple.  ``latest.json`` / ``best.json`` pointers name the
-newest and the best-metric file.  This module resolves those pointers and
-decodes the ``params`` and ``batch_stats`` trees to numpy.
+C-order bytes)`` triple.  The map holds ``params``, ``batch_stats``,
+``opt_state`` (optax's state tree for the configured optimizer, as
+``train/state.py`` lays it out), ``step`` and ``meta_json``, the metadata
+that travels in the same atomic write as the weights (``batches_done`` for
+mid-epoch resume).  A JSON sidecar mirrors the metadata, and
+``latest.json`` / ``best.json`` pointers name the newest and the
+best-metric file.  This module writes the same files (:func:`save`,
+:func:`prune`) and reads them (:func:`restore`, :func:`resume_if_requested`,
+and :func:`load_variables` for serving), so a checkpoint of either package
+restores in the other.  ``msgpack`` is imported only where it is used.
 """
 
 from __future__ import annotations
@@ -18,6 +25,99 @@ import numpy as np
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+
+
+def sidecar_name(tag: str, epoch: int) -> str:
+    """The metadata sidecar of one save: ``metadata_epoch_N.json`` for
+    best-metric saves, ``metadata_<tag>_epoch_N.json`` for the others."""
+    return (f"metadata_epoch_{epoch}.json" if tag == "checkpoint"
+            else f"metadata_{tag}_epoch_{epoch}.json")
+
+
+def _ext_pack(x):
+    import msgpack
+
+    def pack(a):
+        return msgpack.packb((a.shape, a.dtype.name, a.tobytes("C")),
+                             use_bin_type=True)
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, pack(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, pack(np.asarray(x)))
+    raise TypeError(f"cannot serialise {type(x).__name__}")
+
+
+def _write_atomic(path: str, data: bytes) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as fout:
+        fout.write(data)
+    os.replace(tmp, path)
+
+
+def save(state, directory: str, epoch: int, metadata: dict | None = None,
+         tag: str = "checkpoint", keep_last: int = 0) -> str:
+    """Write ``<dir>/<tag>_epoch_<N>.msgpack`` and its JSON sidecar, point
+    ``latest`` (and for best-metric saves, ``tag="checkpoint"``, also
+    ``best``) at it, and with ``keep_last`` > 0 prune the tag's older
+    saves.  Each file is written to a temporary name and renamed."""
+    import msgpack
+
+    os.makedirs(directory, exist_ok=True)
+    meta = dict(metadata or {})
+    meta.update({"epoch": epoch, "step": int(state.step)})
+    params, batch_stats = state.variables()
+    payload = {"params": params, "batch_stats": batch_stats,
+               "opt_state": state.opt_state, "step": int(state.step),
+               "meta_json": json.dumps(meta, default=float)}
+    path = os.path.join(directory, f"{tag}_epoch_{epoch}.msgpack")
+    _write_atomic(path, msgpack.packb(payload, default=_ext_pack,
+                                      strict_types=True))
+    _write_atomic(os.path.join(directory, sidecar_name(tag, epoch)),
+                  json.dumps(meta, indent=2, default=float).encode())
+    _write_pointer(directory, "latest", path, epoch, tag)
+    if tag == "checkpoint":
+        _write_pointer(directory, "best", path, epoch, tag)
+    if keep_last > 0:
+        prune(directory, keep_last, tag)
+    return path
+
+
+def _write_pointer(directory: str, name: str, path: str, epoch: int,
+                   tag: str) -> None:
+    _write_atomic(os.path.join(directory, f"{name}.json"), json.dumps(
+        {"file": os.path.basename(path), "epoch": epoch,
+         "tag": tag}).encode())
+
+
+def _saves(directory: str, tag: str) -> list[tuple[tuple, str]]:
+    """((epoch, mtime), file name) of a tag's saves, oldest first."""
+    pat = re.compile(rf"{re.escape(tag)}_epoch_(\d+)\.msgpack$")
+    found = []
+    for name in os.listdir(directory):
+        m = pat.match(name)
+        if m:
+            path = os.path.join(directory, name)
+            found.append(((int(m.group(1)), os.path.getmtime(path)), name))
+    return sorted(found)
+
+
+def prune(directory: str, keep_last: int, tag: str) -> list[str]:
+    """Delete all but the newest ``keep_last`` saves of one tag (and their
+    sidecars), never one that ``latest`` or ``best`` points at; returns
+    the deleted paths."""
+    protected = {os.path.basename(p) for p in
+                 (read_pointer(directory, n) for n in ("latest", "best")) if p}
+    deleted = []
+    for (epoch, _), name in _saves(directory, tag)[:-keep_last]:
+        if name in protected:
+            continue
+        path = os.path.join(directory, name)
+        os.remove(path)
+        deleted.append(path)
+        sidecar = os.path.join(directory, sidecar_name(tag, epoch))
+        if os.path.exists(sidecar):
+            os.remove(sidecar)
+    return deleted
 
 
 def read_pointer(directory: str, name: str) -> str | None:
@@ -45,18 +145,9 @@ def latest_checkpoint(directory: str, tag: str | None = None) -> str | None:
         pointed = read_pointer(directory, "latest")
         if pointed is not None:
             return pointed
-    best, best_key = None, (-1, -1.0)
-    for t in [tag] if tag else ["checkpoint", "periodic"]:
-        pat = re.compile(rf"{re.escape(t)}_epoch_(\d+)\.msgpack$")
-        for name in os.listdir(directory):
-            m = pat.match(name)
-            if not m:
-                continue
-            path = os.path.join(directory, name)
-            key = (int(m.group(1)), os.path.getmtime(path))
-            if key > best_key:
-                best, best_key = path, key
-    return best
+    found = sorted(s for t in ([tag] if tag else ["checkpoint", "periodic"])
+                   for s in _saves(directory, t))
+    return os.path.join(directory, found[-1][1]) if found else None
 
 
 def resolve(checkpoint: str) -> str:
@@ -82,12 +173,54 @@ def _ext_hook(code: int, data: bytes):
     return msgpack.ExtType(code, data)
 
 
-def load_variables(path: str) -> tuple[dict, dict]:
-    """(params, batch_stats) numpy trees of a ``.msgpack`` checkpoint."""
+def read_payload(path: str) -> dict:
+    """The decoded map of a ``.msgpack`` checkpoint (numpy leaves)."""
     import msgpack
 
     with open(path, "rb") as fin:
         payload = msgpack.unpackb(fin.read(), ext_hook=_ext_hook, raw=False)
     if not isinstance(payload, dict) or "params" not in payload:
         raise ValueError(f"{path!r} is not a fabric_tpu checkpoint")
+    return payload
+
+
+def load_variables(path: str) -> tuple[dict, dict]:
+    """(params, batch_stats) numpy trees of a ``.msgpack`` checkpoint."""
+    payload = read_payload(path)
     return payload["params"], payload.get("batch_stats", {})
+
+
+def restore(state, path: str):
+    """Load a checkpoint file into ``state`` (a TrainState of the same
+    model and optimizer config) in place; raises ValueError on a mismatch.
+    Returns the state and the checkpoint's metadata."""
+    payload = read_payload(path)
+    if "opt_state" not in payload:
+        raise ValueError(f"{path!r} holds no optimizer state")
+    state.tx.load_state_tree(payload["opt_state"])
+    from fabric_tpu_torch.weights import load_variables as load_into
+    load_into(state.model, payload["params"], payload.get("batch_stats", {}))
+    state.step = int(payload["step"])
+    meta = payload.get("meta_json") or ""
+    return state, (json.loads(meta) if meta else {})
+
+
+def resume_if_requested(cfg, state):
+    """Honour ``cfg.resume``: "" -> fresh; a file -> load it; a directory
+    -> load its latest save.  Returns (state, resumed epoch, metadata);
+    the epoch is -1 and the metadata {} when nothing was loaded."""
+    target = getattr(cfg, "resume", "")
+    if not target:
+        return state, -1, {}
+    if "://" in target:
+        raise NotImplementedError(
+            f"resume from {target!r}: remote stores are not ported to "
+            "fabric_tpu_torch yet: ROADMAP.md queue 1 item 5")
+    path = target
+    if os.path.isdir(target):
+        path = latest_checkpoint(target)
+        if path is None:
+            return state, -1, {}
+    m = re.search(r"(?:^|/)[a-z]+_epoch_(\d+)\.msgpack$", path)
+    state, meta = restore(state, path)
+    return state, (int(m.group(1)) if m else -1), meta

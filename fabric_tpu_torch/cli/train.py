@@ -1,0 +1,35 @@
+"""``python -m fabric_tpu_torch.cli.train --config <json> [--key value ...]
+[--device cuda|cpu]``
+
+Trains a BiDateNet with the port (counterpart of
+``fabric_tpu/cli/train.py``): the same JSON config and per-key overrides
+as ``fabric_tpu``, on the card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+
+def main(argv=None) -> int:
+    from fabric_tpu_torch.config import load_config
+    from fabric_tpu_torch.train.loop import train
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default=None,
+                     help="cuda (default) or cpu")
+    opts, rest = pre.parse_known_args(sys.argv[1:] if argv is None else argv)
+    cfg = load_config(argv=rest)
+    _, history = train(cfg, device=opts.device)
+    if history.get("status") == "preempted":
+        logging.getLogger("fabric_tpu_torch").warning(
+            "run preempted: relaunch with --resume %s", cfg.weight_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,7 +6,8 @@ BatchNorm on the host, and serves scene pairs of any size: each scene is
 edge-padded up to the next multiple of ``bucket``, run through the grid
 tiler of ``infer/device_tiling.py`` on the device, and the mask is cropped
 back.  One runner is built per bucket and reused.  The folded forward runs
-on the port's hand-written kernels.
+on the port's hand-written kernels; with ``fold_bn=False`` the eval-BN
+forward runs, on the eval-BatchNorm kernel.
 
 Serving modes of ``fabric_tpu`` that this port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
@@ -53,8 +54,9 @@ class ScenePredictor:
         a generator seeded 0 (benchmarks, smoke runs).
       bucket: scene dims are edge-padded up to multiples of this (0 =
         exact shapes, one runner per distinct shape).
-      fold_bn: fold BatchNorm into the conv weights (the kernel path);
-        False keeps eval BatchNorm, which runs on the CPU only.
+      fold_bn: fold BatchNorm into the conv weights (the conv kernels);
+        False keeps eval BatchNorm: ``F.conv2d`` convs with the
+        ``bn_relu_inference`` kernel as their epilogue.
       device: where the model runs; None means the card.
       quant, mesh, shard_scene, overlap_band_rows, fullconv_band_rows,
       fullconv_stream, aot_dir, bundle, tracker: ``fabric_tpu`` serving
@@ -86,13 +88,11 @@ class ScenePredictor:
         self.bucket = bucket
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
-        if self.device.type == "cuda" and not fold_bn:
-            raise _not_ported("serving with eval BatchNorm on the card "
-                              "(fold_bn=False)", "5 (training path, eval-BN "
-                              "kernel)")
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise NotImplementedError("the CUDA kernels compute in bfloat16; "
-                                      "serve with cfg.dtype='bfloat16'")
+        if (self.device.type == "cuda" and fold_bn
+                and self.dtype != torch.bfloat16):
+            raise NotImplementedError("the conv kernels compute in bfloat16; "
+                                      "serve folded with cfg.dtype="
+                                      "'bfloat16'")
         variables = None
         if checkpoint:
             variables = ckpt.load_variables(ckpt.resolve(checkpoint))

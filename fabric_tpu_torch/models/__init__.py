@@ -15,19 +15,26 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def build_model(cfg, device, generator: torch.Generator | None = None,
-                fold_bn: bool = True, variables: tuple | None = None
-                ) -> BiDateNet:
-    """A BiDateNet for ``cfg`` on ``device``, in eval mode.
+                fold_bn: bool = True, variables: tuple | None = None,
+                train: bool = False) -> BiDateNet:
+    """A BiDateNet for ``cfg`` on ``device``.
 
     Weights come from ``variables`` (a ``fabric_tpu`` (params,
     batch_stats) tree, e.g. from a checkpoint) or, when it is None, from
     fresh initialisation drawn with ``generator`` (a CPU
-    ``torch.Generator``; a new one seeded 0 when None).  With ``fold_bn``
-    the BatchNorm layers are folded into the convs."""
+    ``torch.Generator``; a new one seeded 0 when None).  For serving
+    (``train=False``) the model is in eval mode without gradients, with
+    BatchNorm folded into the convs when ``fold_bn``.  With ``train`` it
+    keeps BatchNorm (``fold_bn`` must be False), its parameters take
+    gradients, and ``cfg.per_date_batchnorm`` selects per-date batch
+    statistics."""
     if cfg.model != "bidate":
         raise NotImplementedError(
             f"model {cfg.model!r} is not ported yet: the multi-date models "
             "are ROADMAP.md queue 1 item 8")
+    if train and fold_bn:
+        raise ValueError("a model built for training keeps BatchNorm: pass "
+                         "fold_bn=False")
     base = cfg.model_base or 64
     if variables is None:
         if generator is None:
@@ -35,6 +42,8 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
         variables = weights.init_variables(cfg.n_channels, cfg.n_classes,
                                            base, generator)
     model = BiDateNet(cfg.n_channels, cfg.n_classes, base, fold_bn=fold_bn,
-                      dtype=compute_dtype(cfg))
+                      dtype=compute_dtype(cfg),
+                      joint_date_batchnorm=not cfg.per_date_batchnorm)
     weights.load_variables(model, *variables)
-    return model.to(device).eval()
+    model.requires_grad_(train)
+    return model.to(device).train(train)

@@ -1,10 +1,15 @@
-"""Siamese bi-date U-Net for change detection, eval (counterpart of
+"""Siamese bi-date U-Net for change detection (counterpart of
 ``fabric_tpu/models/bidate.py``).
 
-Shared encoder (inc 13->64, down x4: 64->128->256->512->512) run once on
-both dates stacked on the batch axis, per-level fusion ``relu(d2 * d1)``,
-and a skip-connected decoder (up 1024->256, 512->128, 256->64, 128->64)
-with a 1x1 head.  Returns float32 logits.
+Shared encoder (inc 13->64, down x4: 64->128->256->512->512), per-level
+fusion ``relu(d2 * d1)``, and a skip-connected decoder (up 1024->256,
+512->128, 256->64, 128->64) with a 1x1 head.  Returns float32 logits.
+
+The encoder runs once on both dates stacked on the batch axis, so
+train-mode BatchNorm takes joint two-date batch statistics; with
+``joint_date_batchnorm=False`` a train forward encodes each date on its
+own, as the reference's twice-applied encoder does
+(``fabric_tpu/models/bidate.py:102-110``).  Eval is the same either way.
 """
 
 from __future__ import annotations
@@ -17,17 +22,20 @@ from fabric_tpu_torch.ops import fused as fused_ops
 
 
 def fuse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Multiplicative-ReLU Siamese fusion: relu(b * a)."""
-    return fused_ops.fused_mul_relu(b, a)
+    """Multiplicative-ReLU Siamese fusion: relu(b * a), one kernel launch
+    (under no_grad or inference_mode the Function records no graph)."""
+    return fused_ops.FusedMulRelu.apply(b, a)
 
 
 class BiDateNet(nn.Module):
     def __init__(self, n_channels: int = 13, n_classes: int = 2,
                  base: int = 64, fold_bn: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 joint_date_batchnorm: bool = True):
         super().__init__()
         self.fold_bn = fold_bn
         self.dtype = dtype
+        self.joint_date_batchnorm = joint_date_batchnorm
         b = base
         self.inc = DoubleConv(n_channels, b, fold_bn)
         self.down1 = Down(b, 2 * b, fold_bn)
@@ -40,19 +48,30 @@ class BiDateNet(nn.Module):
         self.up4 = Up(2 * b, b, fold_bn)
         self.outc = OutConv(b, n_classes)
 
-    def forward(self, x_d1: torch.Tensor, x_d2: torch.Tensor) -> torch.Tensor:
+    def _encode(self, x: torch.Tensor, train: bool):
+        x1 = self.inc(x, train)
+        x2 = self.down1(x1, train)
+        x3 = self.down2(x2, train)
+        x4 = self.down3(x3, train)
+        return x1, x2, x3, x4, self.down4(x4, train)
+
+    def forward(self, x_d1: torch.Tensor, x_d2: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         """x_d1, x_d2: (N, H, W, n_channels).  Returns float32 logits
-        (N, H, W, n_classes)."""
-        n = x_d1.shape[0]
-        x1 = self.inc(torch.cat([x_d1, x_d2]).to(self.dtype))
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        f1, f2, f3, f4, f5 = (fuse(x[:n], x[n:])
-                              for x in (x1, x2, x3, x4, x5))
-        y = self.up1(f5, f4)
-        y = self.up2(y, f3)
-        y = self.up3(y, f2)
-        y = self.up4(y, f1)
+        (N, H, W, n_classes); ``train`` selects batch-statistics
+        BatchNorm (and updates the running averages)."""
+        if self.joint_date_batchnorm or not train:
+            n = x_d1.shape[0]
+            feats = self._encode(torch.cat([x_d1, x_d2]).to(self.dtype),
+                                 train)
+            d1 = [x[:n] for x in feats]
+            d2 = [x[n:] for x in feats]
+        else:
+            d1 = self._encode(x_d1.to(self.dtype), train)
+            d2 = self._encode(x_d2.to(self.dtype), train)
+        f1, f2, f3, f4, f5 = (fuse(a, b) for a, b in zip(d1, d2))
+        y = self.up1(f5, f4, train)
+        y = self.up2(y, f3, train)
+        y = self.up3(y, f2, train)
+        y = self.up4(y, f1, train)
         return self.outc(y).float()

@@ -1,4 +1,4 @@
-"""U-Net building blocks for eval, NHWC (counterparts of
+"""U-Net building blocks, NHWC (counterparts of
 ``fabric_tpu/models/blocks.py``).
 
 Parameter names and layouts follow ``fabric_tpu``'s flax tree (``conv1``
@@ -9,11 +9,15 @@ Parameter names and layouts follow ``fabric_tpu``'s flax tree (``conv1``
 computes in the activations' dtype.
 
 Folded DoubleConv blocks (BatchNorm folded into the convs) are the serving
-path and run on the hand-written kernels, dispatched like
+path and run on the hand-written conv kernels, dispatched like
 ``fabric_tpu/models/blocks.py:115-152`` with ``use_pallas``: the fused
 double-conv kernel where its gate holds, otherwise two conv3x3 launches.
-Blocks with eval BatchNorm run in plain PyTorch, on the CPU only: on the
-card they need the eval-BN kernel of the training slice (ROADMAP.md).
+Blocks with BatchNorm train (batch statistics, ``TorchBatchNorm``'s rules)
+or evaluate from running averages; in eval the BatchNorm + ReLU epilogue
+is the ``bn_relu_inference`` kernel (``ops/bn_relu.py``).  Their convs are
+``F.conv2d`` (cuDNN on the card): ``fabric_tpu`` computes them with XLA's
+``nn.Conv`` outside any Pallas kernel (``blocks.py:168-174``), a plain
+large product that stays a library call here, not an unported kernel.
 """
 
 from __future__ import annotations
@@ -22,12 +26,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fabric_tpu_torch.ops import bn_relu as bn_relu_ops
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import double_conv as double_conv_ops
 from fabric_tpu_torch.ops.resize import pad_to_match, upsample2x_align_corners
 
 
 def _weight(*shape: int) -> nn.Parameter:
+    """A frozen parameter; ``build_model(train=True)`` unfreezes them."""
     return nn.Parameter(torch.zeros(shape), requires_grad=False)
 
 
@@ -39,26 +45,53 @@ class Conv(nn.Module):
         self.kernel = _weight(size, size, cin, cout)
         self.bias = _weight(cout)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """SAME conv + bias in x's dtype (flax ``nn.Conv(dtype=...)``)."""
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     self.kernel.to(x.dtype).permute(3, 2, 0, 1),
+                     padding=self.kernel.shape[0] // 2)
+        return y.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
+
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm from running averages, in float32 (flax
-    ``TorchBatchNorm`` with ``use_running_average=True``)."""
+    """flax ``TorchBatchNorm`` (``fabric_tpu/models/blocks.py:32-88``):
+    statistics in float32; train mode normalises with the biased batch
+    variance max(E[x^2] - E[x]^2, 0) and moves the running averages by
+    momentum 0.9 on the old value, the variance's by the unbiased
+    n/(n-1) estimate; eval mode uses the running averages."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = _weight(features)
         self.bias = _weight(features)
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = (self.var + self.eps) ** -0.5
-        return (x.float() - self.mean) * (inv * self.scale) + self.bias
+        """Train-mode BatchNorm; float32 output."""
+        xf = x.float()
+        mean = xf.mean((0, 1, 2))
+        var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
+        n = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            unbiased = var * (n / max(n - 1, 1))
+            self.var.copy_(m * self.var + (1 - m) * unbiased)
+        inv = (var + self.eps) ** -0.5
+        return (xf - mean) * (inv * self.scale) + self.bias
+
+    def relu_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval BatchNorm + ReLU, rounded to x's dtype (the kernel)."""
+        return bn_relu_ops.bn_relu_inference(x, self.scale, self.bias,
+                                             self.mean, self.var, self.eps)
 
 
 class DoubleConv(nn.Module):
-    """(3x3 conv -> BN -> ReLU) x 2, SAME padding; BN folded or eval."""
+    """(3x3 conv -> BN -> ReLU) x 2, SAME padding; BN folded or not."""
 
     def __init__(self, cin: int, cout: int, fold_bn: bool = True):
         super().__init__()
@@ -69,9 +102,11 @@ class DoubleConv(nn.Module):
             self.bn1 = BatchNorm(cout)
             self.bn2 = BatchNorm(cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         c1, c2 = self.conv1, self.conv2
         if self.fold_bn:
+            if train:
+                raise ValueError("fold_bn is an inference-only transform")
             _, h, w, cin = x.shape
             cout = c2.kernel.shape[-1]
             if double_conv_ops.supports(h, w, cin, cout, cout):
@@ -79,18 +114,9 @@ class DoubleConv(nn.Module):
                     x, c1.kernel, c1.bias, c2.kernel, c2.bias)
             x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias)
             return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias)
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "DoubleConv with eval BatchNorm runs on the CPU only; on the "
-                "card it needs the eval-BN kernel (bn_relu_inference) of the "
-                "training slice, ROADMAP.md queue 1 item 5.  Serve with "
-                "fold_bn=True")
         for c, bn in ((c1, self.bn1), (c2, self.bn2)):
-            # flax nn.Conv in the compute dtype, then float32 BN
-            y = F.conv2d(x.permute(0, 3, 1, 2),
-                         c.kernel.to(x.dtype).permute(3, 2, 0, 1), padding=1)
-            y = y.permute(0, 2, 3, 1) + c.bias.to(x.dtype)
-            x = torch.relu(bn(y)).to(x.dtype)
+            y = c(x)
+            x = torch.relu(bn(y)).to(x.dtype) if train else bn.relu_eval(y)
         return x
 
 
@@ -108,8 +134,8 @@ class Down(nn.Module):
         super().__init__()
         self.conv = DoubleConv(cin, cout, fold_bn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(max_pool2x2(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv(max_pool2x2(x), train)
 
 
 class Up(nn.Module):
@@ -120,10 +146,11 @@ class Up(nn.Module):
         super().__init__()
         self.conv = DoubleConv(cin, cout, fold_bn)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         x1 = pad_to_match(upsample2x_align_corners(x1), x2.shape[1],
                           x2.shape[2])
-        return self.conv(torch.cat([x2, x1], dim=-1))
+        return self.conv(torch.cat([x2, x1], dim=-1), train)
 
 
 class OutConv(nn.Module):

@@ -1,8 +1,10 @@
-"""Siamese fusion relu(a * b), elementwise (inference).
+"""Siamese fusion relu(a * b), elementwise, with a gradient.
 
 Counterpart of ``fabric_tpu/ops/pallas_fused.py:fused_mul_relu``.  On a
 CUDA tensor :func:`fused_mul_relu` launches a Triton kernel: one masked 1-D
-pass over the flattened tensors.
+pass over the flattened tensors.  :class:`FusedMulRelu` puts the same
+forward under autograd for training; its backward is plain elementwise
+PyTorch (``fabric_tpu`` has no backward kernel for it either).
 
 Bound on the H100: two reads and one write per element and one multiply
 and one max, so bytes bound it (3 x 2 bytes per element at 3.35 TB/s).  The
@@ -64,3 +66,23 @@ def fused_mul_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 fused_mul_relu.launches = 0
+
+
+class FusedMulRelu(torch.autograd.Function):
+    """relu(a * b) with the kernel forward and a plain backward:
+    g_a = g * b * [out > 0], g_b = g * a * [out > 0].  The mask ``out > 0``
+    is ``jax.nn.relu``'s (zero gradient at 0), and the backward repeats
+    autograd's own ops for ``torch.relu(a * b)``, so the gradients equal
+    autograd's exactly."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = fused_mul_relu(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        g = torch.where(out > 0, g, torch.zeros_like(g))
+        return g * b, g * a

@@ -39,12 +39,24 @@ def _interp_matrix(out_size: int, in_size: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=128)
+def _interp_tensor(out_size: int, in_size: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_interp_matrix` on ``device``, copied there once: a copy
+    from pageable host memory to the card waits for the card, which would
+    stall the host at every upsample.  Made outside inference mode, so a
+    training forward may save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(out_size, in_size)).to(
+            device, dtype)
+
+
 def resize_align_corners(x: torch.Tensor, out_h: int,
                          out_w: int) -> torch.Tensor:
     """Bilinear align-corners resize of an (N, H, W, C) tensor."""
     _, h, w, _ = x.shape
-    wh = torch.from_numpy(_interp_matrix(out_h, h)).to(x.device, x.dtype)
-    ww = torch.from_numpy(_interp_matrix(out_w, w)).to(x.device, x.dtype)
+    wh = _interp_tensor(out_h, h, x.device, x.dtype)
+    ww = _interp_tensor(out_w, w, x.device, x.dtype)
     y = torch.einsum("nhwc,Hh->nHwc", x, wh)
     return torch.einsum("nhwc,Ww->nhWc", y, ww).contiguous()
 

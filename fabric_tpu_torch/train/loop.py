@@ -1,0 +1,397 @@
+"""The training loop: epochs of train and validation, whole-scene
+inference of the validation cities, best-metric and periodic checkpoints
+with exact resume (counterpart of ``fabric_tpu/train/loop.py``, one
+process on one device).
+
+Per epoch: train steps over shuffled, augmented, wrap-padded batches; a
+validation pass over mask-padded batches (running-average BatchNorm, on
+the ``bn_relu_inference`` kernel on the card); the change mask of each
+validation city with its scene precision/recall/F1; a checkpoint when any
+of the validation precision, recall or F1 improved.  Per-step stats stay
+on the device and come to the host once per epoch, or at a periodic save.
+A periodic save (``checkpoint_every``) carries the epoch's progress and
+stat rows so far, so a resumed run finishes the epoch bit-identically; a
+SIGTERM (or ``guard.request()``) forces that save at the next step and
+unwinds with ``history["status"] == "preempted"``; a non-finite loss
+halts the run at the next host sync, before it can overwrite a finite
+periodic checkpoint.
+
+Options of ``fabric_tpu``'s loop that the port does not have yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from fabric_tpu_torch import checkpoint as ckpt
+from fabric_tpu_torch.data.image import read_png_gray, scale, stretch_8bit
+from fabric_tpu_torch.data.oscd import (full_load, get_train_val_metadata,
+                                        load_label, metadata_from_dataset,
+                                        resolve_layout)
+from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_iterator,
+                                            prefetch_to_device)
+from fabric_tpu_torch.infer.runner import infer_city
+from fabric_tpu_torch.infer.service import _not_ported, resolve_device
+from fabric_tpu_torch.losses import get_loss_fn
+from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
+from fabric_tpu_torch.models import build_model
+from fabric_tpu_torch.track import Tracker
+from fabric_tpu_torch.train.preemption import (PreemptionGuard,
+                                               TrainingPreempted)
+from fabric_tpu_torch.train.state import create_state
+from fabric_tpu_torch.train.steps import make_eval_step, make_train_step
+
+log = logging.getLogger("fabric_tpu_torch")
+
+_STAT_KEYS = ("loss", "tp", "fp", "fn", "tn")
+_COUNT_KEYS = ("tp", "fp", "fn", "tn")
+
+
+def _check_ported(cfg) -> None:
+    """Raise for a config option of fabric_tpu's loop that is not ported
+    (the model, the optimizer and the resume target check their own)."""
+    if cfg.compat_reference:
+        raise _not_ported("compat_reference (the python-random augmentation "
+                          "stream and the ragged final batch)", "5")
+    for flag in ("remat", "lane_pack", "lane_pack_bwd", "local_upsample"):
+        if getattr(cfg, flag):
+            raise _not_ported(flag, "12" if flag.startswith("lane") else "9")
+    if cfg.profile_dir:
+        raise _not_ported("profile_dir", "12 (profiling)")
+    if cfg.output_store:
+        raise _not_ported("output_store", "5")
+    if max(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_model) > 1:
+        raise _not_ported("a multi-device mesh", "10 (multi-GPU)")
+
+
+def improved(mean_val: dict, best: dict) -> bool:
+    """Checkpoint when any of precision, recall or F1 improved."""
+    return any(mean_val[k] > best[k]
+               for k in ("cd_precisions", "cd_recalls", "cd_f1scores"))
+
+
+def _host_rows(rows: list[dict]) -> np.ndarray:
+    """(steps, 5) float64 [loss, tp, fp, fn, tn]: one transfer per key."""
+    return np.stack([torch.stack([r[k] for r in rows]).cpu().double().numpy()
+                     for k in _STAT_KEYS], axis=1)
+
+
+def _check_finite(losses: np.ndarray, tracker, where: str) -> None:
+    if not np.all(np.isfinite(losses)):
+        bad = int(np.argmax(~np.isfinite(losses)))
+        tracker.set_status("diverged")
+        raise FloatingPointError(
+            f"non-finite training loss at batch {bad + 1} {where} "
+            f"(loss={losses[bad]})")
+
+
+def _epoch(step_fn, state, batches, accumulator, train: bool,
+           on_first_batch=None, on_step=None, tracker=None,
+           log_every: int = 0, prefix: str = "") -> int:
+    """One pass over ``batches``; returns the number of steps.  Per-step
+    stats stay on the device and are read once at the end, except with
+    ``log_every`` > 0, which reads every step to stream running means."""
+    stream = tracker is not None and log_every > 0
+    rows: list[dict] = []
+    n = 0
+    for i, batch in enumerate(batches):
+        if train:
+            state, stats = step_fn(state, batch)
+        else:
+            stats = step_fn(state, batch)
+        n += 1
+        if i == 0 and on_first_batch is not None:
+            on_first_batch(batch, stats)
+        if stream:
+            loss = float(stats["loss"])
+            if train:
+                _check_finite(np.array([loss]), tracker, "(streamed)")
+            accumulator.update(loss, {k: int(stats[k]) for k in _COUNT_KEYS})
+            if (i + 1) % log_every == 0:
+                tracker.log_metrics(accumulator.means(), prefix=prefix,
+                                    step=state.step if train else i + 1)
+        else:
+            rows.append({k: stats[k] for k in _STAT_KEYS})
+        if on_step is not None:
+            on_step(state, stats)
+    if rows:
+        host = _host_rows(rows)
+        if train:
+            _check_finite(host[:, 0], tracker, f"of {len(rows)} this epoch")
+        for row in host:
+            accumulator.update(float(row[0]),
+                               dict(zip(_COUNT_KEYS, (int(v) for v in
+                                                      row[1:]))))
+    return n
+
+
+def _denorm_rgb(img: np.ndarray) -> np.ndarray:
+    """RGB preview of a normalised 13-band patch (bands 3, 2, 1)."""
+    return scale(np.asarray(img)[..., 1:4][..., ::-1]).astype(np.uint8)
+
+
+def _log_val_patches(tracker, epoch: int, batch, stats) -> None:
+    """Comparison figures of every 10th sample of the first val batch."""
+    imgs1, imgs2, labels, preds = (t.cpu().numpy() for t in (
+        batch["img1"], batch["img2"], batch["label"], stats["preds"]))
+    for sample in range(0, imgs1.shape[0], 10):
+        tracker.log_figure(f"epoch_{epoch}_cd_sample_{sample}",
+                           _denorm_rgb(imgs1[sample]),
+                           _denorm_rgb(imgs2[sample]),
+                           labels[sample], preds[sample])
+
+
+def _log_scene_figure(tracker, cfg, city: str, epoch: int,
+                      mask: np.ndarray) -> None:
+    """2x2 scene figure (pair previews, groundtruth, prediction); skipped
+    when the previews are absent or unreadable."""
+    pair = os.path.join(cfg.dataset_dir, "images", city, "pair")
+    p1, p2 = (os.path.join(pair, f"img{i}.png") for i in (1, 2))
+    if not (os.path.exists(p1) and os.path.exists(p2)):
+        return
+    lo = cfg.stretch_8bit.get("lower", 2)
+    hi = cfg.stretch_8bit.get("higher", 98)
+    try:
+        img1, img2 = (stretch_8bit(read_png_gray(p).astype(np.float32), lo,
+                                   hi) for p in (p1, p2))
+        gt = load_label(cfg.dataset_dir, city) * 255
+    except OSError as e:
+        log.warning("scene figure skipped for %s: %s", city, e)
+        return
+    tracker.log_figure(f"{city}_epoch_{epoch}_figure", img1, img2, gt,
+                       mask * 255)
+
+
+def train(cfg, dataset: dict | None = None, tracker=None,
+          run_scene_inference: bool = True,
+          metadata: tuple[list, list] | None = None,
+          preemption_guard: PreemptionGuard | None = None, device=None):
+    """Run the training loop on ``device`` (None means the card) from
+    fresh weights drawn from ``cfg.seed`` or from ``cfg.resume``; returns
+    (state, history).
+
+    ``dataset`` is an in-memory dataset dict (else ``cfg.dataset_dir`` is
+    loaded); ``metadata`` the (train, val) patch lists; ``preemption_guard``
+    a pre-built guard (else one is installed on SIGTERM when
+    ``cfg.handle_preemption``)."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    if dataset is None:
+        resolved = resolve_layout(cfg.dataset_dir)
+        if resolved is None:
+            raise NotImplementedError(
+                f"dataset_dir {cfg.dataset_dir!r} holds no OSCD layout "
+                "(labels/, images/); fetching or extracting a dataset "
+                "archive is not ported to fabric_tpu_torch yet: ROADMAP.md "
+                "queue 1 item 5")
+        cfg.dataset_dir = resolved
+    owned_tracker = tracker is None
+    if owned_tracker:
+        tracker = Tracker(cfg.log_dir, project=cfg.project_name)
+    try:
+        return _train(cfg, dataset, tracker, run_scene_inference, metadata,
+                      preemption_guard, device)
+    finally:
+        if owned_tracker:
+            tracker.close()
+
+
+def _train(cfg, dataset, tracker, run_scene_inference, metadata,
+           preemption_guard, device):
+    tracker.log_params(cfg.to_dict())
+
+    log.info("loading dataset from %s", cfg.dataset_dir)
+    data = dataset if dataset is not None else full_load(
+        cfg.dataset_dir, cfg, max_workers=cfg.num_workers or None)
+    if metadata is not None:
+        train_md, val_md = metadata
+    elif dataset is not None:
+        train_md, val_md = metadata_from_dataset(
+            dataset, cfg.validation_cities, cfg.patch_size, cfg.stride)
+    else:
+        train_md, val_md = get_train_val_metadata(
+            cfg.dataset_dir, cfg.validation_cities, cfg.patch_size,
+            cfg.stride)
+    log.info("train samples: %d  val samples: %d", len(train_md), len(val_md))
+
+    model = build_model(cfg, device,
+                        generator=torch.Generator().manual_seed(cfg.seed),
+                        fold_bn=False, train=True)
+    loss_fn = get_loss_fn(cfg)
+    state = create_state(cfg, model)
+    state, resumed_epoch, resumed_meta = ckpt.resume_if_requested(cfg, state)
+    if resumed_epoch >= 0:
+        log.info("resumed from epoch %d (step %d)", resumed_epoch, state.step)
+
+    best = {"cd_f1scores": -1.0, "cd_recalls": -1.0, "cd_precisions": -1.0}
+    # seed the best metrics from the resumed save, so a regression after
+    # the resume is not checkpointed as a new best
+    for source in ("validation_metrics", "best_metrics"):
+        for k, v in (resumed_meta.get(source) or {}).items():
+            if k in best:
+                best[k] = float(v)
+    history = {"train": [], "val": []}
+    start_epoch, resume_skip, resume_rows = resumed_epoch + 1, 0, []
+    if resumed_meta.get("periodic") and resumed_meta.get("batches_done"):
+        # mid-epoch resume: finish the saved epoch from its next batch and
+        # replay its stat rows so far
+        start_epoch = resumed_epoch
+        resume_skip = int(resumed_meta["batches_done"])
+        resume_rows = [[float(v) for v in row]
+                       for row in resumed_meta.get("train_rows") or []]
+        log.info("mid-epoch resume: completing epoch %d from batch %d",
+                 start_epoch, resume_skip)
+
+    guard, owned_guard = preemption_guard, False
+    if guard is None and cfg.handle_preemption:
+        guard = PreemptionGuard()
+        owned_guard = guard.install()
+    try:
+        _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
+                    make_train_step(model, loss_fn),
+                    make_eval_step(model, loss_fn), best, history,
+                    start_epoch, resume_skip, resume_rows, guard,
+                    run_scene_inference)
+    except TrainingPreempted:
+        tracker.set_status("preempted")
+        history["status"] = "preempted"
+        log.warning("training preempted: resume with resume=%s to complete "
+                    "the run exactly", cfg.weight_dir)
+        return state, history
+    finally:
+        if owned_guard:
+            guard.uninstall()
+    tracker.set_status("complete")
+    history["status"] = "complete"
+    return state, history
+
+
+def _periodic_saver(cfg, tracker, guard, best, epoch, rows):
+    """The per-step callback that writes periodic (and preemption) saves
+    carrying the epoch's progress and stat rows."""
+    def on_step(s, stats):
+        rows.append(stats)
+        preempt = guard is not None and guard.requested
+        if not (preempt or (cfg.checkpoint_every > 0
+                            and s.step % cfg.checkpoint_every == 0)):
+            return
+        rows[:] = [r if isinstance(r, list) else
+                   [float(r[k]) for k in _STAT_KEYS] for r in rows]
+        _check_finite(np.asarray([r[0] for r in rows]), tracker,
+                      f"of epoch {epoch}; caught at the periodic-checkpoint "
+                      "sync, the last finite periodic checkpoint is kept")
+        ckpt.save(s, cfg.weight_dir, epoch, tag="periodic",
+                  metadata={"periodic": True, "batches_done": len(rows),
+                            "train_rows": rows, "best_metrics": dict(best)},
+                  keep_last=cfg.keep_last)
+        if preempt:
+            raise TrainingPreempted(s)
+    return on_step
+
+
+def _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
+                train_step, eval_step, best, history, start_epoch,
+                resume_skip, resume_rows, guard, run_scene_inference):
+    for epoch in range(start_epoch, cfg.epochs):
+        if guard is not None and guard.requested:
+            # the request landed between epochs: save the epoch boundary
+            # as a zero-progress periodic save of the previous epoch (not
+            # while a mid-epoch resume is pending: the checkpoint it came
+            # from is the right resume point)
+            if epoch > 0 and not resume_skip:
+                ckpt.save(state, cfg.weight_dir, epoch - 1, tag="periodic",
+                          metadata={"periodic": True, "batches_done": 0,
+                                    "best_metrics": dict(best)},
+                          keep_last=cfg.keep_last)
+            raise TrainingPreempted(state)
+        t0 = time.time()
+        train_acc, val_acc = MetricAccumulator(), MetricAccumulator()
+        skip, replay = resume_skip, resume_rows
+        resume_skip, resume_rows = 0, []
+        for row in replay:
+            train_acc.update(row[0], dict(zip(_COUNT_KEYS, row[1:])))
+
+        sampler = PatchSampler(data, train_md, cfg.patch_size,
+                               augment=cfg.augmentation)
+        batches = prefetch_to_device(
+            batch_iterator(sampler, cfg.batch_size,
+                           shuffle=cfg.shuffle_train, pad_mode="wrap",
+                           seed=cfg.seed + epoch,
+                           max_batches=cfg.steps_per_epoch,
+                           skip_batches=skip),
+            device, size=cfg.prefetch)
+        on_step = None
+        if cfg.checkpoint_every > 0 or guard is not None:
+            on_step = _periodic_saver(cfg, tracker, guard, best, epoch,
+                                      list(replay))
+        steps = _epoch(train_step, state, batches, train_acc, train=True,
+                       on_step=on_step, tracker=tracker,
+                       log_every=cfg.log_every, prefix="batch_train_")
+        train_seconds = time.time() - t0
+        mean_train = train_acc.means()
+        if steps:
+            tracker.log_metrics(
+                {"examples_per_sec": steps * cfg.batch_size / train_seconds,
+                 "steps": steps, "seconds": train_seconds},
+                step=epoch, prefix="train_")
+        tracker.log_metrics(mean_train, step=epoch, prefix="train_")
+        log.info("epoch %d train %s", epoch,
+                 {k: round(v, 4) for k, v in mean_train.items()})
+
+        val_batches = prefetch_to_device(
+            batch_iterator(PatchSampler(data, val_md, cfg.patch_size,
+                                        augment=False),
+                           cfg.eval_batch_size, shuffle=False,
+                           pad_mode="mask", max_batches=cfg.steps_per_epoch),
+            device, size=cfg.prefetch)
+        _epoch(eval_step, state, val_batches, val_acc, train=False,
+               on_first_batch=lambda b, s: _log_val_patches(tracker, epoch,
+                                                            b, s),
+               tracker=tracker, log_every=cfg.log_every,
+               prefix="batch_validate_")
+        mean_val = val_acc.means()
+        mean_val.update(val_acc.global_prf1())
+        tracker.log_metrics(mean_val, step=epoch, prefix="validate_")
+        log.info("epoch %d val %s", epoch,
+                 {k: round(v, 4) for k, v in mean_val.items()
+                  if k.startswith("cd_")})
+
+        if run_scene_inference:
+            for city in cfg.validation_cities:
+                try:
+                    mask = infer_city(state.model, cfg, city, device=device)
+                    label = load_label(cfg.dataset_dir, city)
+                except OSError as e:  # scene files missing or unreadable
+                    log.warning("scene inference skipped for %s: %s", city, e)
+                    continue
+                tracker.log_image(f"{city}_epoch_{epoch}", mask * 255)
+                _log_scene_figure(tracker, cfg, city, epoch, mask)
+                if label.shape == mask.shape:
+                    p, r, f1 = prf1_from_counts({
+                        "tp": int(np.sum((mask == 1) & (label == 1))),
+                        "fp": int(np.sum((mask == 1) & (label == 0))),
+                        "fn": int(np.sum((mask == 0) & (label == 1)))})
+                    tracker.log_metrics({f"{city}_scene_precision": p,
+                                         f"{city}_scene_recall": r,
+                                         f"{city}_scene_f1": f1}, step=epoch)
+                    mean_val[f"{city}_scene_f1"] = f1
+
+        if improved(mean_val, best):
+            meta = dict(cfg.to_dict())
+            meta["validation_metrics"] = mean_val
+            ckpt.save(state, cfg.weight_dir, epoch, metadata=meta,
+                      keep_last=cfg.keep_last)
+            best.update({k: mean_val[k] for k in best})
+            log.info("epoch %d: new best, checkpointed", epoch)
+
+        history["train"].append(mean_train)
+        history["val"].append(mean_val)
+        tracker.log_metrics({"epoch": epoch,
+                             "epoch_seconds": time.time() - t0}, step=epoch)
+        tracker.set_status("running")

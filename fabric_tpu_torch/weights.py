@@ -8,8 +8,9 @@ holding ``scale`` / ``bias`` in params and ``mean`` / ``var`` in
 batch_stats), plus ``outc/conv``.  This is the layout
 ``fabric_tpu/tools/import_torch.py`` builds from a torch state_dict; the
 map below runs the other way, onto the port's module names (which keep the
-flax names, joined with dots), either BatchNorm-folded or with eval
-BatchNorm.
+flax names, joined with dots), either BatchNorm-folded or with
+BatchNorm; :func:`variables_of` reads a module back into such a tree
+(checkpoints, tests).
 """
 
 from __future__ import annotations
@@ -66,12 +67,13 @@ def init_variables(n_channels: int, n_classes: int, base: int,
     return params, stats
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+def flatten_tree(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested dict's leaves under their dotted paths."""
     out = {}
     for key, value in tree.items():
         name = f"{prefix}{key}"
         if isinstance(value, dict):
-            out.update(_flatten(value, name + "."))
+            out.update(flatten_tree(value, name + "."))
         else:
             out[name] = np.asarray(value)
     return out
@@ -83,8 +85,8 @@ def state_dict(params: dict, batch_stats: dict,
     leaf under its dotted flax path; with ``fold_bn`` the BatchNorm pairs
     are first folded into their convs (``ops/fold_bn.py``)."""
     if fold_bn:
-        return _flatten(fold_tree(params, batch_stats))
-    return {**_flatten(params), **_flatten(batch_stats)}
+        return flatten_tree(fold_tree(params, batch_stats))
+    return {**flatten_tree(params), **flatten_tree(batch_stats)}
 
 
 def load_variables(model: torch.nn.Module, params: dict,
@@ -106,3 +108,25 @@ def load_variables(model: torch.nn.Module, params: dict,
                         for k in bad[:5]))
     model.load_state_dict({k: torch.from_numpy(
         np.array(v, np.float32)) for k, v in state.items()})
+
+
+def unflatten_tree(flat: dict[str, np.ndarray]) -> dict:
+    """The inverse of :func:`flatten_tree`."""
+    tree: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def variables_of(model: torch.nn.Module) -> tuple[dict, dict]:
+    """``(params, batch_stats)`` numpy trees of ``model``, in
+    ``fabric_tpu``'s layout: its parameters and its BatchNorm buffers."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+    return (unflatten_tree({n: host(p) for n, p in
+                            model.named_parameters()}),
+            unflatten_tree({n: host(b) for n, b in model.named_buffers()}))

@@ -3,11 +3,13 @@ on an NVIDIA GPU.  Every test here is marked ``cuda`` and skips without a
 card; on one, run ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Imports no JAX, so it runs where only PyTorch is installed."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
-from fabric_tpu_torch.ops import conv, double_conv, fused
+from fabric_tpu_torch.ops import bn_relu, conv, double_conv, fused
 
 CONV_SHAPES = [(2, 16, 24, 8, 16), (1, 32, 33, 13, 64), (1, 48, 128, 64, 64),
                (3, 7, 5, 3, 70), (2, 5, 300, 24, 8), (512, 64, 64, 64, 64)]
@@ -16,6 +18,8 @@ DOUBLE_SHAPES = [(2, 8, 8, 16, 32, 32), (1, 12, 20, 8, 8, 16),
                  (1, 6, 6, 4, 4, 4), (2, 7, 13, 13, 24, 70),
                  (64, 16, 16, 128, 256, 256)]
 FUSED_SHAPES = [(2, 17, 23, 64), (3, 7, 11, 5), (256, 64, 64, 64)]
+BN_SHAPES = [(2, 9, 9, 32), (3, 5, 7, 24), (256, 96, 96, 64),
+             (128, 12, 12, 256), (256, 6, 6, 512), (1, 3, 3, 13)]
 
 
 def _conv_case(seed, n, h, w, cin, cout):
@@ -92,3 +96,138 @@ def test_kernels_refuse_what_they_do_not_take(card):
                 torch.zeros(64, device=card))
     with pytest.raises(ValueError, match="shared memory"):
         double_conv.double_conv3x3_bias_relu(big, k64, b64, k64, b64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_relu_kernel_matches_plain(card, shape, dtype):
+    """Element by element: the kernel may fuse x*s + t into one FMA where
+    the plain version rounds the product first, so the fp32 values differ
+    by at most 2^-22 (|x s| + |t|); bf16 adds one ulp of the output
+    (2^-7 of the larger of the two outputs, at most)."""
+    g = torch.Generator().manual_seed(1)
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=g) * 2).to(card, dtype)
+    scale, bias, mean = (torch.randn(c, generator=g).to(card)
+                         for _ in range(3))
+    var = (torch.rand(c, generator=g) + 0.1).to(card)
+    before = bn_relu.bn_relu_inference.launches
+    got = bn_relu.bn_relu_inference(x, scale, bias, mean, var)
+    torch.cuda.synchronize()
+    assert bn_relu.bn_relu_inference.launches == before + 1
+    ref = bn_relu.bn_relu_inference_reference(x, scale, bias, mean, var)
+    assert got.dtype == dtype and got.shape == x.shape
+    s, t = bn_relu._scale_shift(scale, bias, mean, var, 1e-5)
+    tol = 2.0 ** -22 * (x.float().abs() * s.abs() + t.abs())
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * torch.maximum(got.float().abs(), ref.float().abs())
+    assert ((got.float() - ref.float()).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_bn_relu_refuses_what_it_does_not_take(card):
+    x = torch.zeros(1, 4, 4, 8, device=card)
+    v = torch.ones(8, device=card)
+    with pytest.raises(TypeError):
+        bn_relu.bn_relu_inference(x.half(), v, v, v, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_relu.bn_relu_inference(x.permute(0, 2, 1, 3), v, v, v, v)
+    with pytest.raises(ValueError, match="float32"):
+        bn_relu.bn_relu_inference(x, v[:4], v, v, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bn_relu.bn_relu_inference(x, v.clone().requires_grad_(), v, v, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_function_gradients_equal_autograd_on_card(card, dtype):
+    g = torch.Generator().manual_seed(2)
+    a0, b0, go = (torch.randn(4, 24, 24, 64, generator=g).to(card, dtype)
+                  for _ in range(3))
+    a1, b1 = a0.clone().requires_grad_(), b0.clone().requires_grad_()
+    before = fused.fused_mul_relu.launches
+    fused.FusedMulRelu.apply(a1, b1).backward(go)
+    assert fused.fused_mul_relu.launches == before + 1
+    a2, b2 = a0.clone().requires_grad_(), b0.clone().requires_grad_()
+    torch.relu(a2 * b2).backward(go)
+    assert torch.equal(a1.grad, a2.grad) and torch.equal(b1.grad, b2.grad)
+
+
+@pytest.mark.cuda
+def test_unfolded_serving_agrees_with_folded(card):
+    """ScenePredictor(fold_bn=False) (cuDNN convs + the eval-BN kernel)
+    against fold_bn=True (the conv kernels) on one bf16 scene: a mask
+    pixel may differ only where the fp32 logit margin is within 1/16 of
+    the logit scale, on at most 1% of the pixels.  (chip_smoke.py caps the
+    share at 0.1%, on a trained checkpoint; random weights at base 16
+    leave logits of scale ~0.2 and more near-ties, 0.09% seen, so the
+    share is held to 1% here.)"""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer.device_tiling import (_gather_tiles,
+                                                      _plan_grid, _stitch)
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    rng = np.random.RandomState(3)
+    d1, d2 = (rng.randn(96, 128, 13).astype(np.float32) for _ in range(2))
+    cfg = Config(patch_size=32, eval_batch_size=8, model_base=16)
+    folded = ScenePredictor(cfg, bucket=0, device=card).predict(d1, d2)
+    before = bn_relu.bn_relu_inference.launches
+    unfolded = ScenePredictor(cfg, bucket=0, fold_bn=False,
+                              device=card).predict(d1, d2)
+    assert bn_relu.bn_relu_inference.launches == before + 18 * 2
+    fp32 = ScenePredictor(Config(patch_size=32, model_base=16,
+                                 dtype="float32"), bucket=0, fold_bn=False,
+                          device=card)
+    ys, xs, k, _, _ = _plan_grid(96, 128, 32, 32, 12)
+    t1, t2 = (_gather_tiles(torch.from_numpy(d).to(card), ys, xs, 32)
+              for d in (d1, d2))
+    with torch.inference_mode():
+        logits = fp32.model(t1, t2)
+    margin = _stitch((logits[..., 1] - logits[..., 0]).abs(), ys, xs, k, 96,
+                     128, 32).cpu().numpy()
+    flips = folded != unfolded
+    print(f"folded vs unfolded: {int(flips.sum())} of {flips.size} pixels "
+          f"flipped, largest margin at a flip "
+          f"{margin[flips].max() if flips.any() else 0.0:.4g}, logit scale "
+          f"{logits.abs().max().item():.4g}")
+    assert flips.mean() <= 0.01
+    assert (margin[flips] <= logits.abs().max().item() / 16).all()
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_runs_the_fused_kernel(card):
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.train.state import create_state
+    from fabric_tpu_torch.train.steps import make_eval_step, make_train_step
+    cfg = Config(model_base=16, patch_size=32, batch_size=4)
+    model = build_model(cfg, card, fold_bn=False, train=True)
+    state = create_state(cfg, model)
+    rng = np.random.RandomState(4)
+    batch = {"img1": rng.randn(4, 32, 32, 13),
+             "img2": rng.randn(4, 32, 32, 13),
+             "label": rng.randint(0, 2, (4, 32, 32)), "weight": np.ones(4)}
+    batch = {k: torch.from_numpy(v).to(card, torch.float32 if v.dtype.kind
+                                       == "f" else torch.int32)
+             for k, v in batch.items()}
+    step = make_train_step(model, get_loss_fn(cfg))
+    state, stats = step(state, batch)  # first call: one-time set-up
+    fused.fused_mul_relu.launches = bn_relu.bn_relu_inference.launches = 0
+    torch.cuda.synchronize()
+    # a step never waits for the card: no synchronizing operation in it
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, stats = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert not syncs, syncs
+    assert fused.fused_mul_relu.launches == 5 and state.step == 2
+    assert bn_relu.bn_relu_inference.launches == 0
+    assert torch.isfinite(stats["loss"]).item()
+    make_eval_step(model, get_loss_fn(cfg))(state, batch)
+    assert bn_relu.bn_relu_inference.launches == 18

@@ -1,9 +1,10 @@
 """The port imports neither JAX, flax, optax nor anything of fabric_tpu:
-its entry modules, and every module chip_smoke.py imports (found by
-parsing its source), load in a fresh interpreter with none of them in
-sys.modules."""
+every module of the package, and every module chip_smoke.py imports
+(found by parsing its source), load in a fresh interpreter with none of
+them in sys.modules."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -37,13 +38,18 @@ def _modules_imported_by(path):
 
 
 def test_port_imports_no_jax_or_fabric_tpu():
-    assert _loaded_after(["fabric_tpu_torch", "fabric_tpu_torch.infer.service",
-                          "fabric_tpu_torch.models",
-                          "fabric_tpu_torch.checkpoint"]) == []
+    modules = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(
+            ".__init__")
+        for p in glob.glob(os.path.join(REPO, "fabric_tpu_torch", "**",
+                                        "*.py"), recursive=True))
+    assert "fabric_tpu_torch.train.loop" in modules
+    assert _loaded_after(modules) == []
 
 
 def test_chip_smoke_imports_no_jax_or_fabric_tpu():
     mods = _modules_imported_by(os.path.join(REPO, "chip_smoke.py"))
-    assert "fabric_tpu_torch.infer.service" in mods
+    assert {"fabric_tpu_torch.infer.service",
+            "fabric_tpu_torch.train.loop"} <= set(mods)
     assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert _loaded_after(mods + ["chip_smoke"]) == []
