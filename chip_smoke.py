@@ -13,6 +13,14 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   and ``predict_many``, checks the masks against the same forward on the
   plain versions, and shows from the launch counters that the serve went
   through every kernel;
+- int8: holds the int8 conv kernel exactly against its plain version at
+  the 22 shapes of one int8 forward and the int8 matrix kernel at
+  131072 x 512 x 512 (int8 and bf16), runs the int8 microbench, then
+  serves the same scenes through ``ScenePredictor(quant="int8")``
+  (calibration on the first scene, clip probes after), checks
+  ``predict_many`` against ``predict``, the mask against the same int8
+  forward on the plain int8 conv (identical) and the launch counters, and
+  profiles one scene of each runner;
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -23,7 +31,8 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   the eval forward (bf16 and fp32), the fused gradient against autograd,
   one fp32 train step on the card against the same step on the CPU, and
   serves the trained checkpoint folded (conv kernels) and unfolded
-  (eval-BatchNorm kernel) on the validation city.
+  (eval-BatchNorm kernel) on the validation city, and runs
+  ``tools.validate_int8`` on it (its own gates decide).
 
 Prints the card, each check, per-kernel times beside their bound and a
 library yardstick, the serving rate and the training rate, a JSON
@@ -47,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BF16_TENSOR = 989e12  # FLOP/s, H100 SXM dense (NVIDIA data sheet)
+PEAK_INT8_TENSOR = 1979e12  # OP/s, H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_ELEMENTWISE = 67e12   # FLOP/s, H100 SXM outside the tensor cores
 PEAK_BYTES = 3.35e12       # B/s, H100 SXM HBM3
 SEED = 0
@@ -603,6 +613,258 @@ def report_training(cfg, state, history, records, smi, model):
         fail("training did not complete with a falling, finite loss")
 
 
+def profile_runner(run, a1, a2, label: str) -> None:
+    """One scene through a runner under torch.profiler: the card's busy
+    time (the kernels' summed device time) against the wall clock, and
+    the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run(a1, a2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(a1, a2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"{label} under torch.profiler: card busy {busy_ms:.1f} ms of "
+          f"{wall_ms:.1f} ms wall (idle share {1 - busy_ms / wall_ms:.3f});"
+          f" {len(kernels)} kernel names, top: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
+              f"x{e.count}" for e in top), flush=True)
+
+
+def int8_conv_shapes():
+    """(site, (n, h, w, cin, cout)) of the 22 conv3x3_s8 launches of one
+    int8 forward of BATCH tiles: two per encoder block (both dates), and
+    per decoder block the split conv1 (skip and upsampled halves) and
+    conv2."""
+    from fabric_tpu_torch.weights import block_channels
+
+    side = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
+            "up1": 8, "up2": 4, "up3": 2, "up4": 1}
+    shapes = []
+    for level, (cin, cout) in block_channels(13, BASE).items():
+        s = PATCH // side[level]
+        if level.startswith("up"):
+            shapes += [(f"{level}.conv1.{half}",
+                        (BATCH, s, s, cin // 2, cout))
+                       for half in ("skip", "up")]
+            shapes.append((f"{level}.conv2", (BATCH, s, s, cout, cout)))
+        else:
+            shapes += [(f"{level}.conv1", (2 * BATCH, s, s, cin, cout)),
+                       (f"{level}.conv2", (2 * BATCH, s, s, cout, cout))]
+    return shapes
+
+
+def check_int8_kernels():
+    """conv3x3_s8 at the 22 shapes of one int8 forward and int8_matmul at
+    the microbench's 131072 x 512 x 512, each against its plain version on
+    the card (exact), with its time beside its bound, the plain version's
+    and a library call's (none computes an int8 conv: cuDNN's bf16 conv is
+    printed as context only).  Returns (conv rows, matmul row)."""
+    from fabric_tpu_torch.ops import conv_s8
+    from fabric_tpu_torch.ops import int8_matmul as im
+
+    g = torch.Generator().manual_seed(SEED)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).cuda()
+
+    rows = []
+    for site, (n, h, w, cin, cout) in int8_conv_shapes():
+        x, wq = s8(n, h, w, cin), s8(3, 3, cin, cout)
+        packed = conv_s8.pack_weight(wq)
+        got = conv_s8.conv3x3_s8(x, wq, packed)
+        torch.cuda.synchronize()
+        ref = conv_s8.conv3x3_s8_reference(x, wq)
+        err = (got.double() - ref.double()).abs().max().item()
+        kms = device_ms(lambda: conv_s8.conv3x3_s8(x, wq, packed), 10)
+        pms = device_ms(lambda: conv_s8.conv3x3_s8_reference(x, wq), 1)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = wq.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cudnn_ms = device_ms(lambda: F.conv2d(xb, wb, padding=1), 10)
+        t_ops, t_bytes = bound(2 * n * h * w * 9 * cin * cout,
+                               n * h * w * (cin + 4 * cout) + 9 * cin * cout,
+                               PEAK_INT8_TENSOR)
+        print(f"kernel conv3x3_s8 {site} {(n, h, w, cin, cout)}: "
+              f"max_abs_err {err:.0f} {'exact' if err == 0 else 'MISMATCH'}"
+              f" | {kms:.4f} ms, plain {pms:.3f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: int8 in, int32 out); "
+              f"context: cuDNN bf16 F.conv2d {cudnn_ms:.4f} ms", flush=True)
+        if err != 0:
+            fail(f"conv3x3_s8 {site} is not exact against its plain version")
+        rows.append(dict(name="conv3x3_s8", err=err, ms=kms, plain_ms=pms,
+                         library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+        del x, wq, packed, got, ref, xb, wb
+
+    m, k, n = 131072, 512, 512
+    a, b = s8(m, k), s8(k, n)
+    forms = {}
+    for dtype, peak, lib in ((torch.int8, PEAK_INT8_TENSOR, torch._int_mm),
+                             (torch.bfloat16, PEAK_BF16_TENSOR,
+                              torch.matmul)):
+        aa, bb = a.to(dtype), b.to(dtype)
+        got = im.int8_matmul(aa, bb)
+        torch.cuda.synchronize()
+        ref = im.int8_matmul_reference(aa, bb)
+        err = (got.double() - ref.double()).abs().max().item()
+        # int8: exact.  bf16: products exact in float32 and each side's sum
+        # within (k - 1) 2^-24 sum|a b| of the exact one (tensor cores may
+        # truncate: k 2^-22); integers <= 127 keep every sum exact here
+        tol = 0.0 if dtype == torch.int8 else k * 2.0 ** -22 * (
+            aa.float().abs() @ bb.float().abs()).max().item()
+        kms = device_ms(lambda: im.int8_matmul(aa, bb), 10)
+        pms = device_ms(lambda: im.int8_matmul_reference(aa, bb), 2)
+        lms = device_ms(lambda: lib(aa, bb), 10)
+        es = aa.element_size()
+        t_ops, t_bytes = bound(2 * m * k * n, es * (m * k + k * n)
+                               + 4 * m * n, peak)
+        print(f"kernel int8_matmul {str(dtype)[6:]} ({m}, {k}) @ ({k}, {n}):"
+              f" max_abs_err {err:.4g} tol {tol:.4g} "
+              f"{'ok' if err <= tol else 'MISMATCH'} | {kms:.4f} ms, plain "
+              f"{pms:.3f} ms, library {lms:.4f} ms ({lib.__name__}), bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
+              f"{2 * m * k * n / kms / 1e9:.0f} TOP/s", flush=True)
+        if err > tol:
+            fail(f"int8_matmul {dtype} disagrees with its plain version")
+        forms[dtype] = dict(name="int8_matmul", err=err, ms=kms,
+                            plain_ms=pms, library_ms=lms, t_ops=t_ops,
+                            t_bytes=t_bytes)
+        del aa, bb, got, ref
+    row = forms[torch.int8]
+    row["err"] = max(r["err"] for r in forms.values())
+    return rows, row
+
+
+def int8_matmul_path():
+    """The int8 matmul's own path: the microbench entry point at its
+    default shape, counted; returns the kernel's launches in it."""
+    from fabric_tpu_torch.ops import int8_matmul as im
+    from fabric_tpu_torch.tools.ablate_train import microbench_int8_matmul
+
+    im.int8_matmul.launches = 0
+    out = microbench_int8_matmul(131072, 512, 512, iters=10, device="cuda")
+    launches = im.int8_matmul.launches
+    print(f"tools.ablate_train --microbench int8_matmul: {json.dumps(out)}; "
+          f"int8_matmul launched {launches} times (expected 23: the "
+          "exactness check, then a warm-up and 10 timed calls per form)",
+          flush=True)
+    if launches != 23 or not out["kernel_int8_exact"]:
+        fail("the microbench did not run the exact int8 kernel as planned")
+    return launches
+
+
+def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms):
+    """int8 serving through ScenePredictor(quant="int8") at full width:
+    the first predict calibrates, predict_many probes and serves a 2048^2
+    and a 1000x1500 pair; the launch counters, predict_many == predict, the
+    mask identical to the same int8 forward (same scales) on the plain
+    versions, and the rates beside this run's bf16 ones.  Returns the
+    conv3x3_s8 launches."""
+    from fabric_tpu_torch.infer.device_tiling import make_scene_infer
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fused
+
+    pred = ScenePredictor(cfg, checkpoint=None, bucket=512, device="cuda",
+                          quant="int8")
+    counters = (conv_s8.conv3x3_s8, conv.conv3x3_bias_relu,
+                double_conv.double_conv3x3_bias_relu, fused.fused_mul_relu)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mask = pred.predict(d1, d2)
+    first_s = time.perf_counter() - t0
+    many = pred.predict_many(more)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    # int8 forwards of BATCH tiles: 4 + 4 + 2, 22 convs each; the stats
+    # forward (one conv3x3 launch per site, five fusions) runs for the
+    # calibration on the first scene and for the two probes
+    expected = {"conv3x3_s8": 22 * 10, "conv3x3_bias_relu": 18 * 3,
+                "double_conv3x3_bias_relu": 0, "fused_mul_relu": 5 * 3}
+    print(f"int8 serve: kernels launched {launches} (expected {expected}); "
+          f"first predict (with calibration) {first_s:.2f} s; worst clip "
+          f"ratio of the last probe {max(pred.last_clip_report.values()):.3f}",
+          flush=True)
+    if launches != expected:
+        fail("the int8 serve did not go through the kernels as planned")
+    if mask.shape != (SCENE, SCENE) or not set(np.unique(mask)) <= {0, 1}:
+        fail(f"bad int8 mask {mask.shape}")
+    for m, pair in zip(many, more):
+        if not np.array_equal(m, pred.predict(*pair)):
+            fail("int8 predict_many differs from predict")
+    print("int8 predict_many == [predict(*p) for p in pairs]: ok", flush=True)
+
+    # the same int8 forward (same scales) on the plain int8 conv
+    a1, a2 = (torch.from_numpy(d).cuda() for d in (d1, d2))
+    kernel = conv_s8.conv3x3_s8
+    conv_s8.conv3x3_s8 = lambda x, wq, packed=None: \
+        conv_s8.conv3x3_s8_reference(x, wq)
+    try:
+        plain = make_scene_infer(pred._forward, PATCH, (SCENE, SCENE),
+                                 batch_size=BATCH, dtype=torch.bfloat16)(
+                                     a1, a2).cpu().numpy()
+    finally:
+        conv_s8.conv3x3_s8 = kernel
+    same = np.array_equal(mask, plain)
+    print(f"2048^2 int8 mask vs the same int8 forward on the plain int8 conv"
+          f" on the card: {'identical' if same else 'DIFFERENT'} ("
+          f"{int((mask != plain).sum())} pixels differ); change share "
+          f"{mask.mean():.4f}", flush=True)
+    if not same:
+        fail("the int8 kernel forward differs from the plain-version one")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pred.predict(d1, d2)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    run = pred._get_runner(SCENE, SCENE)
+    fwd_ms = device_ms(lambda: run(a1, a2), 3)
+    probes = []
+    for _ in range(3):  # the clip probe alone: crops, stats forward, check
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred._int8_probe_check(pred._int8_scene_prologue(
+            pred._calibration_crops(d1, d2)), pred._scenes_predicted)
+        probes.append(time.perf_counter() - t0)
+    profile_runner(run, a1, a2, f"int8 {SCENE}^2 runner")
+    mpx = SCENE * SCENE / 1e6
+    print(f"int8 end to end {SCENE}^2: predict {wall * 1e3:.1f} ms median of "
+          f"{[round(w * 1e3, 1) for w in walls]} = {mpx / wall:.2f} Mpx/s "
+          f"(clip probe, host pad/upload/read-back included; the probe "
+          f"alone {statistics.median(probes) * 1e3:.1f} ms, host clock); "
+          f"device-resident runner {fwd_ms:.1f} ms = "
+          f"{mpx / fwd_ms * 1e3:.2f} Mpx/s; bf16 in this run: predict "
+          f"{mpx / bf16_wall:.2f} Mpx/s, runner {mpx / bf16_fwd_ms * 1e3:.2f}"
+          f" Mpx/s", flush=True)
+    return launches["conv3x3_s8"]
+
+
+def validate_phase(cfg):
+    """tools.validate_int8 on the trained checkpoint: the validation city,
+    on whose crops the int8 predictor calibrates, and a training city,
+    which it probes against those scales; fails past the tool's gates."""
+    from fabric_tpu_torch.tools.validate_int8 import validate
+
+    cfg.resume = cfg.weight_dir
+    reports, ok = validate(cfg, cities=["val", "alpha"], device="cuda")
+    for rep in reports:
+        print(f"validate_int8 on the trained checkpoint: {json.dumps(rep)}",
+              flush=True)
+    if not ok:
+        fail("validate_int8 refuses the int8 serving of the trained "
+             "checkpoint (agreement < 0.95 or F1 drop > 0.01)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -717,6 +979,18 @@ def main() -> int:
           f"{fwd_ms / (SCENE * SCENE / (PATCH * PATCH) / BATCH):.2f} ms",
           flush=True)
 
+    profile_runner(run, a1, a2, f"bf16 {SCENE}^2 runner")
+
+    # --- int8: the kernels, the microbench path, the int8 serve ---
+    s8_rows, mm_row = check_int8_kernels()
+    launches["int8_matmul"] = int8_matmul_path()
+    launches["conv3x3_s8"] = int8_serving(cfg, d1, d2, more, wall, fwd_ms)
+    print(f"conv3x3_s8 per {BATCH}-tile int8 forward: "
+          f"{sum(r['ms'] for r in s8_rows):.2f} ms over 22 launches, bound "
+          f"{sum(max(r['t_ops'], r['t_bytes']) for r in s8_rows):.3f} ms",
+          flush=True)
+    rows += s8_rows + [mm_row]
+
     # --- the training path, then its kernel and cross checks ---
     with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:
         cfg_t, state, history, t_launches, evals, records = train_phase(
@@ -726,6 +1000,7 @@ def main() -> int:
         card_vs_cpu_step()
         model = cross_check_serving(cfg_t)
         report_training(cfg_t, state, history, records, smi, model)
+        validate_phase(cfg_t)
     rows += bn_rows
     launches["bn_relu_inference"] = t_launches["bn_relu_inference"]
 
@@ -740,6 +1015,11 @@ def main() -> int:
                            "fabric_tpu/ops/pallas_fused.py:53"),
         "bn_relu_inference": ("triton", "fabric_tpu_torch/ops/bn_relu.py",
                               "fabric_tpu/ops/pallas_fused.py:77"),
+        "int8_matmul": ("cuda", "fabric_tpu_torch/csrc/int8_matmul.cu",
+                        "fabric_tpu/tools/ablate_train.py:373"),
+        # replaces XLA's s8 conv conv_raw, the serving use of kernel 5
+        "conv3x3_s8": ("cuda", "fabric_tpu_torch/csrc/conv3x3_s8.cu",
+                       "fabric_tpu/infer/quant.py:176"),
     }
     kernels = []
     for name, (route, source, replaces) in sources.items():
@@ -756,14 +1036,18 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": t_ops + t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in mine),
+            "library_ms": (None if mine[0]["library_ms"] is None
+                           else sum(r["library_ms"] for r in mine)),
         })
     print("per-kernel ms, plain_ms, bound_ms and library_ms are summed over "
           f"the kernel's launches in one forward: {BATCH} serving tiles at "
           f"patch {PATCH} for the conv and fusion kernels (launches: the "
           f"serve), {T_BATCH} eval tiles at patch {T_PATCH} in bf16 for "
           f"bn_relu_inference (launches: the training run, {evals} eval "
-          "forwards)")
+          f"forwards), one int8 forward of {BATCH} tiles for conv3x3_s8 "
+          "(launches: the int8 serve; no PyTorch call computes an int8 "
+          "conv), the int8 form at 131072 x 512 x 512 for int8_matmul "
+          "(library: torch._int_mm; launches: the microbench)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

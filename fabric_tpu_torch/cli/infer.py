@@ -1,0 +1,129 @@
+"""``python -m fabric_tpu_torch.cli.infer --config <json> --resume <ckpt>
+[--city X ...] [--quant int8] [--device cpu]``
+
+Whole-scene inference of dataset cities (counterpart of
+``fabric_tpu/cli/infer.py``): loads a checkpoint (for a directory, its
+best-metric save, else the latest), predicts each requested city (default:
+``validation_cities``) and writes ``<output_dir>/<city>_mask.png``.  Without
+``--quant`` it runs the reference grid path (``infer/runner.infer_city`` on
+the unfolded eval forward); ``--quant int8`` serves through
+``ScenePredictor`` (BatchNorm folded, int8, calibrated on the first city).
+Unless ``--no_tracker``, every scene writes a ``serve_*`` record to
+``<log_dir>/<run>/metrics.jsonl``.  On the card unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+
+# fabric_tpu serving options the port does not have yet -> ROADMAP item
+_NOT_PORTED = {
+    "pack": "6 (fleet packing)",
+    "overlap_band_rows": "6 (other tiled modes)",
+    "fullconv_band_rows": "9 (seamless fullconv)",
+    "fullconv_stream": "9 (seamless fullconv)",
+    "shard_scene": "10 (multi-GPU)",
+    "bundle": "11 (frozen artifacts and bundles)",
+    "aot_dir": "11 (frozen artifacts and bundles)",
+}
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    extra = argparse.ArgumentParser(add_help=False)
+    extra.add_argument("--city", action="append", default=None)
+    extra.add_argument("--output_dir", type=str, default=".")
+    extra.add_argument("--quant", choices=["none", "int8"], default=None,
+                       help="int8 = post-training-quantized serving, "
+                            "calibrated once on the first city")
+    extra.add_argument("--bucket", type=int, default=512,
+                       help="int8: scene dims pad up to multiples of this")
+    extra.add_argument("--device", default=None, help="cuda (default) or cpu")
+    extra.add_argument("--no_tracker", action="store_true",
+                       help="write no serve_* records")
+    for opt in ("pack", "overlap_band_rows", "fullconv_band_rows", "bundle",
+                "aot_dir"):
+        extra.add_argument(f"--{opt}", default=None)
+    for opt in ("fullconv_stream", "shard_scene"):
+        extra.add_argument(f"--{opt}", action="store_true")
+    own, rest = extra.parse_known_args(sys.argv[1:] if argv is None else argv)
+    for opt, item in _NOT_PORTED.items():
+        if getattr(own, opt) not in (None, False, "0"):
+            raise NotImplementedError(
+                f"--{opt} is not ported to fabric_tpu_torch yet: ROADMAP.md "
+                f"queue 1 item {item}")
+
+    from fabric_tpu_torch.config import load_config
+    from fabric_tpu_torch.data.oscd import require_layout
+    from fabric_tpu_torch.track import Tracker
+
+    cfg = load_config(argv=rest)
+    if not cfg.resume:
+        print("error: --resume <checkpoint> is required", file=sys.stderr)
+        return 2
+    cfg.dataset_dir = require_layout(cfg.dataset_dir)
+    tracker = None
+    if not own.no_tracker:
+        tracker = Tracker(cfg.log_dir, project="serve")
+        logging.info("serving metrics -> %s/metrics.jsonl", tracker.dir)
+    try:
+        _serve(own, cfg, tracker)
+    except BaseException:
+        if tracker is not None:
+            tracker.set_status("failed")
+            tracker.close()
+        raise
+    if tracker is not None:
+        tracker.set_status("succeeded")
+        tracker.close()
+    return 0
+
+
+def _serve(own, cfg, tracker) -> None:
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.data.image import write_png
+    from fabric_tpu_torch.infer.runner import infer_city
+    from fabric_tpu_torch.infer.service import ScenePredictor, resolve_device
+    from fabric_tpu_torch.models import build_model
+
+    if own.quant == "int8":
+        pred = ScenePredictor(cfg, checkpoint=cfg.resume, bucket=own.bucket,
+                              device=own.device, quant="int8",
+                              tracker=tracker)
+        predict_city = pred.predict_city
+    else:
+        path = ckpt.resolve(cfg.resume)
+        logging.info("using checkpoint %s", path)
+        device = resolve_device(own.device)
+        model = build_model(cfg, device, fold_bn=False,
+                            variables=ckpt.load_variables(path))
+
+        def predict_city(city):
+            t0 = time.perf_counter()
+            mask = infer_city(model, cfg, city, device=device)
+            if tracker is not None:
+                wall = time.perf_counter() - t0
+                h, w = mask.shape[:2]
+                tracker.log_metrics(
+                    {"scene": city, "height": h, "width": w,
+                     "wall_ms": round(wall * 1000.0, 2),
+                     "mpx_per_sec": round(h * w / wall / 1e6, 3),
+                     "mode": "reference_grid", "quant": "none"},
+                    prefix="serve_")
+            return mask
+
+    os.makedirs(own.output_dir, exist_ok=True)
+    for city in own.city or cfg.validation_cities:
+        mask = predict_city(city)
+        out = os.path.join(own.output_dir, f"{city}_mask.png")
+        write_png(out, mask * 255)
+        logging.info("wrote %s (%dx%d, %.2f%% change)", out, mask.shape[0],
+                     mask.shape[1], 100.0 * mask.mean())
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -32,6 +32,18 @@ def resolve_layout(root: str) -> str | None:
     return os.path.join(root, found[0]) if len(found) == 1 else None
 
 
+def require_layout(root: str) -> str:
+    """:func:`resolve_layout`, raising where ``root`` holds no OSCD layout
+    (fetching or extracting a dataset archive is not ported)."""
+    resolved = resolve_layout(root)
+    if resolved is None:
+        raise NotImplementedError(
+            f"dataset_dir {root!r} holds no OSCD layout (labels/, images/); "
+            "fetching or extracting a dataset archive is not ported to "
+            "fabric_tpu_torch yet: ROADMAP.md queue 1 item 5")
+    return resolved
+
+
 def list_cities(data_dir: str) -> list[str]:
     """Sorted city names under labels/."""
     root = os.path.join(data_dir, "labels")

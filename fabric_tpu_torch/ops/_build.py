@@ -21,7 +21,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("conv3x3_bias_relu", "double_conv3x3_bias_relu")
+SOURCES = ("conv3x3_bias_relu", "double_conv3x3_bias_relu", "int8_matmul",
+           "conv3x3_s8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -33,7 +33,7 @@ from fabric_tpu_torch import checkpoint as ckpt
 from fabric_tpu_torch.data.image import read_png_gray, scale, stretch_8bit
 from fabric_tpu_torch.data.oscd import (full_load, get_train_val_metadata,
                                         load_label, metadata_from_dataset,
-                                        resolve_layout)
+                                        require_layout)
 from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_iterator,
                                             prefetch_to_device)
 from fabric_tpu_torch.infer.runner import infer_city
@@ -183,14 +183,7 @@ def train(cfg, dataset: dict | None = None, tracker=None,
     _check_ported(cfg)
     device = resolve_device(device)
     if dataset is None:
-        resolved = resolve_layout(cfg.dataset_dir)
-        if resolved is None:
-            raise NotImplementedError(
-                f"dataset_dir {cfg.dataset_dir!r} holds no OSCD layout "
-                "(labels/, images/); fetching or extracting a dataset "
-                "archive is not ported to fabric_tpu_torch yet: ROADMAP.md "
-                "queue 1 item 5")
-        cfg.dataset_dir = resolved
+        cfg.dataset_dir = require_layout(cfg.dataset_dir)
     owned_tracker = tracker is None
     if owned_tracker:
         tracker = Tracker(cfg.log_dir, project=cfg.project_name)

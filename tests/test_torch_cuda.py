@@ -231,3 +231,112 @@ def test_train_step_on_card_runs_the_fused_kernel(card):
     assert torch.isfinite(stats["loss"]).item()
     make_eval_step(model, get_loss_fn(cfg))(state, batch)
     assert bn_relu.bn_relu_inference.launches == 18
+
+
+S8_CONV_SHAPES = [(1, 7, 7, 13, 64), (3, 5, 9, 13, 70), (2, 4, 4, 512, 256),
+                  (5, 8, 8, 256, 64), (1, 1, 1, 32, 8), (2, 64, 64, 64, 64),
+                  (1, 33, 300, 48, 24), (9, 16, 16, 128, 128)]
+MATMUL_SHAPES = [(1000, 100, 24), (37, 13, 70), (4096, 512, 512),
+                 (130, 33, 130), (257, 200, 64)]
+
+
+def _s8(rng, *shape):
+    return torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", S8_CONV_SHAPES)
+def test_conv_s8_kernel_matches_plain_exactly(card, n, h, w, cin, cout):
+    """int32 sums of int8 products are exact on both sides: bit-equal."""
+    from fabric_tpu_torch.ops import conv_s8
+    rng = np.random.RandomState(n * h + w)
+    x, wq = _s8(rng, n, h, w, cin).to(card), _s8(rng, 3, 3, cin, cout).to(card)
+    before = conv_s8.conv3x3_s8.launches
+    got = conv_s8.conv3x3_s8(x, wq)
+    torch.cuda.synchronize()
+    assert conv_s8.conv3x3_s8.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n, h, w, cout)
+    assert torch.equal(got, conv_s8.conv3x3_s8_reference(x, wq))
+    packed = conv_s8.pack_weight(wq)  # the prepacked call gives the same
+    assert torch.equal(conv_s8.conv3x3_s8(x, wq, packed), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_int8_matmul_kernel_matches_plain(card, m, k, n):
+    """int8: bit-equal.  bf16: the products are exact in float32 and each
+    side's float32 sum over k terms is within (k - 1) 2^-24 sum|a b| of the
+    exact one; the tensor cores may truncate where IEEE rounds, so each
+    element is held to k 2^-22 (|a| @ |b|)."""
+    from fabric_tpu_torch.ops import int8_matmul as im
+    rng = np.random.RandomState(m + k + n)
+    a, b = _s8(rng, m, k).to(card), _s8(rng, k, n).to(card)
+    before = im.int8_matmul.launches
+    got = im.int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, im.int8_matmul_reference(a, b))
+    af = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(card)
+    bf = torch.from_numpy(rng.randn(k, n).astype(np.float32)).to(card)
+    af, bf = af.to(torch.bfloat16), bf.to(torch.bfloat16)
+    got = im.int8_matmul(af, bf)
+    ref = im.int8_matmul_reference(af, bf)
+    assert got.dtype == torch.float32
+    tol = k * 2.0 ** -22 * (af.float().abs() @ bf.float().abs())
+    assert ((got - ref).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_int8_kernels_refuse_what_they_do_not_take(card):
+    from fabric_tpu_torch.ops import conv_s8
+    from fabric_tpu_torch.ops import int8_matmul as im
+    a = torch.zeros(64, 32, dtype=torch.int8, device=card)
+    b = torch.zeros(32, 16, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="CUDA device"):
+        im.int8_matmul(a, b.cpu())
+    with pytest.raises(TypeError):
+        im.int8_matmul(a.float(), b.float())
+    with pytest.raises(TypeError):
+        im.int8_matmul(a, b.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_matmul(a, b.t().contiguous().t())
+    x = torch.zeros(1, 8, 8, 16, dtype=torch.int8, device=card)
+    wq = torch.zeros(3, 3, 16, 8, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="one device"):
+        conv_s8.conv3x3_s8(x, wq.cpu())
+    with pytest.raises(TypeError):
+        conv_s8.conv3x3_s8(x.float(), wq)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_s8.conv3x3_s8(x.permute(0, 2, 1, 3), wq)
+    with pytest.raises(ValueError, match="packed"):
+        conv_s8.conv3x3_s8(x, wq, conv_s8.pack_weight(wq)[:, :, :16])
+
+
+@pytest.mark.cuda
+def test_int8_serving_equals_its_plain_forward_on_card(card):
+    """ScenePredictor(quant="int8") on the card: 22 conv3x3_s8 launches per
+    forward, and a mask identical to the same int8 forward (same scales)
+    on the plain int8 conv, which leaves nothing else to differ."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer.device_tiling import make_scene_infer
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv_s8
+    rng = np.random.RandomState(5)
+    d1, d2 = (rng.randn(96, 128, 13).astype(np.float32) for _ in range(2))
+    cfg = Config(patch_size=32, eval_batch_size=12, model_base=16)
+    pred = ScenePredictor(cfg, bucket=0, device=card, quant="int8")
+    pred.predict(d1, d2)  # calibrates
+    before = conv_s8.conv3x3_s8.launches
+    mask = pred.predict(d1, d2)
+    assert conv_s8.conv3x3_s8.launches == before + 22  # 12 tiles, 1 chunk
+    kernel = conv_s8.conv3x3_s8
+    conv_s8.conv3x3_s8 = lambda x, wq, packed=None: \
+        conv_s8.conv3x3_s8_reference(x, wq)
+    try:
+        plain = make_scene_infer(pred._forward, 32, (96, 128),
+                                 batch_size=12)(
+            *(torch.from_numpy(d).to(card) for d in (d1, d2)))
+    finally:
+        conv_s8.conv3x3_s8 = kernel
+    np.testing.assert_array_equal(mask, plain.cpu().numpy())
