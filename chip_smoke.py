@@ -8,7 +8,10 @@ CUDA ones, Triton for the others) and drives its two paths at full
 BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
 
 - serving: holds each conv and fusion kernel against its plain PyTorch
-  version at the serving shapes, then serves bi-date scenes (patch 64,
+  version at the serving shapes (the conv kernels on weights packed once,
+  as the model passes them) and times each double-conv level both ways,
+  fused and as two conv launches (the gate ``double_conv.supports``
+  follows those times), then serves bi-date scenes (patch 64,
   batch 256, bf16, BatchNorm folded) through ``ScenePredictor.predict``
   and ``predict_many``, checks the masks against the same forward on the
   plain versions, and shows from the launch counters that the serve went
@@ -90,33 +93,58 @@ def bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, float]:
     return 1e3 * ops / peak_ops, 1e3 * nbytes / PEAK_BYTES
 
 
-def main_path_calls(n_channels: int):
-    """The kernel calls of one forward of BATCH tiles: (kernel, shape)."""
-    from fabric_tpu_torch.ops.double_conv import supports
+LEVEL_SIDE = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
+              "up1": 8, "up2": 4, "up3": 2, "up4": 1}
+
+
+def level_shapes(n_channels: int):
+    """(level, N, side, Cin, Cout) of the nine DoubleConv blocks of one
+    forward of BATCH tiles (the encoder sees both dates stacked)."""
     from fabric_tpu_torch.weights import block_channels
 
-    side = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
-            "up1": 8, "up2": 4, "up3": 2, "up4": 1}
+    return [(level, 2 * BATCH if level == "inc" or level.startswith("down")
+             else BATCH, PATCH // LEVEL_SIDE[level], cin, cout)
+            for level, (cin, cout) in block_channels(n_channels,
+                                                     BASE).items()]
+
+
+def main_path_calls(n_channels: int):
+    """The kernel calls of one forward of BATCH tiles: (kernel, shape,
+    level), each DoubleConv block where the gate sends it."""
+    from fabric_tpu_torch.ops.double_conv import supports
+
     calls = []
-    for level, (cin, cout) in block_channels(n_channels, BASE).items():
-        n = 2 * BATCH if level in ("inc",) or level.startswith("down") \
-            else BATCH
-        s = PATCH // side[level]
+    for level, n, s, cin, cout in level_shapes(n_channels):
         if supports(s, s, cin, cout, cout):
             calls.append(("double_conv3x3_bias_relu",
-                          (n, s, s, cin, cout, cout)))
+                          (n, s, s, cin, cout, cout), level))
         else:
-            calls.append(("conv3x3_bias_relu", (n, s, s, cin, cout)))
-            calls.append(("conv3x3_bias_relu", (n, s, s, cout, cout)))
+            calls.append(("conv3x3_bias_relu", (n, s, s, cin, cout), level))
+            calls.append(("conv3x3_bias_relu", (n, s, s, cout, cout), level))
     for i, c in enumerate((BASE, 2 * BASE, 4 * BASE, 8 * BASE, 8 * BASE)):
         s = PATCH >> i
-        calls.append(("fused_mul_relu", (BATCH, s, s, c)))
+        calls.append(("fused_mul_relu", (BATCH, s, s, c), f"f{i + 1}"))
     return calls
+
+
+def gate_calls(n_channels: int):
+    """The fused kernel at every level where it fits but the gate sends the
+    block to two conv launches: timed both ways, not on the path."""
+    from fabric_tpu_torch.ops.double_conv import fits, supports
+
+    return [("double_conv3x3_bias_relu", (n, s, s, cin, cout, cout), level)
+            for level, n, s, cin, cout in level_shapes(n_channels)
+            if fits(s, s, cin, cout, cout)
+            and not supports(s, s, cin, cout, cout)]
 
 
 def check_kernels(calls):
     """Each kernel against its plain version on the card, and its time
-    beside the plain version's, a library call's and its bound."""
+    beside the plain version's, a library call's and its bound.  The conv
+    kernels take their weights prepacked, as the main path does; each
+    double-conv level is also timed as two conv3x3_bias_relu launches, the
+    gate's alternative.  Calls on the main path come first; the rest
+    (``gate_calls``) are timed for the gate only."""
     from fabric_tpu_torch.ops import conv, double_conv, fused
 
     g = torch.Generator().manual_seed(SEED)
@@ -133,7 +161,8 @@ def check_kernels(calls):
             memory_format=torch.channels_last)
 
     rows = []
-    for name, shape in calls:
+    for name, shape, level in calls:
+        two_ms = None
         if name == "fused_mul_relu":
             a, b = randn(*shape, dtype=torch.bfloat16), randn(
                 *shape, dtype=torch.bfloat16)
@@ -149,8 +178,9 @@ def check_kernels(calls):
             k, b = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5), randn(
                 cout, scale=0.1)
             args = (x, k, b)
-            kern, plain = conv.conv3x3_bias_relu, \
-                conv.conv3x3_bias_relu_reference
+            pk = conv.pack_weight(k)
+            kern = lambda *a: conv.conv3x3_bias_relu(*a, pk)  # noqa: E731
+            plain = conv.conv3x3_bias_relu_reference
             wl, bl = lib_weight(k), b.to(torch.bfloat16)
             lib = lambda: lib_conv(x, wl, bl)  # noqa: E731
             ops = 2 * n * h * w * 9 * cin * cout
@@ -165,7 +195,9 @@ def check_kernels(calls):
             w2, b2 = randn(3, 3, cmid, cout, scale=(9 * cmid) ** -.5), \
                 randn(cout, scale=0.1)
             args = (x, w1, b1, w2, b2)
-            kern = double_conv.double_conv3x3_bias_relu
+            p1, p2 = conv.pack_weight(w1), conv.pack_weight(w2)
+            kern = lambda *a: double_conv.double_conv3x3_bias_relu(  # noqa
+                *a, (p1, p2))
             plain = double_conv.double_conv3x3_bias_relu_reference
             wl1, bl1, wl2, bl2 = (lib_weight(w1), b1.to(torch.bfloat16),
                                   lib_weight(w2), b2.to(torch.bfloat16))
@@ -175,6 +207,8 @@ def check_kernels(calls):
             nbytes = 2 * n * h * w * (cin + cout) + 2 * 9 * (
                 cin * cmid + cmid * cout) + 4 * (cmid + cout)
             peak, tol = PEAK_BF16_TENSOR, None
+            two_ms = device_ms(lambda: conv.conv3x3_bias_relu(
+                conv.conv3x3_bias_relu(x, w1, b1, p1), w2, b2, p2), 5)
         got = kern(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
@@ -192,17 +226,22 @@ def check_kernels(calls):
         pms = device_ms(lambda: plain(*args), 2)
         lms = device_ms(lib, 5)
         t_ops, t_bytes = bound(ops, nbytes, peak)
-        print(f"kernel {name} {shape}: max_abs_err {err:.4g} max_rel_err "
-              f"{err / max(scale, 1e-30):.3g} tol {tol:.4g} "
-              f"{'ok' if ok else 'MISMATCH'} | {kms:.3f} ms, plain "
+        rate = (f", {ops / kms / 1e9:.1f} TFLOP/s" if peak ==
+                PEAK_BF16_TENSOR else "")
+        two = ("" if two_ms is None else
+               f", as two conv3x3_bias_relu launches {two_ms:.3f} ms")
+        print(f"kernel {name} {level} {shape}: max_abs_err {err:.4g} "
+              f"max_rel_err {err / max(scale, 1e-30):.3g} tol {tol:.4g} "
+              f"{'ok' if ok else 'MISMATCH'} | {kms:.3f} ms{rate}, plain "
               f"{pms:.3f} ms, library {lms:.3f} ms, bound "
               f"{max(t_ops, t_bytes):.3f} ms "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'})",
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}){two}",
               flush=True)
         if not ok:
             fail(f"{name} {shape} disagrees with its plain version")
-        rows.append(dict(name=name, err=err, ms=kms, plain_ms=pms,
-                         library_ms=lms, t_ops=t_ops, t_bytes=t_bytes))
+        rows.append(dict(name=name, level=level, err=err, ms=kms,
+                         plain_ms=pms, library_ms=lms, t_ops=t_ops,
+                         t_bytes=t_bytes, two_conv_ms=two_ms))
         del args, got, ref
     return rows
 
@@ -215,9 +254,12 @@ def plain_versions():
 
     saved = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
              fused.fused_mul_relu)
-    conv.conv3x3_bias_relu = conv.conv3x3_bias_relu_reference
+    # the blocks pass prepacked weights, which the plain versions ignore
+    conv.conv3x3_bias_relu = lambda x, k, b, packed=None: \
+        conv.conv3x3_bias_relu_reference(x, k, b)
     double_conv.double_conv3x3_bias_relu = \
-        double_conv.double_conv3x3_bias_relu_reference
+        lambda x, w1, b1, w2, b2, packed=None: \
+        double_conv.double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2)
     fused.fused_mul_relu = fused.fused_mul_relu_reference
     try:
         yield
@@ -258,8 +300,7 @@ def eval_bn_shapes():
     the training phase's eval batch; each level runs the kernel twice."""
     from fabric_tpu_torch.weights import block_channels
 
-    side = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
-            "up1": 8, "up2": 4, "up3": 2, "up4": 1}
+    side = LEVEL_SIDE
     return [(level, (2 * T_BATCH if level == "inc" or level.startswith(
         "down") else T_BATCH, T_PATCH // side[level], T_PATCH // side[level],
         cout)) for level, (_, cout) in block_channels(13, BASE).items()]
@@ -896,6 +937,14 @@ def main() -> int:
 
     calls = main_path_calls(13)
     rows = check_kernels(calls)
+    gate_rows = check_kernels(gate_calls(13))
+    for r in rows + gate_rows:
+        if r["two_conv_ms"] is not None:
+            print(f"gate {r['level']}: fused {r['ms']:.3f} ms, two conv "
+                  f"launches {r['two_conv_ms']:.3f} ms -> "
+                  f"{'fused' if r['ms'] < r['two_conv_ms'] else 'two convs'} "
+                  f"faster; on the path: "
+                  f"{'fused' if r in rows else 'two convs'}", flush=True)
 
     # --- the main path: full-width serving through the kernels ---
     cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
@@ -919,7 +968,7 @@ def main() -> int:
     # 1024x1536 bucket -> 384 tiles -> 2
     n_forwards = 4 + 4 + 2
     expected = {}
-    for name, _ in calls:
+    for name, _, _ in calls:
         expected[name] = expected.get(name, 0) + n_forwards
     print(f"kernels launched by the serve: {launches} (expected "
           f"{expected}); first predict {first_s:.2f} s", flush=True)

@@ -3,104 +3,168 @@
 // Replaces the Pallas kernel fabric_tpu/ops/pallas_conv.py:91
 // (conv3x3_bias_relu -> pl.pallas_call at :109, body _conv_kernel at :69).
 //
-// Bound on the H100: at the main path's shapes (patch 64, 256 tiles, both
-// dates stacked: 512 x 64 x 64 x 64 -> 64 and the like) a launch does 2 *
-// N*H*W * 9*Cin*Cout operations over N*H*W*(Cin+Cout)*2 bytes, i.e. about
-// 9*Cin*Cout/(Cin+Cout) ~ 290 operations per byte at Cin = Cout = 64: at the
-// card's ridge (989 TFLOP/s over 3.35 TB/s ~ 295), so both the tensor cores
-// and memory matter.  The design therefore (a) runs the GEMM on the tensor
-// cores (bf16 mma.sync, fp32 accumulation), and (b) reads each input pixel
-// from device memory about once per 64-channel output slice: a block stages
-// its TR x TW pixel tile plus a one-pixel halo in shared memory, 32 input
-// channels at a time, and the nine taps read that one patch (no im2col
-// buffer).  The halo is zero-filled at the image border, which is the SAME
-// padding.  Odd widths, heights and channel counts are handled by masking;
-// the TPU kernel's 16-row tiles, 16-column padding and VMEM budget do not
-// apply here.
+// Bound on the H100: a launch does 2 * N*H*W * 9*Cin*Cout operations over
+// N*H*W*(Cin+Cout)*2 bytes, ~9*Cin*Cout/(Cin+Cout) operations per byte:
+// ~290 at Cin = Cout = 64, the card's ridge (989 TFLOP/s over 3.35 TB/s),
+// so the full-resolution launches of the serving path (inc, down1, up4)
+// need both the tensor cores and memory near their peaks.  inc's first
+// conv (13 channels in) is bound by its bytes.
+//
+// What held the first version back (mma.sync from B fragments read with
+// __ldg right before each mma, scalar A loads, nothing overlapped, four
+// warps re-reading the same weights, the patch re-staged per 64 output
+// channels) and what this one does instead (the core is conv_tile.cuh):
+//  - wgmma m64nPNk16 (PN = 64, or 128 where Cout > 64, so each staged
+//    pixel feeds up to 128 channels) from two consumer warpgroups, each
+//    64 of the block's 128 output pixels;
+//  - the weights, packed once in the wgmma layout, stream through a ring
+//    of 4 shared-memory slots by cp.async.bulk from a producer warp, so
+//    every warp reads one copy and loads run ahead of the math;
+//  - A by ldmatrix from the haloed patch, staged 32 channels at a time by
+//    cp.async into two buffers, the next chunk loading during the current
+//    one's nine taps;
+//  - tiles of NI whole images x TR rows x TW columns (128 pixels), so
+//    small images do not leave most of a tile empty;
+//  - bias, ReLU and bf16 rounding in registers, 16-byte stores.
 #include "conv_tile.cuh"
 
 namespace fabric {
 
-__global__ void __launch_bounds__(kThreads)
+// Blocks per SM, as measured on the H100: at PN = 64 three (the register
+// cap this sets makes ptxas serialize some wgmma, yet three blocks beat
+// two, since more warpgroups hide each one's barrier and ldmatrix waits);
+// at PN = 128 one (two would cap a thread at 96 registers, and the 64
+// accumulators spill).
+template <int PN>
+__global__ void __launch_bounds__(kConvThreads, PN == 64 ? 3 : 1)
     conv3x3_bias_relu_kernel(const __nv_bfloat16* __restrict__ x,
                              const __nv_bfloat16* __restrict__ wpk,
                              const float* __restrict__ bias,
-                             __nv_bfloat16* __restrict__ y, int h, int w,
-                             int cin, int cout, int cin_pad, int cout_pad,
-                             int tw_log2, int tiles_h, int tiles_w,
-                             bool vec8) {
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+                             __nv_bfloat16* __restrict__ y, int n, int h,
+                             int w, int cin, int cout, int cin_pad, Geo g,
+                             int tiles_h, int tiles_w, int stages,
+                             bool vec_in, bool vec_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int stage_bytes = PN * kKC * 2, pbytes = patch_bytes(g);
+  __nv_bfloat16* patch[2] = {
+      reinterpret_cast<__nv_bfloat16*>(smem + stages * stage_bytes),
+      reinterpret_cast<__nv_bfloat16*>(smem + stages * stage_bytes + pbytes)};
+  Ring ring = make_ring(smem, smem + stages * stage_bytes + 2 * pbytes,
+                        stages, stage_bytes);
 
-  const int tr = kBM >> tw_log2;
   int tile = blockIdx.x;
-  const int tj = tile % tiles_w;
+  const int j0 = (tile % tiles_w) << g.tw;
   tile /= tiles_w;
-  const int ti = tile % tiles_h;
-  const int n = tile / tiles_h;
-  const int i0 = ti * tr, j0 = tj * (1 << tw_log2);
-  const int n0 = blockIdx.y * kBN;
-  const int prows = tr + 2, pcols = (1 << tw_log2) + 2;
+  const int i0 = (tile % tiles_h) << g.tr;
+  const int img0 = (tile / tiles_h) << g.ni;
+  const int nt = blockIdx.y;
 
-  const TileRows rows = tile_rows(i0, j0, tw_log2, h, w);
-  int px[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    px[q] = (rows.oi[q] - i0) * pcols + (rows.oj[q] - j0);
-
-  const __nv_bfloat16* img = x + (size_t)n * h * w * cin;
-  float acc[2][4][4] = {};
-  for (int c0 = 0; c0 < cin_pad; c0 += kKC) {
-    const int kc = min(kKC, cin_pad - c0);
-    __syncthreads();  // the previous chunk's reads are done
-    stage_patch(patch, img, h, w, cin, i0, j0, prows, pcols, c0, kc, vec8);
-    __syncthreads();
-    mma_tile(acc, patch, px, pcols, kStagePitch, kc, wpk, cin_pad, cout_pad,
-             c0, n0);
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers)
+      produce(ring, wpk, cin_pad, PN, nt, nt + 1, 1, 1);
+    return;
   }
 
-  __nv_bfloat16* dst[4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mbase = (warp >> 2) * 64 + (warp & 3) * 16;
+  const uint32_t a_off = patch_row_offset(mbase + (lane & 15), g);
+  const int pc = (1 << g.tw) + 2;
+
+  float acc[PN / 2];
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    dst[q] = y + (((size_t)n * h + rows.oi[q]) * w + rows.oj[q]) * cout;
-  store_tile(acc, dst, rows, bias, n0, cout, (cout & 1) == 0);
+  for (int i = 0; i < PN / 2; ++i) acc[i] = 0.f;
+
+  const int n_chunks = (cin_pad + kKC - 1) / kKC;
+  stage_patch(patch[0], x, n, h, w, cin, g, img0, i0, j0, 0,
+              min(kKC, cin_pad), vec_in);
+  cp_async_commit();
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int c0 = ci * kKC, kc = min(kKC, cin_pad - c0);
+    cp_async_wait_all();
+    consumer_sync();  // chunk ci landed; chunk ci - 1 is no longer read
+    if (ci + 1 < n_chunks) {
+      stage_patch(patch[(ci + 1) & 1], x, n, h, w, cin, g, img0, i0, j0,
+                  c0 + kKC, min(kKC, cin_pad - c0 - kKC), vec_in);
+      cp_async_commit();
+    }
+    mma_chunk<PN>(acc, ring, smem_addr(patch[ci & 1]) + a_off,
+                  pc * kPitch * 2, kPitch * 2, kc, 0);
+  }
+
+  __nv_bfloat16* rows[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const Px p = chunk_pixel(mbase + (lane >> 2) + 8 * half, g);
+    const int on = img0 + p.s, oi = i0 + p.r, oj = j0 + p.c;
+    rows[half] = on < n && oi < h && oj < w
+                     ? y + (((size_t)on * h + oi) * w + oj) * cout
+                     : nullptr;
+  }
+  store_global<PN>(acc, bias, nt * PN, cout, rows, vec_out);
+}
+
+template <int PN>
+int launch(const void* x, const void* wpk, const void* bias, void* y, int n,
+           int h, int w, int cin, int cout, int cin_pad, Geo g, int stages,
+           int smem, cudaStream_t stream) {
+  const int tiles_h = (h + (1 << g.tr) - 1) >> g.tr;
+  const int tiles_w = (w + (1 << g.tw) - 1) >> g.tw;
+  const long long tiles_n = (n + (1 << g.ni) - 1) >> g.ni;
+  const long long blocks = tiles_n * tiles_h * tiles_w;
+  const int n_tiles = (cout + PN - 1) / PN;
+  if (blocks > 0x7fffffffLL || n_tiles > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_bias_relu_kernel<PN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec_in =
+      cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_out =
+      cout % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  dim3 grid((unsigned)blocks, n_tiles);
+  conv3x3_bias_relu_kernel<PN><<<grid, kConvThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(wpk), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(y), n, h, w, cin, cout, cin_pad, g,
+      tiles_h, tiles_w, stages, vec_in, vec_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fabric
 
 using namespace fabric;
 
-// Shared memory of one block for a tile of width 1 << tw_log2.
-extern "C" int fabric_conv3x3_smem_bytes(int tw_log2) {
-  const int tw = 1 << tw_log2, tr = kBM >> tw_log2;
-  return (tr + 2) * (tw + 2) * kStagePitch * (int)sizeof(__nv_bfloat16);
+// Dynamic shared memory of one block: the weight ring (stages slots of pn
+// x 32 bf16), two staged patches of geometry (tw, tr, ni) (log2s) and 16
+// bytes of barriers per slot.  ops/conv.py mirrors this formula.
+extern "C" int fabric_conv3x3_smem_bytes(int pn, int tw, int tr, int ni,
+                                         int stages) {
+  return stages * pn * kKC * 2 + 2 * patch_bytes(Geo{tw, tr, ni}) +
+         16 * stages;
 }
 
-// x (n, h, w, cin) bf16; wpk (9, cout_pad, cin_pad) bf16, zero-padded, from
-// the HWIO kernel; bias (cout,) fp32; y (n, h, w, cout) bf16.  cin_pad is
-// cin rounded up to 16 and cout_pad cout rounded up to 64.  Returns the
-// CUDA error of the launch (0 on success).
+// x (n, h, w, cin) bf16; wpk: the weights packed by ops/conv.py
+// pack_weight (cin_pad = cin rounded up to 16, N tiles of pn = 64 or 128
+// channels); bias (cout,) fp32; y (n, h, w, cout) bf16.  (tw, tr, ni):
+// log2 of the tile's columns, rows and images, tw + tr + ni = 7.  Returns
+// the CUDA error of the launch (0 on success).
 extern "C" int fabric_conv3x3_bias_relu(const void* x, const void* wpk,
                                         const void* bias, void* y, int n,
                                         int h, int w, int cin, int cout,
-                                        int cin_pad, int cout_pad,
-                                        int tw_log2, void* stream) {
+                                        int cin_pad, int pn, int tw, int tr,
+                                        int ni, int stages, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 ||
-      cin_pad % 16 || cin_pad < cin || cout_pad % kBN || cout_pad < cout ||
-      tw_log2 < 0 || tw_log2 > 7)
+      cin_pad % 16 || cin_pad < cin || (pn != 64 && pn != 128) || tw < 0 ||
+      tr < 0 || ni < 0 || tw + tr + ni != 7 || stages < 2 ||
+      reinterpret_cast<uintptr_t>(wpk) % 16)
     return (int)cudaErrorInvalidValue;
-  const int tw = 1 << tw_log2, tr = kBM >> tw_log2;
-  const int tiles_h = (h + tr - 1) / tr, tiles_w = (w + tw - 1) / tw;
-  const long long blocks = (long long)n * tiles_h * tiles_w;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const bool vec8 = cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int smem = fabric_conv3x3_smem_bytes(tw_log2);
-  dim3 grid((unsigned)blocks, cout_pad / kBN);
-  conv3x3_bias_relu_kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wpk), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(y), h, w, cin, cout, cin_pad, cout_pad,
-      tw_log2, tiles_h, tiles_w, vec8);
-  return (int)cudaGetLastError();
+  const int smem = fabric_conv3x3_smem_bytes(pn, tw, tr, ni, stages);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const Geo g{tw, tr, ni};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pn == 64 ? launch<64>(x, wpk, bias, y, n, h, w, cin, cout, cin_pad,
+                               g, stages, smem, s)
+                  : launch<128>(x, wpk, bias, y, n, h, w, cin, cout, cin_pad,
+                                g, stages, smem, s);
 }

@@ -174,13 +174,17 @@ def make_stats_forward(folded, dtype=torch.bfloat16, local_upsample=False,
     (nothing waits for them here)."""
     _check_family(model, local_upsample)
     sites = dict(derive_conv_sites(folded))
+    on_card = _device(folded).type == "cuda"
+    packed = {name: (conv_ops.pack_weight(_get(folded, path)["kernel"])
+                     if on_card else None) for name, path in sites.items()}
 
     def dc(x, block, stats):
         for conv in ("conv1", "conv2"):
             name = f"{block}.{conv}"
             stats[name] = _absmax(x)
             p = _get(folded, sites[name])
-            x = conv_ops.conv3x3_bias_relu(x, p["kernel"], p["bias"])
+            x = conv_ops.conv3x3_bias_relu(x, p["kernel"], p["bias"],
+                                           packed[name])
         return x
 
     @torch.inference_mode()

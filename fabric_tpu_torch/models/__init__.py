@@ -46,4 +46,8 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
                       joint_date_batchnorm=not cfg.per_date_batchnorm)
     weights.load_variables(model, *variables)
     model.requires_grad_(train)
-    return model.to(device).train(train)
+    model = model.to(device).train(train)
+    for m in model.modules():  # pack the folded kernels for the card once
+        if isinstance(m, DoubleConv) and m.fold_bn:
+            m.packed_kernels()
+    return model

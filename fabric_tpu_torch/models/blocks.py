@@ -11,7 +11,8 @@ computes in the activations' dtype.
 Folded DoubleConv blocks (BatchNorm folded into the convs) are the serving
 path and run on the hand-written conv kernels, dispatched like
 ``fabric_tpu/models/blocks.py:115-152`` with ``use_pallas``: the fused
-double-conv kernel where its gate holds, otherwise two conv3x3 launches.
+double-conv kernel where its gate holds, otherwise two conv3x3 launches,
+both on the block's kernels packed once (``DoubleConv.packed_kernels``).
 Blocks with BatchNorm train (batch statistics, ``TorchBatchNorm``'s rules)
 or evaluate from running averages; in eval the BatchNorm + ReLU epilogue
 is the ``bn_relu_inference`` kernel (``ops/bn_relu.py``).  Their convs are
@@ -102,6 +103,22 @@ class DoubleConv(nn.Module):
             self.bn1 = BatchNorm(cout)
             self.bn2 = BatchNorm(cout)
 
+    def packed_kernels(self) -> tuple | None:
+        """The folded kernels packed for the conv kernels
+        (``conv_ops.pack_weight``), made at the first call on the card and
+        kept until the kernels change (in place or replaced); None on the
+        CPU, whose plain versions take the kernels as they are."""
+        k1, k2 = self.conv1.kernel, self.conv2.kernel
+        if k1.device.type == "cpu":
+            return None
+        key = (k1.data_ptr(), k1._version, k2.data_ptr(), k2._version)
+        if getattr(self, "_packed_key", None) != key:
+            with torch.no_grad():
+                self._packed = (conv_ops.pack_weight(k1),
+                                conv_ops.pack_weight(k2))
+            self._packed_key = key
+        return self._packed
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         c1, c2 = self.conv1, self.conv2
         if self.fold_bn:
@@ -109,11 +126,13 @@ class DoubleConv(nn.Module):
                 raise ValueError("fold_bn is an inference-only transform")
             _, h, w, cin = x.shape
             cout = c2.kernel.shape[-1]
+            packed = self.packed_kernels()
             if double_conv_ops.supports(h, w, cin, cout, cout):
                 return double_conv_ops.double_conv3x3_bias_relu(
-                    x, c1.kernel, c1.bias, c2.kernel, c2.bias)
-            x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias)
-            return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias)
+                    x, c1.kernel, c1.bias, c2.kernel, c2.bias, packed)
+            p1, p2 = packed or (None, None)
+            x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias, p1)
+            return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias, p2)
         for c, bn in ((c1, self.bn1), (c2, self.bn2)):
             y = c(x)
             x = torch.relu(bn(y)).to(x.dtype) if train else bn.relu_eval(y)

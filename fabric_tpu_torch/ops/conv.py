@@ -7,6 +7,13 @@ launches the hand-written Hopper kernel ``csrc/conv3x3_bias_relu.cu`` (see
 its header for the design and what bounds it); on a CPU tensor it computes
 :func:`conv3x3_bias_relu_reference`, the plain PyTorch version the tests
 hold against the Pallas function.
+
+The kernels read their weights in a packed layout (:func:`pack_weight`).
+Callers that keep their weights pack them once and pass them in: the
+folded ``DoubleConv`` (``models/blocks.py``) and the int8 path's bf16
+calibration forward (``infer/quant.py``).  This module also holds the tile
+planner that both conv kernels share (:func:`tile_geometry`,
+:func:`n_tile`), mirrored from ``csrc/conv_tile.cuh``.
 """
 
 from __future__ import annotations
@@ -19,25 +26,91 @@ import torch.nn.functional as F
 
 from fabric_tpu_torch.ops import _build
 
+KC = 32          # kKC in csrc/conv_tile.cuh: input channels per chunk
+PITCH = 40       # kPitch: bf16 per staged pixel
+STAGES = 4       # weight ring slots of the conv kernel
+MAX_SMEM = 232448  # 227 KB: the most shared memory a Hopper block may use
+
+
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def tile_width_log2(w: int) -> int:
-    """log2 of the tile width the kernels use for an image of width w: the
-    smallest power of two >= w, at most the 128-pixel tile."""
-    return min(max(w - 1, 0).bit_length(), 7)
+def _log2_ceil(v: int) -> int:
+    return max(v - 1, 0).bit_length()
+
+
+def tile_geometry(h: int, w: int, rows: int = 128) -> tuple[int, int, int]:
+    """log2 of (TW, TR, NI) of an M chunk of ``rows`` (64 or 128) output
+    pixels: TW the power of two >= w (at most ``rows``), TR the power of
+    two >= h that fits beside it, NI = rows / (TR*TW) whole images."""
+    r = rows.bit_length() - 1
+    tw = min(_log2_ceil(w), r)
+    tr = min(_log2_ceil(h), r - tw)
+    return tw, tr, r - tw - tr
+
+
+def n_tile(cout: int) -> int:
+    """Output channels per wgmma N tile: 64, or 128 where Cout > 64."""
+    return 64 if cout <= 64 else 128
+
+
+def patch_bytes(geo: tuple[int, int, int]) -> int:
+    """Shared memory of one staged input patch (patch_bytes in the CUDA
+    core): NI x (TR+2) x (TW+2) pixels of PITCH bf16, rounded to 128."""
+    tw, tr, ni = geo
+    return _round_up(((1 << tr) + 2) * ((1 << tw) + 2) * (1 << ni) * PITCH
+                     * 2, 128)
+
+
+def smem_bytes(h: int, w: int, cout: int) -> int:
+    """Shared memory of one conv block (fabric_conv3x3_smem_bytes): the
+    weight ring, two staged patches and the ring's barriers."""
+    return (STAGES * n_tile(cout) * KC * 2 + 2 * patch_bytes(
+        tile_geometry(h, w)) + 16 * STAGES)
 
 
 def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, Cout) HWIO kernel -> the kernels' (9, Cout64, Cin16) bf16
-    layout: input channels contiguous, Cin zero-padded to a multiple of 16
-    (GEMM depth) and Cout to a multiple of 64 (GEMM width)."""
+    """(3, 3, Cin, Cout) HWIO kernel -> the kernels' packed bf16 weights, a
+    flat tensor of 9 * Cin16 * CoutP elements (Cin zero-padded to a
+    multiple of 16, Cout to a multiple of the N tile PN = n_tile(Cout)).
+
+    Blocks of PN output channels x kc input channels x one tap, laid out
+    [N tile][K chunk of KC (the last one may be 16)][tap], each block in
+    the no-swizzle K-major layout that wgmma reads: 8 x 8 core matrices
+    [n // 8][k // 8], each 8 rows n of 8 contiguous k.  So element (tap,
+    ci, co) sits at tile*9*Cin16*PN + 9*c0*PN + tap*kc*PN + (n//8)*kc*8 +
+    (k//8)*64 + (n%8)*8 + k%8, with tile, n = divmod(co, PN) and c0, k =
+    the chunk of ci and the offset in it."""
     cin, cout = kernel.shape[2], kernel.shape[3]
-    packed = torch.zeros((9, _round_up(cout, 64), _round_up(cin, 16)),
-                         dtype=torch.bfloat16, device=kernel.device)
-    packed[:, :cout, :cin] = kernel.reshape(9, cin, cout).transpose(1, 2)
-    return packed
+    pn = n_tile(cout)
+    cin_pad, cout_pad = _round_up(cin, 16), _round_up(cout, pn)
+    k = torch.zeros((9, cin_pad, cout_pad), dtype=torch.bfloat16,
+                    device=kernel.device)
+    k[:, :cin, :cout] = kernel.reshape(9, cin, cout)
+    tiles = cout_pad // pn
+    pieces = []
+    for c0 in range(0, cin_pad, KC):
+        kc = min(KC, cin_pad - c0)
+        b = k[:, c0:c0 + kc].reshape(9, kc // 8, 8, tiles, pn // 8, 8)
+        # (tap, k//8, k%8, tile, n//8, n%8) -> (tile, tap, n//8, k//8, n%8, k%8)
+        pieces.append(b.permute(3, 0, 4, 1, 5, 2).reshape(tiles, -1))
+    return torch.cat(pieces, dim=1).reshape(-1).contiguous()
+
+
+def check_packed(packed: torch.Tensor, kernel: torch.Tensor) -> None:
+    """Raise unless ``packed`` is what :func:`pack_weight` makes for a
+    kernel of ``kernel``'s shape, on its device."""
+    cin, cout = kernel.shape[2], kernel.shape[3]
+    want = 9 * _round_up(cin, 16) * _round_up(cout, n_tile(cout))
+    if (packed.dim() != 1 or packed.numel() != want
+            or packed.dtype != torch.bfloat16 or not packed.is_contiguous()
+            or packed.device != kernel.device or packed.data_ptr() % 16):
+        raise ValueError(f"packed weights must be a contiguous, 16-byte "
+                         f"aligned bf16 vector of {want} elements on "
+                         f"{kernel.device} (pack_weight), got "
+                         f"{tuple(packed.shape)} {packed.dtype} on "
+                         f"{packed.device}")
 
 
 def check_operands(x: torch.Tensor, weights, biases) -> None:
@@ -78,30 +151,35 @@ def conv3x3_bias_relu_reference(x: torch.Tensor, kernel: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_bias_relu")
     fn = lib.fabric_conv3x3_bias_relu
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
+                      bias: torch.Tensor,
+                      packed: torch.Tensor | None = None) -> torch.Tensor:
     """relu(conv3x3_SAME(x, kernel) + bias).  x: (N, H, W, Cin); kernel:
-    (3, 3, Cin, Cout); bias: (Cout,).  Any H, W and channel counts."""
+    (3, 3, Cin, Cout); bias: (Cout,); ``packed``: ``pack_weight(kernel)``,
+    made here when None.  Any H, W and channel counts."""
     if x.device.type == "cpu":
         return conv3x3_bias_relu_reference(x, kernel, bias)
     check_operands(x, [kernel], [bias])
+    if packed is None:
+        packed = pack_weight(kernel)
+    check_packed(packed, kernel)
     n, h, w, cin = x.shape
     cout = kernel.shape[3]
-    wpk = pack_weight(kernel)
+    tw, tr, ni = tile_geometry(h, w)
     b = bias.float().contiguous()
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.fabric_conv3x3_bias_relu(
-            x.data_ptr(), wpk.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
-            w, cin, cout, wpk.shape[2], wpk.shape[1], tile_width_log2(w),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), packed.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
+            w, cin, cout, _round_up(cin, 16), n_tile(cout), tw, tr, ni,
+            STAGES, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "conv3x3_bias_relu")
     conv3x3_bias_relu.launches += 1
     return y

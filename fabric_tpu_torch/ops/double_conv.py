@@ -4,50 +4,85 @@ on the SM (inference, BatchNorm folded).
 Counterpart of ``fabric_tpu/ops/pallas_double_conv.py:
 double_conv3x3_bias_relu``.  On a CUDA tensor
 :func:`double_conv3x3_bias_relu` launches ``csrc/double_conv3x3_bias_relu.cu``
-(one block per image, the (H+2) x (W+2) x Cmid intermediate in shared
-memory; see its header); on a CPU tensor it computes
-:func:`double_conv3x3_bias_relu_reference`.  :func:`supports` is the port's
-own gate, from the shared-memory budget of that design; callers run the
-block as two :func:`~fabric_tpu_torch.ops.conv.conv3x3_bias_relu` launches
-where it fails.
+(G whole images per block, the G x (H+2) x (W+2) x Cmid intermediate in
+shared memory; see its header); on a CPU tensor it computes
+:func:`double_conv3x3_bias_relu_reference`.  :func:`plan` lays a block out
+within the shared-memory budget (:func:`fits`); :func:`supports`, the
+callers' gate, adds where the fused kernel beat two
+:func:`~fabric_tpu_torch.ops.conv.conv3x3_bias_relu` launches on the H100.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from fabric_tpu_torch.ops import _build
-from fabric_tpu_torch.ops.conv import (_round_up, check_operands,
-                                       conv3x3_bias_relu_reference,
-                                       pack_weight, tile_width_log2)
-
-MAX_SMEM = 232448  # 227 KB: the most shared memory a Hopper block may use
-_TILE_PIXELS = 128  # kBM in csrc/conv_tile.cuh
-_STAGE_PITCH = 40   # kStagePitch in csrc/conv_tile.cuh
+from fabric_tpu_torch.ops.conv import (KC, MAX_SMEM, _round_up,
+                                       check_operands, check_packed,
+                                       conv3x3_bias_relu_reference, n_tile,
+                                       pack_weight, patch_bytes,
+                                       tile_geometry)
 
 
-def smem_bytes(h: int, w: int, cmid: int) -> int:
+class Plan(NamedTuple):
+    """A block of the fused kernel: M chunks of geometry (tw, tr, ni)
+    (log2s), ``group`` = 2**ni images per block, the two warpgroups on
+    separate N tiles (``split_n``, 64-pixel chunks) or separate rows
+    (128-pixel chunks), ``stages`` ring slots, ``smem`` bytes."""
+    tw: int
+    tr: int
+    ni: int
+    group: int
+    split_n: bool
+    stages: int
+    smem: int
+
+
+def smem_bytes(h: int, w: int, cmid: int, cout: int, split_n: bool,
+               stages: int) -> int:
     """Shared memory one block needs (fabric_double_conv_smem_bytes in the
-    CUDA source): the bf16 intermediate with its zero frame, channels
-    rounded up to 16 plus 8 of bank padding, and one staged input patch of
-    a 128-pixel tile plus halo."""
-    tw = 1 << tile_width_log2(w)
-    tr = _TILE_PIXELS // tw
-    inter = (h + 2) * (w + 2) * (_round_up(cmid, 16) + 8)
-    patch = (tr + 2) * (tw + 2) * _STAGE_PITCH
-    return 2 * (inter + patch)
+    CUDA source): the weight ring, two staged input patches, the
+    intermediate of the block's images with its zero frame (channels
+    rounded up to 16 plus 8 of bank padding) and the ring's barriers."""
+    geo = tile_geometry(h, w, 64 if split_n else 128)
+    stage = max(n_tile(cmid), n_tile(cout)) * KC * 2 * (2 if split_n else 1)
+    inter = _round_up((1 << geo[2]) * (h + 2) * (w + 2)
+                      * (_round_up(cmid, 16) + 8) * 2, 128)
+    return stages * stage + 2 * patch_bytes(geo) + inter + 16 * stages
+
+
+def plan(h: int, w: int, cin: int, cmid: int, cout: int) -> Plan | None:
+    """The block layout for this DoubleConv, or None where none fits 227
+    KB: 128-pixel chunks if they fit, else 64-pixel ones (fewer images per
+    block); 4 ring slots if they fit, else 3."""
+    if min(h, w, cin, cmid, cout) <= 0:
+        return None
+    for split_n in (False, True):
+        tw, tr, ni = tile_geometry(h, w, 64 if split_n else 128)
+        for stages in (4, 3):
+            smem = smem_bytes(h, w, cmid, cout, split_n, stages)
+            if smem <= MAX_SMEM:
+                return Plan(tw, tr, ni, 1 << ni, split_n, stages, smem)
+    return None
+
+
+def fits(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
+    """Can the fused kernel run this block at all (shared memory)?"""
+    return plan(h, w, cin, cmid, cout) is not None
 
 
 def supports(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
-    """Can the fused kernel run this block: does one image's intermediate
-    fit a block's shared memory?  (cin and cout do not enter the budget:
-    the input is staged 32 channels at a time and the output goes straight
-    to device memory.)"""
-    return (min(h, w, cin, cmid, cout) > 0
-            and smem_bytes(h, w, cmid) <= MAX_SMEM)
+    """The callers' gate: the fused kernel where it fits and both convs are
+    wider than 64 channels.  On the H100 (chip_smoke.py, both ways at each
+    level of a 256-tile forward at patch 64) it beat two conv launches at
+    down2-4 and up2 and tied at up1 (128-512 channels), and lost at up3
+    (64 channels: wgmma N = 64 with one block per SM, where the separate
+    convs run three)."""
+    return fits(h, w, cin, cmid, cout) and min(cmid, cout) > 64
 
 
 def double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2):
@@ -61,7 +96,7 @@ def double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("double_conv3x3_bias_relu")
     fn = lib.fabric_double_conv3x3_bias_relu
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -69,21 +104,27 @@ def _lib() -> ctypes.CDLL:
 
 def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
                              b1: torch.Tensor, w2: torch.Tensor,
-                             b2: torch.Tensor) -> torch.Tensor:
+                             b2: torch.Tensor,
+                             packed: tuple | None = None) -> torch.Tensor:
     """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding.
-    x: (N, H, W, Cin); w1: (3, 3, Cin, Cmid); w2: (3, 3, Cmid, Cout).
-    On the card, raises where :func:`supports` fails."""
+    x: (N, H, W, Cin); w1: (3, 3, Cin, Cmid); w2: (3, 3, Cmid, Cout);
+    ``packed``: ``(pack_weight(w1), pack_weight(w2))``, made here when
+    None.  On the card, raises where :func:`fits` fails."""
     if x.device.type == "cpu":
         return double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2)
     check_operands(x, [w1, w2], [b1, b2])
     n, h, w, cin = x.shape
     cmid, cout = w1.shape[3], w2.shape[3]
-    if not supports(h, w, cin, cmid, cout):
+    p = plan(h, w, cin, cmid, cout)
+    if p is None:
         raise ValueError(
-            f"double_conv3x3_bias_relu: a {h}x{w}x{cmid} intermediate needs "
-            f"{smem_bytes(h, w, cmid)} bytes of shared memory, more than "
-            f"{MAX_SMEM}; run the block as two conv3x3_bias_relu launches")
-    w1pk, w2pk = pack_weight(w1), pack_weight(w2)
+            f"double_conv3x3_bias_relu: a block of {h}x{w} images with "
+            f"{cmid} intermediate channels does not fit {MAX_SMEM} bytes of "
+            f"shared memory; run it as two conv3x3_bias_relu launches")
+    w1pk, w2pk = packed if packed is not None else (pack_weight(w1),
+                                                    pack_weight(w2))
+    check_packed(w1pk, w1)
+    check_packed(w2pk, w2)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     lib = _lib()
@@ -91,8 +132,8 @@ def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
         err = lib.fabric_double_conv3x3_bias_relu(
             x.data_ptr(), w1pk.data_ptr(), b1f.data_ptr(), w2pk.data_ptr(),
             b2f.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
-            w1pk.shape[2], w2pk.shape[2], w1pk.shape[1], w2pk.shape[1],
-            tile_width_log2(w),
+            _round_up(cin, 16), n_tile(cmid), n_tile(cout), p.tw, p.tr, p.ni,
+            p.group, int(p.split_n), p.stages,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "double_conv3x3_bias_relu")
     double_conv3x3_bias_relu.launches += 1

@@ -12,11 +12,31 @@ import torch
 from fabric_tpu_torch.ops import bn_relu, conv, double_conv, fused
 
 CONV_SHAPES = [(2, 16, 24, 8, 16), (1, 32, 33, 13, 64), (1, 48, 128, 64, 64),
-               (3, 7, 5, 3, 70), (2, 5, 300, 24, 8), (512, 64, 64, 64, 64)]
+               (3, 7, 5, 3, 70), (2, 5, 300, 24, 8), (512, 64, 64, 64, 64),
+               # the main path's conv launches (inc, down1, up4), N cut
+               (4, 64, 64, 13, 64), (4, 32, 32, 64, 128),
+               (4, 32, 32, 128, 128), (4, 64, 64, 128, 64),
+               # and the double-conv levels' convs, where the gate may send
+               (5, 16, 16, 128, 256), (5, 8, 8, 256, 512),
+               (9, 4, 4, 512, 512), (3, 8, 8, 1024, 256),
+               # edges: 1x1, 3x5, 7x9 images, Cin 13 and 1024, Cout 2 and
+               # 40, N not a multiple of the images per tile
+               (3, 1, 1, 16, 64), (5, 3, 5, 13, 40), (3, 7, 9, 1024, 2),
+               (11, 4, 4, 40, 40), (9, 8, 8, 64, 200)]
 DOUBLE_SHAPES = [(2, 8, 8, 16, 32, 32), (1, 12, 20, 8, 8, 16),
                  (5, 16, 16, 32, 32, 32), (3, 8, 8, 32, 32, 16),
                  (1, 6, 6, 4, 4, 4), (2, 7, 13, 13, 24, 70),
-                 (64, 16, 16, 128, 256, 256)]
+                 (64, 16, 16, 128, 256, 256),
+                 # the main path's double-conv levels, N cut (down2-4 and
+                 # up1-3; down4's 4 images per block, up1's 2)
+                 (3, 16, 16, 128, 256, 256), (5, 8, 8, 256, 512, 512),
+                 (9, 4, 4, 512, 512, 512), (3, 8, 8, 1024, 256, 256),
+                 (2, 16, 16, 512, 128, 128), (2, 32, 32, 256, 64, 64),
+                 # edges: 1x1, 3x5, 7x9, Cin 13 and 1024, Cout 2 and 40,
+                 # N not a multiple of the images per block
+                 (5, 1, 1, 16, 32, 2), (7, 3, 5, 13, 40, 40),
+                 (3, 7, 9, 1024, 64, 40), (6, 4, 4, 13, 64, 2),
+                 (7, 8, 8, 64, 200, 136)]
 FUSED_SHAPES = [(2, 17, 23, 64), (3, 7, 11, 5), (256, 64, 64, 64)]
 BN_SHAPES = [(2, 9, 9, 32), (3, 5, 7, 24), (256, 96, 96, 64),
              (128, 12, 12, 256), (256, 6, 6, 512), (1, 3, 3, 13)]
@@ -77,6 +97,41 @@ def test_double_conv_kernel_matches_plain(card, shape):
 
 
 @pytest.mark.cuda
+def test_prepacked_weights_give_the_same_result(card):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(3, 8, 8, 64, generator=g).to(card, torch.bfloat16)
+    w1 = (torch.randn(3, 3, 64, 128, generator=g) / 24).to(card)
+    w2 = (torch.randn(3, 3, 128, 128, generator=g) / 34).to(card)
+    b1, b2 = (torch.randn(128, generator=g).to(card) for _ in range(2))
+    p1, p2 = conv.pack_weight(w1), conv.pack_weight(w2)
+    assert torch.equal(conv.conv3x3_bias_relu(x, w1, b1, p1),
+                       conv.conv3x3_bias_relu(x, w1, b1))
+    assert torch.equal(
+        double_conv.double_conv3x3_bias_relu(x, w1, b1, w2, b2, (p1, p2)),
+        double_conv.double_conv3x3_bias_relu(x, w1, b1, w2, b2))
+
+
+@pytest.mark.cuda
+def test_folded_model_packs_its_kernels_once(card):
+    """build_model packs the folded kernels; a forward reuses them; a
+    changed kernel is packed again."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.models import build_model
+    model = build_model(Config(model_base=16), card)
+    block = model.down3.conv
+    first = block.packed_kernels()
+    x = torch.randn(2, 16, 16, 13, device=card)
+    with torch.inference_mode():
+        model(x.to(torch.bfloat16), x.to(torch.bfloat16))
+    assert block.packed_kernels() is first
+    with torch.no_grad():
+        block.conv1.kernel.mul_(2)
+    again = block.packed_kernels()
+    assert again is not first
+    assert torch.equal(again[0], conv.pack_weight(block.conv1.kernel))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", FUSED_SHAPES)
 def test_fused_kernel_matches_plain(card, shape):
     a, b = (torch.randn(*shape).to(card, torch.bfloat16) for _ in range(2))
@@ -94,8 +149,17 @@ def test_kernels_refuse_what_they_do_not_take(card):
     big = torch.zeros(1, 64, 64, 64, device=card, dtype=torch.bfloat16)
     k64, b64 = (torch.zeros(3, 3, 64, 64, device=card),
                 torch.zeros(64, device=card))
+    # the gate: a 64x64 image's 64-channel intermediate does not fit
+    assert not double_conv.fits(64, 64, 64, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
         double_conv.double_conv3x3_bias_relu(big, k64, b64, k64, b64)
+    with pytest.raises(ValueError, match="pack_weight"):
+        conv.conv3x3_bias_relu(big, k64, b64, conv.pack_weight(k64)[:-8])
+    with pytest.raises(ValueError, match="pack_weight"):
+        small = big[:, :8, :8]
+        double_conv.double_conv3x3_bias_relu(
+            small.contiguous(), k64, b64, k64, b64,
+            (conv.pack_weight(k64), conv.pack_weight(k64).float()))
 
 
 @pytest.mark.cuda

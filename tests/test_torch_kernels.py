@@ -73,25 +73,79 @@ def test_fused_plain_matches_pallas(shape):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
 
 
+# level: (N, side, Cin, Cout) of one 256-tile forward at patch 64, and the
+# fused kernel's block plan there: (images per block, N split, ring slots)
+LEVELS = {"inc": (512, 64, 13, 64), "down1": (512, 32, 64, 128),
+          "down2": (512, 16, 128, 256), "down3": (512, 8, 256, 512),
+          "down4": (512, 4, 512, 512), "up1": (256, 8, 1024, 256),
+          "up2": (256, 16, 512, 128), "up3": (256, 32, 256, 64),
+          "up4": (256, 64, 128, 64)}
+PLANS = {"down2": (1, False, 3), "down3": (1, True, 4),
+         "down4": (4, True, 3), "up1": (2, False, 4), "up2": (1, False, 4),
+         "up3": (1, False, 4)}
+
+
 def test_double_conv_gate_at_patch_64():
-    """The shared-memory gate sends the deep blocks (intermediates of
-    37-171 KB) to the fused kernel and the full/half-resolution ones
-    (296-627 KB) to two conv launches."""
-    fused_blocks = set()
-    for level, (cin, cout) in block_channels(13, 64).items():
-        scale = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
-                 "up1": 8, "up2": 4, "up3": 2, "up4": 1}[level]
-        side = 64 // scale
-        if double_conv.supports(side, side, cin, cout, cout):
-            fused_blocks.add(level)
-    assert fused_blocks == {"down2", "down3", "down4", "up1", "up2", "up3"}
-    assert double_conv.smem_bytes(16, 16, 256) <= double_conv.MAX_SMEM
+    """The fused kernel fits the deep blocks (a G x (H+2) x (W+2) x Cmid
+    intermediate plus ring and patches within 227 KB) and not the full and
+    half-resolution ones; the gate sends the blocks as planned."""
+    for level, (_, side, cin, cout) in LEVELS.items():
+        assert (block_channels(13, 64)[level]) == (cin, cout)
+        p = double_conv.plan(side, side, cin, cout, cout)
+        assert (p is not None) == (level in PLANS), level
+        if p is not None:
+            assert (p.group, p.split_n, p.stages) == PLANS[level], level
+            assert p.smem == double_conv.smem_bytes(
+                side, side, cout, cout, p.split_n, p.stages)
+            assert p.smem <= double_conv.MAX_SMEM
+            # one more ring slot would not fit
+            if p.stages < 4:
+                assert double_conv.smem_bytes(side, side, cout, cout,
+                                              p.split_n, 4) > \
+                    double_conv.MAX_SMEM
+    fused_blocks = {level for level, (_, side, cin, cout) in LEVELS.items()
+                    if double_conv.supports(side, side, cin, cout, cout)}
+    # the measured gate: up3 (64 channels) runs faster as two conv launches
+    assert fused_blocks == set(PLANS) - {"up3"}
     assert not double_conv.supports(8, 8, 8, 0, 8)
 
 
-def test_tile_width():
-    assert [1 << conv.tile_width_log2(w) for w in (1, 2, 3, 13, 64, 65, 999)] \
-        == [1, 2, 4, 16, 64, 128, 128]
+@pytest.mark.parametrize("h,w,rows,want", [
+    (64, 64, 128, (6, 1, 0)), (32, 32, 128, (5, 2, 0)),
+    (16, 16, 128, (4, 3, 0)), (8, 8, 128, (3, 3, 1)),
+    (4, 4, 128, (2, 2, 3)), (4, 4, 64, (2, 2, 2)), (8, 8, 64, (3, 3, 0)),
+    (1, 1, 128, (0, 0, 7)), (3, 5, 128, (3, 2, 2)), (7, 9, 128, (4, 3, 0)),
+    (5, 300, 128, (7, 0, 0))])
+def test_tile_width(h, w, rows, want):
+    """An M chunk is NI whole images x TR rows x TW columns (log2s),
+    TW >= W up to the chunk, TR >= H where it fits beside TW."""
+    tw, tr, ni = conv.tile_geometry(h, w, rows)
+    assert (tw, tr, ni) == want
+    assert (1 << (tw + tr + ni)) == rows
+    if ni:  # whole images: every row of the chunk is a pixel when H, W
+        assert (1 << tw) >= w and (1 << tr) >= h  # are powers of two
+
+
+def test_ragged_last_group():
+    """N not a multiple of the images per tile: the last tile or block
+    holds fewer images; the kernels mask the rest."""
+    tw, tr, ni = conv.tile_geometry(4, 4)
+    n = 13
+    tiles = -(-n // (1 << ni))
+    assert (1 << ni) == 8 and tiles == 2 and n - (tiles - 1) * 8 == 5
+    p = double_conv.plan(4, 4, 512, 512, 512)
+    assert p.group == 4 and -(-n // p.group) == 4
+
+
+def test_conv_smem_at_main_path_shapes():
+    """A conv block (4 ring slots of PN x 32 weights, two staged patches)
+    leaves room for the blocks per SM the kernel asks for at every
+    main-path shape: three at PN = 64, one at 128 (two would fit)."""
+    for _, (_, side, _, cout) in LEVELS.items():
+        per_sm = 3 if conv.n_tile(cout) == 64 else 2
+        assert per_sm * conv.smem_bytes(side, side, cout) <= conv.MAX_SMEM
+    assert conv.n_tile(2) == conv.n_tile(64) == 64
+    assert conv.n_tile(65) == conv.n_tile(512) == 128
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -109,10 +163,40 @@ def test_cpu_tensors_take_the_plain_versions():
                       fused.fused_mul_relu.launches)
 
 
-def test_packed_weight_layout():
-    k = torch.arange(3 * 3 * 13 * 70, dtype=torch.float32).reshape(3, 3, 13,
-                                                                   70)
+@pytest.mark.parametrize("cin,cout", [(13, 70), (64, 64), (40, 2),
+                                       (48, 256)])
+def test_packed_weight_layout(cin, cout):
+    """pack_weight against the layout its docstring states, element by
+    element, round-tripped to kernel.reshape(9, cin, cout); padding zero."""
+    rng = np.random.RandomState(3)
+    k = torch.from_numpy(rng.randn(3, 3, cin, cout).astype(np.float32))
     p = conv.pack_weight(k)
-    assert p.shape == (9, 128, 16) and p.dtype == torch.bfloat16
-    assert torch.equal(p[4, 69, 12], k[1, 1, 12, 69].to(torch.bfloat16))
-    assert not p[:, 70:].any() and not p[:, :, 13:].any()
+    pn = conv.n_tile(cout)
+    cin16, coutp = -(-cin // 16) * 16, -(-cout // pn) * pn
+    assert p.dtype == torch.bfloat16 and p.shape == (9 * cin16 * coutp,)
+    tap, ci, co = np.meshgrid(np.arange(9), np.arange(cin), np.arange(cout),
+                              indexing="ij")
+    tile, n = co // pn, co % pn
+    c0 = ci // conv.KC * conv.KC
+    kc = np.minimum(conv.KC, cin16 - c0)
+    kk = ci - c0
+    idx = (tile * 9 * cin16 * pn + 9 * c0 * pn + tap * kc * pn
+           + (n // 8) * kc * 8 + (kk // 8) * 64 + (n % 8) * 8 + kk % 8)
+    got = p.float().numpy()[idx]
+    want = k.reshape(9, cin, cout).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(idx)) == idx.size
+    assert np.count_nonzero(np.delete(p.float().numpy(), idx.ravel())) == 0
+
+
+def test_prepacked_call_matches_unpacked():
+    """The packed weights change nothing on the CPU's plain path."""
+    x, k, b = map(torch.from_numpy, _conv_case(4, 2, 6, 5, 16, 24))
+    k2 = torch.from_numpy(_conv_case(5, 1, 1, 1, 24, 8)[1])
+    b2 = torch.zeros(8)
+    assert torch.equal(conv.conv3x3_bias_relu(x, k, b, conv.pack_weight(k)),
+                       conv.conv3x3_bias_relu(x, k, b))
+    packed = (conv.pack_weight(k), conv.pack_weight(k2))
+    assert torch.equal(
+        double_conv.double_conv3x3_bias_relu(x, k, b, k2, b2, packed),
+        double_conv.double_conv3x3_bias_relu(x, k, b, k2, b2))
