@@ -16,14 +16,16 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   and ``predict_many``, checks the masks against the same forward on the
   plain versions, and shows from the launch counters that the serve went
   through every kernel;
-- int8: holds the int8 conv kernel exactly against its plain version at
-  the 22 shapes of one int8 forward and the int8 matrix kernel at
-  131072 x 512 x 512 (int8 and bf16), runs the int8 microbench, then
-  serves the same scenes through ``ScenePredictor(quant="int8")``
-  (calibration on the first scene, clip probes after), checks
-  ``predict_many`` against ``predict``, the mask against the same int8
-  forward on the plain int8 conv (identical) and the launch counters, and
-  profiles one scene of each runner;
+- int8: holds the int8 conv kernel against its plain version at the 18
+  fused conv sites of one int8 forward, each in its mode (int8 out, the
+  decoder's split form, bf16 out), timed beside the unfused raw launch +
+  PyTorch epilogue, and exactly in its raw int32 mode at the 22 separate
+  convs; the int8 matrix kernel at 131072 x 512 x 512 (int8 and bf16);
+  runs the int8 microbench, then serves the same scenes through
+  ``ScenePredictor(quant="int8")`` (calibration on the first scene, clip
+  probes after), checks ``predict_many`` against ``predict``, the mask
+  against the same int8 forward on the plain conv sites and the launch
+  counters, and profiles one scene of each runner;
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -654,10 +656,10 @@ def report_training(cfg, state, history, records, smi, model):
         fail("training did not complete with a falling, finite loss")
 
 
-def profile_runner(run, a1, a2, label: str) -> None:
+def profile_runner(run, a1, a2, label: str, top: int = 8) -> None:
     """One scene through a runner under torch.profiler: the card's busy
     time (the kernels' summed device time) against the wall clock, and
-    the kernels that take the most of it."""
+    the ``top`` kernels that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -672,26 +674,25 @@ def profile_runner(run, a1, a2, label: str) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     print(f"{label} under torch.profiler: card busy {busy_ms:.1f} ms of "
           f"{wall_ms:.1f} ms wall (idle share {1 - busy_ms / wall_ms:.3f});"
-          f" {len(kernels)} kernel names, top: " + "; ".join(
+          f" {len(kernels)} kernel names, {sum(e.count for e in kernels)} "
+          f"launches, top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
-              f"x{e.count}" for e in top), flush=True)
+              f"x{e.count}" for e in ranked[:top]), flush=True)
 
 
 def int8_conv_shapes():
-    """(site, (n, h, w, cin, cout)) of the 22 conv3x3_s8 launches of one
-    int8 forward of BATCH tiles: two per encoder block (both dates), and
-    per decoder block the split conv1 (skip and upsampled halves) and
-    conv2."""
+    """(site, (n, h, w, cin, cout)) of the 22 int8 convs of one int8
+    forward of BATCH tiles as separate convs: two per encoder block (both
+    dates), and per decoder block the skip and upsampled halves of conv1
+    and conv2.  The raw (int32) mode is held exactly at these shapes."""
     from fabric_tpu_torch.weights import block_channels
 
-    side = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16,
-            "up1": 8, "up2": 4, "up3": 2, "up4": 1}
     shapes = []
     for level, (cin, cout) in block_channels(13, BASE).items():
-        s = PATCH // side[level]
+        s = PATCH // LEVEL_SIDE[level]
         if level.startswith("up"):
             shapes += [(f"{level}.conv1.{half}",
                         (BATCH, s, s, cin // 2, cout))
@@ -703,12 +704,54 @@ def int8_conv_shapes():
     return shapes
 
 
+def int8_site_shapes():
+    """(site, (n, h, w, cin, cout), mode) of the 18 conv3x3_s8_q launches
+    of one int8 forward of BATCH tiles, each in the mode the forward runs
+    it in: int8 out in the encoder, the split form (two segments of cin
+    channels, int8 out) for a decoder conv1, bf16 out for a decoder
+    conv2."""
+    from fabric_tpu_torch.weights import block_channels
+
+    shapes = []
+    for level, (cin, cout) in block_channels(13, BASE).items():
+        s = PATCH // LEVEL_SIDE[level]
+        if level.startswith("up"):
+            shapes += [(f"{level}.conv1", (BATCH, s, s, cin // 2, cout),
+                        "split"),
+                       (f"{level}.conv2", (BATCH, s, s, cout, cout), "bf16")]
+        else:
+            shapes += [(f"{level}.conv1", (2 * BATCH, s, s, cin, cout),
+                        "int8"),
+                       (f"{level}.conv2", (2 * BATCH, s, s, cout, cout),
+                        "int8")]
+    return shapes
+
+
+def compare_site(got, ref, mode):
+    """(largest difference in int8 codes or bf16 ulps, elements that
+    differ) of a fused conv site against its plain version."""
+    if mode == "bf16":
+        g, r = got.float(), ref.float()
+        # one bf16 ulp of r: 2^(exponent - 7); zeros count as the smallest
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126)))
+                         - 7)
+        d = (g - r).abs() / ulp
+    else:
+        d = (got.int() - ref.int()).abs().float()
+    return d.max().item(), int((d > 0).sum())
+
+
 def check_int8_kernels():
-    """conv3x3_s8 at the 22 shapes of one int8 forward and int8_matmul at
-    the microbench's 131072 x 512 x 512, each against its plain version on
-    the card (exact), with its time beside its bound, the plain version's
-    and a library call's (none computes an int8 conv: cuDNN's bf16 conv is
-    printed as context only).  Returns (conv rows, matmul row)."""
+    """conv3x3_s8 at the 18 launches of one int8 forward, each in the mode
+    the forward runs it in, against its plain version on the card (the
+    exact conv, then the epilogue in PyTorch), with its time beside its
+    bound, the plain version's and the unfused time (the raw int32 launch,
+    or two for the split form, then the plain epilogue on the card: what
+    the forward ran before); raw at the 22 separate convs, exact; and
+    int8_matmul at the microbench's 131072 x 512 x 512 (int8 exact, bf16
+    within k 2^-22 |a| @ |b|) beside torch._int_mm and torch.matmul.
+    Returns (the fused rows, the matmul row, whether any fused site
+    differed within the allowed one code or ulp)."""
     from fabric_tpu_torch.ops import conv_s8
     from fabric_tpu_torch.ops import int8_matmul as im
 
@@ -718,33 +761,100 @@ def check_int8_kernels():
         return torch.randint(-127, 128, shape, generator=g,
                              dtype=torch.int8).cuda()
 
-    rows = []
+    raw_ms = raw_bound = 0.0
     for site, (n, h, w, cin, cout) in int8_conv_shapes():
         x, wq = s8(n, h, w, cin), s8(3, 3, cin, cout)
         packed = conv_s8.pack_weight(wq)
         got = conv_s8.conv3x3_s8(x, wq, packed)
         torch.cuda.synchronize()
         ref = conv_s8.conv3x3_s8_reference(x, wq)
-        err = (got.double() - ref.double()).abs().max().item()
+        exact = torch.equal(got, ref)
         kms = device_ms(lambda: conv_s8.conv3x3_s8(x, wq, packed), 10)
-        pms = device_ms(lambda: conv_s8.conv3x3_s8_reference(x, wq), 1)
-        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-        wb = wq.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        cudnn_ms = device_ms(lambda: F.conv2d(xb, wb, padding=1), 10)
         t_ops, t_bytes = bound(2 * n * h * w * 9 * cin * cout,
                                n * h * w * (cin + 4 * cout) + 9 * cin * cout,
                                PEAK_INT8_TENSOR)
-        print(f"kernel conv3x3_s8 {site} {(n, h, w, cin, cout)}: "
-              f"max_abs_err {err:.0f} {'exact' if err == 0 else 'MISMATCH'}"
-              f" | {kms:.4f} ms, plain {pms:.3f} ms, bound "
-              f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: int8 in, int32 out); "
-              f"context: cuDNN bf16 F.conv2d {cudnn_ms:.4f} ms", flush=True)
-        if err != 0:
-            fail(f"conv3x3_s8 {site} is not exact against its plain version")
-        rows.append(dict(name="conv3x3_s8", err=err, ms=kms, plain_ms=pms,
-                         library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
-        del x, wq, packed, got, ref, xb, wb
+        raw_ms, raw_bound = raw_ms + kms, raw_bound + max(t_ops, t_bytes)
+        print(f"kernel conv3x3_s8 raw {site} {(n, h, w, cin, cout)}: "
+              f"{'exact' if exact else 'MISMATCH'} against the float64 conv"
+              f" | {kms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: int8 in, "
+              f"int32 out)", flush=True)
+        if not exact:
+            fail(f"conv3x3_s8 raw {site} is not exact against the float64 "
+                 "conv")
+        del x, wq, packed, got, ref
+    print(f"conv3x3_s8 raw (int32 out) at the 22 separate convs of a "
+          f"forward: {raw_ms:.3f} ms, bound {raw_bound:.3f} ms", flush=True)
+
+    rows, within = [], False
+    for site, (n, h, w, cin, cout), mode in int8_site_shapes():
+        split = mode == "split"
+        x, wq = s8(n, h, w, cin), s8(3, 3, cin, cout)
+        packed = conv_s8.pack_weight(wq)
+
+        def scale(f):  # sums of a few units, some codes clipped
+            return ((torch.rand(cout, generator=g) + 0.5) * f / (
+                (9 * cin) ** 0.5 * 5400)).cuda()
+        k, bias = scale(2.0), torch.randn(cout, generator=g).cuda()
+        up = None
+        if split:
+            wq2 = s8(3, 3, cin, cout)
+            up = (s8(n, h, w, cin), wq2, scale(0.7), conv_s8.pack_weight(wq2))
+        s_out = None if mode == "bf16" else 3.0 / 127
+        args = (x, wq, k, bias, s_out)
+        got = conv_s8.conv3x3_s8_q(*args, packed, up)
+        torch.cuda.synchronize()
+        ref = conv_s8.conv3x3_s8_q_reference(*args, up)
+        worst, n_diff = compare_site(got, ref, mode)
+        # bit-equal, or within one code or ulp on at most 1e-5 of the
+        # elements (the plain version's own rounding on the card)
+        ok = worst == 0 or (worst <= 1 and n_diff <= 1e-5 * got.numel())
+        within |= worst > 0 and ok
+        kms = device_ms(lambda: conv_s8.conv3x3_s8_q(*args, packed, up), 10)
+        pms = device_ms(lambda: conv_s8.conv3x3_s8_q_reference(*args, up), 1)
+        packs = {id(wq): packed}
+        if split:
+            packs[id(up[1])] = up[3]
+        plain_conv = conv_s8.conv3x3_s8_reference
+        conv_s8.conv3x3_s8_reference = lambda x, w: conv_s8.conv3x3_s8(
+            x, w, packs[id(w)])
+        try:  # the raw kernel, then the plain epilogue
+            unfused = conv_s8.conv3x3_s8_q_reference(*args, up)
+            torch.cuda.synchronize()
+            if not torch.equal(unfused, ref):
+                fail(f"conv3x3_s8 {site}: the raw kernel under the plain "
+                     "epilogue differs from the plain version")
+            ums = device_ms(lambda: conv_s8.conv3x3_s8_q_reference(
+                *args, up), 10)
+        finally:
+            conv_s8.conv3x3_s8_reference = plain_conv
+        k_in = cin * (2 if split else 1)
+        out_b = 1 if s_out is not None else 2
+        ops = 2 * n * h * w * 9 * k_in * cout
+        t_ops, t_bytes = bound(ops, n * h * w * (k_in + out_b * cout)
+                               + 9 * k_in * cout
+                               + 4 * cout * (3 if split else 2),
+                               PEAK_INT8_TENSOR)
+        p = conv_s8.plan(h, w, cout, mode)
+        print(f"kernel conv3x3_s8 {mode} {site} {(n, h, w, cin, cout)}: "
+              f"{'identical' if worst == 0 else 'DIFFERENT'} to its plain "
+              f"version ({n_diff} of {got.numel()} differ, by at most "
+              f"{worst:g} {'ulp' if mode == 'bf16' else 'code'}) | "
+              f"{kms:.4f} ms, {ops / kms / 1e9:.1f} TOP/s, bound "
+              f"{max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}), plain "
+              f"{pms:.3f} ms, unfused (raw launch + plain epilogue) "
+              f"{ums:.4f} ms | plan PN {p.pn}, chunk {conv_s8.KB} B, "
+              f"{p.images} images of {1 << p.tr}x{1 << p.tw} per 128-pixel "
+              f"tile, {p.blocks_per_sm} blocks per SM, {conv_s8.STAGES} "
+              f"ring slots, {p.smem} B shared",
+              flush=True)
+        if not ok:
+            fail(f"conv3x3_s8 {mode} {site} disagrees with its plain version")
+        rows.append(dict(name="conv3x3_s8", err=worst, ms=kms, plain_ms=pms,
+                         unfused_ms=ums, library_ms=None, t_ops=t_ops,
+                         t_bytes=t_bytes))
+        del x, wq, packed, got, ref, unfused, up, args
 
     m, k, n = 131072, 512, 512
     a, b = s8(m, k), s8(k, n)
@@ -782,7 +892,7 @@ def check_int8_kernels():
         del aa, bb, got, ref
     row = forms[torch.int8]
     row["err"] = max(r["err"] for r in forms.values())
-    return rows, row
+    return rows, row, within
 
 
 def int8_matmul_path():
@@ -803,21 +913,24 @@ def int8_matmul_path():
     return launches
 
 
-def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms):
+def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
     """int8 serving through ScenePredictor(quant="int8") at full width:
     the first predict calibrates, predict_many probes and serves a 2048^2
     and a 1000x1500 pair; the launch counters, predict_many == predict, the
     mask identical to the same int8 forward (same scales) on the plain
-    versions, and the rates beside this run's bf16 ones.  Returns the
-    conv3x3_s8 launches."""
+    versions of the conv sites (or, where ``within`` says a site differed
+    within one code or ulp from its plain version, the same on >= 99.99%
+    of the pixels), and the rates beside this run's bf16 ones.  Returns
+    the conv3x3_s8 launches (both wrappers of the kernel)."""
     from fabric_tpu_torch.infer.device_tiling import make_scene_infer
     from fabric_tpu_torch.infer.service import ScenePredictor
     from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fused
 
     pred = ScenePredictor(cfg, checkpoint=None, bucket=512, device="cuda",
                           quant="int8")
-    counters = (conv_s8.conv3x3_s8, conv.conv3x3_bias_relu,
-                double_conv.double_conv3x3_bias_relu, fused.fused_mul_relu)
+    counters = (conv_s8.conv3x3_s8_q, conv_s8.conv3x3_s8,
+                conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -825,10 +938,12 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms):
     first_s = time.perf_counter() - t0
     many = pred.predict_many(more)
     launches = {fn.__name__: fn.launches for fn in counters}
-    # int8 forwards of BATCH tiles: 4 + 4 + 2, 22 convs each; the stats
-    # forward (one conv3x3 launch per site, five fusions) runs for the
-    # calibration on the first scene and for the two probes
-    expected = {"conv3x3_s8": 22 * 10, "conv3x3_bias_relu": 18 * 3,
+    # int8 forwards of BATCH tiles: 4 + 4 + 2, 18 fused conv sites each
+    # and no raw conv; the stats forward (one conv3x3 launch per site, five
+    # fusions) runs for the calibration on the first scene and for the two
+    # probes
+    expected = {"conv3x3_s8_q": 18 * 10, "conv3x3_s8": 0,
+                "conv3x3_bias_relu": 18 * 3,
                 "double_conv3x3_bias_relu": 0, "fused_mul_relu": 5 * 3}
     print(f"int8 serve: kernels launched {launches} (expected {expected}); "
           f"first predict (with calibration) {first_s:.2f} s; worst clip "
@@ -843,23 +958,26 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms):
             fail("int8 predict_many differs from predict")
     print("int8 predict_many == [predict(*p) for p in pairs]: ok", flush=True)
 
-    # the same int8 forward (same scales) on the plain int8 conv
+    # the same int8 forward (same scales) on the plain conv sites: the
+    # exact float64 conv, then the epilogue in PyTorch
     a1, a2 = (torch.from_numpy(d).cuda() for d in (d1, d2))
-    kernel = conv_s8.conv3x3_s8
-    conv_s8.conv3x3_s8 = lambda x, wq, packed=None: \
-        conv_s8.conv3x3_s8_reference(x, wq)
+    kernel = conv_s8.conv3x3_s8_q
+    conv_s8.conv3x3_s8_q = lambda x, wq, k, b, s_out=None, packed=None, \
+        up=None, dtype=torch.bfloat16: conv_s8.conv3x3_s8_q_reference(
+            x, wq, k, b, s_out, up, dtype)
     try:
         plain = make_scene_infer(pred._forward, PATCH, (SCENE, SCENE),
                                  batch_size=BATCH, dtype=torch.bfloat16)(
                                      a1, a2).cpu().numpy()
     finally:
-        conv_s8.conv3x3_s8 = kernel
-    same = np.array_equal(mask, plain)
-    print(f"2048^2 int8 mask vs the same int8 forward on the plain int8 conv"
-          f" on the card: {'identical' if same else 'DIFFERENT'} ("
-          f"{int((mask != plain).sum())} pixels differ); change share "
-          f"{mask.mean():.4f}", flush=True)
-    if not same:
+        conv_s8.conv3x3_s8_q = kernel
+    agree = float((mask == plain).mean())
+    print(f"2048^2 int8 mask vs the same int8 forward on the plain conv "
+          f"sites on the card: "
+          f"{'identical' if agree == 1 else 'DIFFERENT'} ("
+          f"{int((mask != plain).sum())} pixels differ, agreement "
+          f"{agree:.6f}); change share {mask.mean():.4f}", flush=True)
+    if agree < (0.9999 if within else 1.0):
         fail("the int8 kernel forward differs from the plain-version one")
 
     walls = []
@@ -877,17 +995,52 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms):
         pred._int8_probe_check(pred._int8_scene_prologue(
             pred._calibration_crops(d1, d2)), pred._scenes_predicted)
         probes.append(time.perf_counter() - t0)
-    profile_runner(run, a1, a2, f"int8 {SCENE}^2 runner")
+    profile_runner(run, a1, a2, f"int8 {SCENE}^2 runner", top=12)
+    # what an int8 forward makes in int32: the Siamese fusion's products
+    # alone (5 levels x two casts, the product and its ReLU), no conv sum
+    tiles = [torch.randn(BATCH, PATCH, PATCH, 13, generator=torch.Generator(
+    ).manual_seed(SEED + i)).cuda() for i in range(2)]
+    made, addcmul = int32_tensors(pred._forward, *tiles)
+    print(f"int32 tensors made by one int8 forward of {BATCH} tiles, by aten "
+          f"op: {made} ({sum(made.values())}; the fusion's alone: 20); "
+          f"addcmul calls: {addcmul}", flush=True)
+    if sum(made.values()) > 20 or addcmul:
+        fail("the int8 forward makes int32 tensors outside the fusion")
     mpx = SCENE * SCENE / 1e6
     print(f"int8 end to end {SCENE}^2: predict {wall * 1e3:.1f} ms median of "
           f"{[round(w * 1e3, 1) for w in walls]} = {mpx / wall:.2f} Mpx/s "
           f"(clip probe, host pad/upload/read-back included; the probe "
           f"alone {statistics.median(probes) * 1e3:.1f} ms, host clock); "
           f"device-resident runner {fwd_ms:.1f} ms = "
-          f"{mpx / fwd_ms * 1e3:.2f} Mpx/s; bf16 in this run: predict "
+          f"{mpx / fwd_ms * 1e3:.2f} Mpx/s, "
+          f"{fwd_ms / (SCENE * SCENE / (PATCH * PATCH) / BATCH):.2f} ms per "
+          f"{BATCH}-tile int8 forward; bf16 in this run: predict "
           f"{mpx / bf16_wall:.2f} Mpx/s, runner {mpx / bf16_fwd_ms * 1e3:.2f}"
           f" Mpx/s", flush=True)
-    return launches["conv3x3_s8"]
+    return launches["conv3x3_s8_q"] + launches["conv3x3_s8"]
+
+
+def int32_tensors(forward, x1, x2) -> tuple[dict, int]:
+    """({aten op: count} of the ops of one forward that make an int32
+    tensor, the number of addcmul calls in it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    made, addcmul = {}, []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name.startswith("addcmul"):
+                addcmul.append(name)
+            for o in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(o, torch.Tensor) and o.dtype == torch.int32:
+                    made[name] = made.get(name, 0) + 1
+            return out
+
+    with Count():
+        forward(x1, x2)
+    return made, len(addcmul)
 
 
 def validate_phase(cfg):
@@ -932,7 +1085,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "serialized" in line:
                 print(f"  {name}: {line.strip()}")
 
     calls = main_path_calls(13)
@@ -1031,13 +1184,16 @@ def main() -> int:
     profile_runner(run, a1, a2, f"bf16 {SCENE}^2 runner")
 
     # --- int8: the kernels, the microbench path, the int8 serve ---
-    s8_rows, mm_row = check_int8_kernels()
+    s8_rows, mm_row, within = check_int8_kernels()
     launches["int8_matmul"] = int8_matmul_path()
-    launches["conv3x3_s8"] = int8_serving(cfg, d1, d2, more, wall, fwd_ms)
+    launches["conv3x3_s8"] = int8_serving(cfg, d1, d2, more, wall, fwd_ms,
+                                          within)
     print(f"conv3x3_s8 per {BATCH}-tile int8 forward: "
-          f"{sum(r['ms'] for r in s8_rows):.2f} ms over 22 launches, bound "
-          f"{sum(max(r['t_ops'], r['t_bytes']) for r in s8_rows):.3f} ms",
-          flush=True)
+          f"{sum(r['ms'] for r in s8_rows):.3f} ms over {len(s8_rows)} "
+          f"fused launches, bound "
+          f"{sum(max(r['t_ops'], r['t_bytes']) for r in s8_rows):.3f} ms; "
+          f"unfused (raw launches + plain epilogue) "
+          f"{sum(r['unfused_ms'] for r in s8_rows):.3f} ms", flush=True)
     rows += s8_rows + [mm_row]
 
     # --- the training path, then its kernel and cross checks ---
@@ -1094,8 +1250,9 @@ def main() -> int:
           f"serve), {T_BATCH} eval tiles at patch {T_PATCH} in bf16 for "
           f"bn_relu_inference (launches: the training run, {evals} eval "
           f"forwards), one int8 forward of {BATCH} tiles for conv3x3_s8 "
-          "(launches: the int8 serve; no PyTorch call computes an int8 "
-          "conv), the int8 form at 131072 x 512 x 512 for int8_matmul "
+          "(its 18 fused sites; launches: the int8 serve; no PyTorch call "
+          "computes an int8 conv), the int8 form at 131072 x 512 x 512 "
+          "for int8_matmul "
           "(library: torch._int_mm; launches: the microbench)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -45,10 +45,9 @@ __global__ void __launch_bounds__(kConvThreads, PN == 64 ? 3 : 1)
                              int tiles_h, int tiles_w, int stages,
                              bool vec_in, bool vec_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int stage_bytes = PN * kKC * 2, pbytes = patch_bytes(g);
-  __nv_bfloat16* patch[2] = {
-      reinterpret_cast<__nv_bfloat16*>(smem + stages * stage_bytes),
-      reinterpret_cast<__nv_bfloat16*>(smem + stages * stage_bytes + pbytes)};
+  const int stage_bytes = PN * kKB, pbytes = patch_bytes(g);
+  unsigned char* patch[2] = {smem + stages * stage_bytes,
+                             smem + stages * stage_bytes + pbytes};
   Ring ring = make_ring(smem, smem + stages * stage_bytes + 2 * pbytes,
                         stages, stage_bytes);
 
@@ -61,7 +60,7 @@ __global__ void __launch_bounds__(kConvThreads, PN == 64 ? 3 : 1)
 
   if (threadIdx.x >= kConsumers) {  // the producer warp
     if (threadIdx.x == kConsumers)
-      produce(ring, wpk, cin_pad, PN, nt, nt + 1, 1, 1);
+      produce(ring, wpk, cin_pad * 2, PN, nt, nt + 1, 1, 1);
     return;
   }
 
@@ -75,20 +74,20 @@ __global__ void __launch_bounds__(kConvThreads, PN == 64 ? 3 : 1)
   for (int i = 0; i < PN / 2; ++i) acc[i] = 0.f;
 
   const int n_chunks = (cin_pad + kKC - 1) / kKC;
-  stage_patch(patch[0], x, n, h, w, cin, g, img0, i0, j0, 0,
-              min(kKC, cin_pad), vec_in);
+  stage_patch<2>(patch[0], x, n, h, w, cin, g, img0, i0, j0, 0,
+                 min(kKC, cin_pad), vec_in);
   cp_async_commit();
   for (int ci = 0; ci < n_chunks; ++ci) {
     const int c0 = ci * kKC, kc = min(kKC, cin_pad - c0);
     cp_async_wait_all();
     consumer_sync();  // chunk ci landed; chunk ci - 1 is no longer read
     if (ci + 1 < n_chunks) {
-      stage_patch(patch[(ci + 1) & 1], x, n, h, w, cin, g, img0, i0, j0,
-                  c0 + kKC, min(kKC, cin_pad - c0 - kKC), vec_in);
+      stage_patch<2>(patch[(ci + 1) & 1], x, n, h, w, cin, g, img0, i0, j0,
+                     c0 + kKC, min(kKC, cin_pad - c0 - kKC), vec_in);
       cp_async_commit();
     }
     mma_chunk<PN>(acc, ring, smem_addr(patch[ci & 1]) + a_off,
-                  pc * kPitch * 2, kPitch * 2, kc, 0);
+                  pc * kPitch, kPitch, kc * 2, 0);
   }
 
   __nv_bfloat16* rows[2];
@@ -136,11 +135,11 @@ int launch(const void* x, const void* wpk, const void* bias, void* y, int n,
 using namespace fabric;
 
 // Dynamic shared memory of one block: the weight ring (stages slots of pn
-// x 32 bf16), two staged patches of geometry (tw, tr, ni) (log2s) and 16
+// x 32 bf16 channels), two staged patches of geometry (tw, tr, ni) (log2s) and 16
 // bytes of barriers per slot.  ops/conv.py mirrors this formula.
 extern "C" int fabric_conv3x3_smem_bytes(int pn, int tw, int tr, int ni,
                                          int stages) {
-  return stages * pn * kKC * 2 + 2 * patch_bytes(Geo{tw, tr, ni}) +
+  return stages * pn * kKB + 2 * patch_bytes(Geo{tw, tr, ni}) +
          16 * stages;
 }
 

@@ -1,165 +1,308 @@
-// y = conv3x3_SAME(x, W) on NHWC int8 with exact int32 sums: the int8
-// serving path's conv, as an implicit GEMM on the int8 tensor cores.
+// The int8 serving path's 3x3 SAME conv on NHWC int8 with exact int32
+// sums, and the dequantize / bias / ReLU / requantize epilogue that
+// follows it at every conv site, in registers.
 //
-// Replaces what fabric_tpu leaves to XLA, the s8 x s8 -> s32 convs of its
-// int8 serving path: conv_raw (fabric_tpu/infer/quant.py:176-180) and the
-// two convs of up_q (:231-236).  They are the serving use of the same
-// contraction as the Pallas int8 matmul of tools/ablate_train.py:346, and
-// run on the same GEMM core (int8_gemm.cuh).  The dequantize / bias / ReLU /
-// requantize epilogue stays outside, in PyTorch (XLA fuses it outside any
-// Pallas kernel in fabric_tpu).
+// Replaces what fabric_tpu leaves to XLA at each int8 conv site: the s8 x
+// s8 -> s32 conv conv_raw (fabric_tpu/infer/quant.py:176-180), which
+// fabric_tpu fuses with its consumer, conv_q -> ReLU -> q (enc_dc,
+// :182-209) or the split decoder conv (up_q, :221-242).  The convs are the
+// serving use of the contraction of the Pallas int8 matmul of
+// tools/ablate_train.py:346 (int8_matmul.cu), on the same core.
 //
-// GEMM view: M = output pixels, N = output channels, K = 9 taps x input
-// channels.  A block owns 128 output pixels x 64 channels; eight warps split
-// it 4 x 2, each computing 32 x 32 with m16n8k32 mma.sync.  Bound on the
-// H100: at the serving shapes (patch 64, 256 tiles) the int32 output bounds
-// the full-resolution levels (4 bytes per output against 9*Cin*2 operations
-// at 1979 TOPS) and the operations the deep ones.  The design keeps the
-// operations on the tensor cores and reads the input about once per 64
-// output channels: the block stages its pixels plus a one-pixel halo in
-// shared memory, 64 channels (bytes) at a time, and the nine taps read that
-// one patch (no im2col buffer).  The halo is zero where it falls outside the
-// image: an int8 zero is the quantized zero, so this is SAME padding
-// exactly.  The weights are packed once, (9, Cout64, Cin32) bytes, input
-// channels contiguous, and read through the read-only cache.
+// One launch computes, per output channel c (k = sw * sx, the scale
+// product in float32, formed by the caller; inv_s = 1 / s_out in float32):
+//   raw    int32 acc
+//   int8   h = max(bf16(fma(float(acc), k[c], bias[c])), 0);
+//          out = clamp(rint(float(h) * inv_s), -127, 127)
+//   bf16   h as above, bf16 out
+//   split  two K segments (skip x K_skip, then up x K_up) into two
+//          accumulator sets: h = max(bf16(fma(float(a), k[c],
+//          float(b) * k2[c]) + bias[c]), 0), then int8 as above
+// with the float operations spelled as intrinsics, so that each rounds as
+// the plain PyTorch version (ops/conv_s8.py) does and nvcc contracts
+// nothing else.
 //
-// Tiles: TR rows x TW columns of NI images, TW the power of two >= W (at
-// most 128), TR the power of two >= H that fits, NI = 128 / (TR*TW).  Small
-// images (the 4x4 and 8x8 of the deep levels) pack several whole images
-// into one tile instead of leaving most of its 128 rows empty; pixels past
-// the image, or images past N, are computed from zeros and dropped.
-#include "int8_gemm.cuh"
+// Bound on the H100: with int8 in and int8 or bf16 out a launch moves
+// N*H*W*(Cin + Cout) bytes (x2 for bf16 out) for 2*N*H*W*9*Cin*Cout
+// operations: the full-resolution 64-channel sites sit at the card's
+// int8 ridge (1979 TOP/s over 3.35 TB/s, ~590 operations per byte), the
+// deeper ones are bound by the tensor cores.  No int32 tensor reaches
+// device memory except in raw mode.
+//
+// Design (the core is conv_tile.cuh): wgmma m64nPNk32 s8 -> s32 from two
+// consumer warpgroups, each 64 of the block's 128 output pixels; A by
+// ldmatrix from a haloed patch staged 64 int8 channels at a time by
+// cp.async into two buffers; the weights, packed once (ops/conv_s8.py
+// pack_weight), streamed through a 4-slot ring by cp.async.bulk from a
+// producer warp; M chunks of whole small images; PN = 64 (two or three
+// blocks per SM) or 128 (one); the split form parks its first segment's
+// sums in shared memory, so one register set serves both; 16-byte
+// stores.
+#include "conv_tile.cuh"
 
 namespace fabric {
 
-__host__ __device__ inline int ceil_log2(int v) {
-  int r = 0;
-  while ((1 << r) < v) ++r;
-  return r;
-}
+// What a launch writes.
+enum S8Mode { kRaw = 0, kInt8 = 1, kBf16 = 2, kSplit = 3 };
 
-struct TileShape {
-  int tw_log2, tr_log2, ni_log2;
+// One K segment: an int8 NHWC input of cin channels and its weights
+// packed by ops/conv_s8.py pack_weight (cin_pad = cin rounded up to 32).
+struct Seg {
+  const void* x;
+  const void* w;
+  int cin, cin_pad;
+  bool vec;
 };
 
-__host__ __device__ inline TileShape tile_shape(int h, int w) {
-  TileShape s;
-  const int lw = ceil_log2(w), lh = ceil_log2(h);
-  s.tw_log2 = lw < 7 ? lw : 7;
-  s.tr_log2 = lh < 7 - s.tw_log2 ? lh : 7 - s.tw_log2;
-  s.ni_log2 = 7 - s.tw_log2 - s.tr_log2;
-  return s;
+// The per-channel epilogue vectors (float32, cout long; k2 for the split
+// form's second segment) and the float32 reciprocal of the output scale.
+struct Epi {
+  const float* k;
+  const float* k2;
+  const float* bias;
+  float inv_s;
+};
+
+// Blocks per SM, from the register budget: ptxas keeps every wgmma
+// asynchronous only with enough registers beside the accumulators.  Nine
+// warps a block put 3 on some SM sub-partition at one block (168
+// registers a thread), 5 at two (96), 7 at three (72): PN = 128 one block;
+// PN = 64 three, two for the split form (whose parked sums leave a third
+// no shared memory).
+constexpr int s8_blocks_per_sm(int pn, int mode) {
+  return pn == 128 ? 1 : mode == kSplit ? 2 : 3;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_s8_kernel(const unsigned char* __restrict__ x,
-                      const unsigned char* __restrict__ wpk,
-                      int* __restrict__ y, int nimg, int h, int w, int cin,
-                      int cout, int cin_pad, int cout_pad, TileShape ts,
-                      int tiles_h, int tiles_w, bool vec) {
-  extern __shared__ uint4 smem_u4[];
-  unsigned char* patch = reinterpret_cast<unsigned char*>(smem_u4);
+// Bytes of shared memory that park the split form's first sums: PN/2
+// int32 of each consumer thread.
+__host__ __device__ constexpr int park_bytes(int pn) {
+  return pn / 2 * kConsumers * 4;
+}
 
-  const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) & 3;
-  const int wn = threadIdx.x >> 7, g = lane >> 2, t = lane & 3;
-  const int tw = 1 << ts.tw_log2, tr = 1 << ts.tr_log2, ni = 1 << ts.ni_log2;
+// int8 code of a non-negative bf16 value h: clamp(rint(h * inv_s)).
+__device__ __forceinline__ uint32_t quantize_s8(float h, float inv_s) {
+  const float v = fminf(fmaxf(rintf(__fmul_rn(h, inv_s)), -127.f), 127.f);
+  return (uint32_t)(unsigned char)(signed char)__float2int_rn(v);
+}
+
+template <int PN, int MODE>
+__global__ void __launch_bounds__(kConvThreads, s8_blocks_per_sm(PN, MODE))
+    conv3x3_s8_kernel(Seg s0, Seg s1, Epi ep, void* __restrict__ y, int n,
+                      int h, int w, int cout, Geo g, int tiles_h,
+                      int tiles_w, int stages, bool vec_out) {
+  constexpr bool kTwo = MODE == kSplit;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int stage_bytes = PN * kKB, pbytes = patch_bytes(g);
+  unsigned char* patch[2] = {smem + stages * stage_bytes,
+                             smem + stages * stage_bytes + pbytes};
+  Ring ring = make_ring(smem, smem + stages * stage_bytes + 2 * pbytes,
+                        stages, stage_bytes);
+
   int tile = blockIdx.x;
-  const int tj = tile % tiles_w;
+  const int j0 = (tile % tiles_w) << g.tw;
   tile /= tiles_w;
-  const int ti = tile % tiles_h;
-  const int img0 = (tile / tiles_h) * ni, i0 = ti * tr, j0 = tj * tw;
-  const int n0 = blockIdx.y * kBN;
-  const int pcols = tw + 2, pimg = (tr + 2) * pcols;
+  const int i0 = (tile % tiles_h) << g.tr;
+  const int img0 = (tile / tiles_h) << g.ni;
+  const int nt = blockIdx.y;
 
-  int px[4];
-  int* dst[4];
-  bool valid[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int m = wm * 32 + (q >> 1) * 16 + (q & 1) * 8 + g;
-    const int s = m >> (ts.tw_log2 + ts.tr_log2);
-    const int r = (m >> ts.tw_log2) & (tr - 1), c = m & (tw - 1);
-    px[q] = s * pimg + r * pcols + c;  // patch pixel of tap (0, 0)
-    const int on = img0 + s, oi = i0 + r, oj = j0 + c;
-    valid[q] = on < nimg && oi < h && oj < w;
-    dst[q] = y + (((size_t)min(on, nimg - 1) * h + min(oi, h - 1)) * w +
-                  min(oj, w - 1)) * cout;
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      produce(ring, s0.w, s0.cin_pad, PN, nt, nt + 1, 1, 1);
+      if (kTwo) produce(ring, s1.w, s1.cin_pad, PN, nt, nt + 1, 1, 1);
+    }
+    return;
   }
 
-  const int total_px = ni * pimg;
-  int acc[2][4][4] = {};
-  for (int c0 = 0; c0 < cin_pad; c0 += kChunkS8) {
-    const int kc = min(kChunkS8, cin_pad - c0);
-    const int groups = kc / 16;
-    __syncthreads();  // the previous chunk's reads are done
-    // stage NI x (TR+2) x (TW+2) pixels x kc channels, zero outside
-    for (int idx = threadIdx.x; idx < total_px * groups; idx += kThreads) {
-      const int v = idx % groups, p = idx / groups;
-      const int s = p / pimg, rem = p % pimg;
-      const int gn = img0 + s, gi = i0 - 1 + rem / pcols,
-                gj = j0 - 1 + rem % pcols;
-      const int c = c0 + v * 16;
-      const bool inside = gn < nimg && gi >= 0 && gi < h && gj >= 0 && gj < w;
-      const unsigned char* src =
-          x + (((size_t)min(gn, nimg - 1) * h + max(min(gi, h - 1), 0)) * w +
-               max(min(gj, w - 1), 0)) * cin + c;
-      *reinterpret_cast<uint4*>(patch + (size_t)p * kPitchS8 + v * 16) =
-          load16(src, inside ? cin - c : 0, vec);
-    }
-    __syncthreads();
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = (tap / 3) * pcols + tap % 3;
-      const unsigned char* arow[4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mbase = (warp >> 2) * 64 + (warp & 3) * 16;
+  const uint32_t a_off = patch_row_offset(mbase + (lane & 15), g);
+  const int pc = (1 << g.tw) + 2;
+
+  int acc[PN / 2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        arow[q] = patch + (size_t)(px[q] + shift) * kPitchS8 + t * 4;
-      const unsigned char* brow =
-          wpk + ((size_t)tap * cout_pad + n0 + wn * 32 + g) * cin_pad + c0 +
-          t * 4;
-      gemm_warp_tile(acc, arow, brow, cin_pad, kc);
+  for (int i = 0; i < PN / 2; ++i) acc[i] = 0;
+  // the split form's first sums, element i of this thread at i *
+  // kConsumers + threadIdx.x (consecutive threads, consecutive words)
+  int* park = reinterpret_cast<int*>(smem + stages * stage_bytes +
+                                     2 * pbytes + 16 * stages);
+
+  // patches are staged in the order they are taken: segment 0's chunks,
+  // then segment 1's; q counts them and picks the buffer
+  const int n0c = (s0.cin_pad + kKB - 1) / kKB;
+  const int total = n0c + (kTwo ? (s1.cin_pad + kKB - 1) / kKB : 0);
+  auto stage = [&](int q) {
+    const bool second = q >= n0c;
+    const Seg& s = second ? s1 : s0;
+    const int c0 = (second ? q - n0c : q) * kKB;
+    stage_patch<1>(patch[q & 1], s.x, n, h, w, s.cin, g, img0, i0, j0, c0,
+                   min(kKB, s.cin_pad - c0), s.vec);
+    cp_async_commit();
+  };
+  auto run = [&](auto& a, const Seg& s, int q0, int q1) {
+    for (int q = q0; q < q1; ++q) {
+      cp_async_wait_all();
+      consumer_sync();  // patch q landed; patch q - 1 is no longer read
+      if (q + 1 < total) stage(q + 1);
+      mma_chunk<PN>(a, ring, smem_addr(patch[q & 1]) + a_off, pc * kPitch,
+                    kPitch, min(kKB, s.cin_pad - (q - q0) * kKB), 0);
     }
+  };
+  stage(0);
+  run(acc, s0, 0, n0c);
+  if constexpr (kTwo) {
+#pragma unroll
+    for (int i = 0; i < PN / 2; ++i) {
+      park[i * kConsumers + threadIdx.x] = acc[i];
+      acc[i] = 0;
+    }
+    run(acc, s1, n0c, total);
   }
-  store_warp_tile(acc, dst, valid, n0 + wn * 32, cout, (cout & 1) == 0);
+
+  // ---- epilogue ----
+  const int n0 = nt * PN, t = lane & 3;
+  constexpr int kOut = MODE == kRaw ? 4 : MODE == kBf16 ? 2 : 1;
+  unsigned char* rows[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const Px p = chunk_pixel(mbase + (lane >> 2) + 8 * half, g);
+    const int on = img0 + p.s, oi = i0 + p.r, oj = j0 + p.c;
+    rows[half] = on < n && oi < h && oj < w
+                     ? static_cast<unsigned char*>(y) +
+                           (((size_t)on * h + oi) * w + oj) * cout * kOut
+                     : nullptr;
+  }
+  // the ReLU'd bf16 value of column 8j + 2t + e of row half
+  auto value = [&](int j, int half, int e) {
+    const int i = 4 * j + 2 * half + e, col = n0 + 8 * j + 2 * t + e;
+    const bool in = col < cout;
+    const float k = in ? ep.k[col] : 0.f, b = in ? ep.bias[col] : 0.f;
+    float v;
+    if constexpr (kTwo) {  // acc: the second segment's sums
+      const float k2 = in ? ep.k2[col] : 0.f;
+      v = __fadd_rn(
+          __fmaf_rn(__int2float_rn(park[i * kConsumers + threadIdx.x]), k,
+                    __fmul_rn(__int2float_rn(acc[i]), k2)),
+          b);
+    } else {
+      v = __fmaf_rn(__int2float_rn(acc[i]), k, b);
+    }
+    return fmaxf(__bfloat162float(__float2bfloat16_rn(v)), 0.f);
+  };
+  if constexpr (MODE == kRaw) {
+    uint32_t* const r32[2] = {reinterpret_cast<uint32_t*>(rows[0]),
+                              reinterpret_cast<uint32_t*>(rows[1])};
+    store32<PN>(
+        [&](int j, int half, int e) {
+          return (uint32_t)acc[4 * j + 2 * half + e];
+        },
+        n0, cout, r32, vec_out);
+  } else if constexpr (MODE == kBf16) {
+    unsigned short* const r16[2] = {
+        reinterpret_cast<unsigned short*>(rows[0]),
+        reinterpret_cast<unsigned short*>(rows[1])};
+    store16<PN>(
+        [&](int j, int half) {
+          return bf16x2_bits(value(j, half, 0), value(j, half, 1));
+        },
+        n0, cout, r16, vec_out);
+  } else {
+    store8<PN>(
+        [&](int j, int half) {
+          return quantize_s8(value(j, half, 0), ep.inv_s) |
+                 (quantize_s8(value(j, half, 1), ep.inv_s) << 8);
+        },
+        n0, cout, rows, vec_out);
+  }
+}
+
+template <int PN, int MODE>
+int launch(const Seg& s0, const Seg& s1, const Epi& ep, void* y, int n,
+           int h, int w, int cout, Geo g, int stages, int smem, bool vec_out,
+           cudaStream_t stream) {
+  const int tiles_h = (h + (1 << g.tr) - 1) >> g.tr;
+  const int tiles_w = (w + (1 << g.tw) - 1) >> g.tw;
+  const long long tiles_n = (n + (1 << g.ni) - 1) >> g.ni;
+  const long long blocks = tiles_n * tiles_h * tiles_w;
+  const int n_tiles = (cout + PN - 1) / PN;
+  if (blocks > 0x7fffffffLL || n_tiles > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_s8_kernel<PN, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)blocks, n_tiles);
+  conv3x3_s8_kernel<PN, MODE><<<grid, kConvThreads, smem, stream>>>(
+      s0, s1, ep, y, n, h, w, cout, g, tiles_h, tiles_w, stages, vec_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fabric
 
 using namespace fabric;
 
-// Dynamic shared memory of one block for an (h, w) image.
-extern "C" int fabric_conv3x3_s8_smem_bytes(int h, int w) {
-  const TileShape ts = tile_shape(h, w);
-  return (1 << ts.ni_log2) * ((1 << ts.tr_log2) + 2) *
-         ((1 << ts.tw_log2) + 2) * kPitchS8;
+// Dynamic shared memory of one block: the weight ring (stages slots of pn
+// x 64 bytes), two staged patches of geometry (tw, tr, ni) (log2s), 16
+// bytes of barriers per slot and, for the split form, the parked sums.
+// ops/conv_s8.py mirrors this formula.
+extern "C" int fabric_conv3x3_s8_smem_bytes(int pn, int tw, int tr, int ni,
+                                            int stages, int split) {
+  return stages * pn * kKB + 2 * patch_bytes(Geo{tw, tr, ni}) + 16 * stages +
+         (split ? park_bytes(pn) : 0);
 }
 
-// x (n, h, w, cin) int8; wpk (9, cout_pad, cin_pad) int8, zero-padded, from
-// the HWIO kernel; y (n, h, w, cout) int32.  cin_pad is cin rounded up to
-// 32 and cout_pad cout rounded up to 64.  Returns the CUDA error of the
-// launch (0 on success).
-extern "C" int fabric_conv3x3_s8(const void* x, const void* wpk, void* y,
-                                 int n, int h, int w, int cin, int cout,
-                                 int cin_pad, int cout_pad, void* stream) {
+// x (n, h, w, cin) int8 and wpk, its weights packed by ops/conv_s8.py
+// pack_weight (N tiles of pn = 64 or 128 channels); for mode 3 (split)
+// also x2 (n, h, w, cin2) and wpk2, the second K segment.  k, k2, bias:
+// (cout,) float32 (unused in mode 0); inv_s: the float32 reciprocal of the
+// output scale (modes 1 and 3).  y (n, h, w, cout): int32 (mode 0), int8
+// (1, 3) or bf16 (2).  (tw, tr, ni): log2 of the tile's columns, rows and
+// images, tw + tr + ni = 7.  Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int fabric_conv3x3_s8(const void* x, const void* wpk, int cin,
+                                 const void* x2, const void* wpk2, int cin2,
+                                 const void* k, const void* k2,
+                                 const void* bias, float inv_s, void* y,
+                                 int n, int h, int w, int cout, int pn,
+                                 int tw, int tr, int ni, int stages,
+                                 int mode, void* stream) {
+  const bool split = mode == kSplit;
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 ||
-      cin_pad % 32 || cin_pad < cin || cout_pad % kBN || cout_pad < cout)
+      (pn != 64 && pn != 128) || tw < 0 || tr < 0 || ni < 0 ||
+      tw + tr + ni != 7 || stages < 2 || mode < kRaw || mode > kSplit ||
+      reinterpret_cast<uintptr_t>(wpk) % 16 ||
+      (mode != kRaw && (k == nullptr || bias == nullptr)) ||
+      (split && (cin2 <= 0 || x2 == nullptr || k2 == nullptr ||
+                 reinterpret_cast<uintptr_t>(wpk2) % 16)))
     return (int)cudaErrorInvalidValue;
-  const TileShape ts = tile_shape(h, w);
-  const int tiles_h = (h + (1 << ts.tr_log2) - 1) >> ts.tr_log2;
-  const int tiles_w = (w + (1 << ts.tw_log2) - 1) >> ts.tw_log2;
-  const long long tiles_n = (n + (1 << ts.ni_log2) - 1) >> ts.ni_log2;
-  const long long blocks = tiles_n * tiles_h * tiles_w;
-  if (blocks > 0x7fffffffLL || cout_pad / kBN > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const int smem = fabric_conv3x3_s8_smem_bytes(h, w);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec = cin % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  dim3 grid((unsigned)blocks, cout_pad / kBN);
-  conv3x3_s8_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(x),
-      static_cast<const unsigned char*>(wpk), static_cast<int*>(y), n, h, w,
-      cin, cout, cin_pad, cout_pad, ts, tiles_h, tiles_w, vec);
-  return (int)cudaGetLastError();
+  auto seg = [](const void* xs, const void* ws, int c) {
+    return Seg{xs, ws, c, round_up(c, 32),
+               c % 16 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0};
+  };
+  const Seg s0 = seg(x, wpk, cin), s1 = split ? seg(x2, wpk2, cin2) : s0;
+  const int smem =
+      fabric_conv3x3_s8_smem_bytes(pn, tw, tr, ni, stages, split);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const Epi ep{static_cast<const float*>(k), static_cast<const float*>(k2),
+               static_cast<const float*>(bias), inv_s};
+  const int out_align = mode == kRaw ? 4 : mode == kBf16 ? 8 : 16;
+  const bool vec_out =
+      cout % out_align == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const Geo g{tw, tr, ni};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FABRIC_LAUNCH(M)                                                     \
+  (pn == 64 ? launch<64, M>(s0, s1, ep, y, n, h, w, cout, g, stages, smem, \
+                            vec_out, s)                                      \
+            : launch<128, M>(s0, s1, ep, y, n, h, w, cout, g, stages, smem, \
+                             vec_out, s))
+  switch (mode) {
+    case kRaw:
+      return FABRIC_LAUNCH(kRaw);
+    case kInt8:
+      return FABRIC_LAUNCH(kInt8);
+    case kBf16:
+      return FABRIC_LAUNCH(kBf16);
+    default:
+      return FABRIC_LAUNCH(kSplit);
+  }
+#undef FABRIC_LAUNCH
 }

@@ -1,34 +1,39 @@
-// The tensor-core core of the two bf16 3x3 conv kernels
-// (conv3x3_bias_relu.cu and double_conv3x3_bias_relu.cu), and the mma.sync
-// pieces the int8 kernels share (int8_gemm.cuh, int8_matmul.cu,
-// conv3x3_s8.cu).
+// The tensor-core core of every CUDA kernel of the port: the two bf16 3x3
+// conv kernels (conv3x3_bias_relu.cu, double_conv3x3_bias_relu.cu), the
+// int8 serving conv (conv3x3_s8.cu) and the int8 / bf16 GEMM
+// (int8_matmul.cu).
 //
 // GEMM view of one 3x3 SAME conv: M = output pixels, N = output channels,
-// K = 9 taps x input channels.  A block of the bf16 kernels is three
-// roles: two consumer warpgroups that run wgmma (m64nPNk16, fp32
-// accumulation) and one producer warp that streams the weights.
+// K = 9 taps x input channels.  A block is three roles: two consumer
+// warpgroups that run wgmma and one producer warp that streams the
+// weights.  The core counts K in BYTES: one wgmma K step is 32 bytes, 16
+// bf16 channels (m64nNk16, fp32 sums) or 32 int8 channels (m64nNk32, exact
+// int32 sums), and a core matrix is 8 rows x 16 bytes in both, so one
+// layout, one loader and one pipeline serve both types.
 //
 // * B, the weights, through a ring in shared memory.  The weights are
-//   packed once (ops/conv.py pack_weight) into blocks of PN output
-//   channels x kc input channels x one tap, each block already in the
-//   no-swizzle K-major core-matrix layout wgmma reads (8 x 8 bf16 core
-//   matrices of 128 contiguous bytes, K groups 128 bytes apart, N groups
-//   kc*16 bytes apart).  The producer moves one block with one
-//   cp.async.bulk, tracked by an mbarrier (expect_tx), up to `stages`
-//   blocks ahead of the math; consumers release a stage through a second
-//   mbarrier.  Every warp of the block reads the one copy.
-// * A, the input pixels, from registers: ldmatrix.x4 from a patch in
-//   shared memory.  A 3x3 tap is a per-row address shift inside the patch
-//   (row m of tap (dy, dx) is patch pixel p(m) + dy*pc + dx), so the nine
-//   taps reuse one patch and no im2col buffer exists.  Rows are pixels of
-//   an M chunk of NI whole images x TR rows x TW columns (TW, TR, NI
-//   powers of two, NI*TR*TW = 64 or 128), so small images fill the chunk
-//   instead of leaving most of it empty.
-// * The patch is staged with cp.async 32 channels at a time into two
-//   buffers: the next chunk loads while the current one computes.  Its
-//   zero halo (cp.async with a source size of 0) is the SAME padding.
-// * Epilogue in registers: bias, ReLU, one rounding to bf16; four lanes
-//   swap their pairs with shuffles so each stores 8 channels (16 bytes).
+//   packed once (ops/conv.py pack_blocks) into blocks of PN output
+//   channels x kb bytes of K x one tap, each block already in the
+//   no-swizzle K-major core-matrix layout wgmma reads (core matrices of 8
+//   rows x 16 bytes, K groups 128 bytes apart, N groups kb*8 bytes apart;
+//   K-major is also the only layout s8 wgmma takes).  The producer moves
+//   one block with one cp.async.bulk, tracked by an mbarrier (expect_tx),
+//   up to `stages` blocks ahead of the math; consumers release a stage
+//   through a second mbarrier.  Every warp of the block reads the one copy.
+// * A, the input pixels, from registers: ldmatrix.x4 .b16 from a patch in
+//   shared memory, which yields the A fragment of either type.  A 3x3 tap
+//   is a per-row address shift inside the patch (row m of tap (dy, dx) is
+//   patch pixel p(m) + dy*pc + dx), so the nine taps reuse one patch and
+//   no im2col buffer exists.  Rows are pixels of an M chunk of NI whole
+//   images x TR rows x TW columns (TW, TR, NI powers of two, NI*TR*TW =
+//   64 or 128), so small images fill the chunk instead of leaving most of
+//   it empty.
+// * The patch is staged with cp.async kKB = 64 bytes of channels at a time
+//   into two buffers: the next chunk loads while the current one
+//   computes.  Its zero halo (cp.async with a source size of 0) is the
+//   SAME padding (an int8 zero is the quantized zero).
+// * Epilogues in registers; the four lanes of a quad swap their values
+//   with shuffles (quad_transpose) so that each stores 16 bytes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,25 +42,10 @@
 
 namespace fabric {
 
-// ---- shared with the int8 kernels (mma.sync, 8 warps, 128 x 64 tiles) ----
-constexpr int kThreads = 256;
-constexpr int kBM = 128;
-constexpr int kBN = 64;
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ---- the bf16 conv core ----
-constexpr int kKC = 32;                  // input channels per staged chunk
-constexpr int kPitch = kKC + 8;          // bf16 per staged pixel: 80 bytes,
-                                         // so 8 consecutive pixels fall on
+constexpr int kKB = 64;                  // bytes of K per staged chunk
+constexpr int kKC = kKB / 2;             // the same in bf16 channels
+constexpr int kPitch = kKB + 16;         // bytes per staged pixel: 80, so
+                                         // 8 consecutive pixels fall on
                                          // distinct 16-byte bank groups
 constexpr int kConsumers = 256;          // two warpgroups
 constexpr int kConvThreads = kConsumers + 32;  // + the producer warp
@@ -131,6 +121,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The two consumer warpgroups meet here (named barrier 1; the producer
 // warp never does).
 __device__ __forceinline__ void consumer_sync() {
@@ -164,84 +160,80 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
-// wgmma m64nNk16, bf16 x bf16 -> fp32, A from registers (the m16n8k16
-// A fragment of each warp's 16 rows), B from shared memory by descriptor,
-// no transpose.  Operand lists written out for N = 64 and 128.
-// acc += A (64 x 16, registers) x B (16 x 64, shared memory via desc).
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// acc += A (64 x 16, registers) x B (16 x 128, shared memory via desc).
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
+// One 32-byte K step: acc (64 x PN) += A (64 x 32 bytes, registers: the
+// m16n8k16 / m16n8k32 A fragment of each warp's 16 rows) x B (32 bytes x
+// PN, shared memory by descriptor).  bf16 x bf16 -> fp32 (m64nPNk16, no
+// transpose) for float accumulators, s8 x s8 -> s32 (m64nPNk32, CUTLASS's
+// SM90_64xNx32_S32S8S8_RS_TN) for int ones.  Operand lists written out
+// for PN = 64 and 128.
+#define FABRIC_ACC8(C, i)                                                 \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
+      C(d[i + 6]), C(d[i + 7])
+#define FABRIC_ACC32(C, i)                                          \
+  FABRIC_ACC8(C, i), FABRIC_ACC8(C, i + 8), FABRIC_ACC8(C, i + 16), \
+      FABRIC_ACC8(C, i + 24)
+#define FABRIC_REGS32                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                     \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "               \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "             \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define FABRIC_REGS64                                    \
+  FABRIC_REGS32 ", "                                     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "             \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "             \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "             \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+#define FABRIC_A(a) "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
 
 template <int PN>
 __device__ __forceinline__ void wgmma_step(float (&d)[PN / 2],
                                            const uint32_t (&a)[4],
                                            uint64_t desc) {
   if constexpr (PN == 64)
-    wgmma_m64n64k16(d, a, desc);
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" FABRIC_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : FABRIC_ACC32("+f", 0)
+        : FABRIC_A(a), "l"(desc), "r"(1));
   else
-    wgmma_m64n128k16(d, a, desc);
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" FABRIC_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : FABRIC_ACC32("+f", 0), FABRIC_ACC32("+f", 32)
+        : FABRIC_A(a), "l"(desc), "r"(1));
 }
 
+template <int PN>
+__device__ __forceinline__ void wgmma_step(int (&d)[PN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (PN == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{" FABRIC_REGS32 "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : FABRIC_ACC32("+r", 0)
+        : FABRIC_A(a), "l"(desc), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{" FABRIC_REGS64 "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : FABRIC_ACC32("+r", 0), FABRIC_ACC32("+r", 32)
+        : FABRIC_A(a), "l"(desc), "r"(1));
+}
+#undef FABRIC_ACC8
+#undef FABRIC_ACC32
+#undef FABRIC_REGS32
+#undef FABRIC_REGS64
+#undef FABRIC_A
+
 // Shared memory of one staged patch buffer: NI x (TR+2) x (TW+2) pixels of
-// kPitch bf16, rounded up to 128 bytes.
+// kPitch bytes, rounded up to 128 bytes.
 __host__ __device__ inline int patch_bytes(Geo g) {
-  return round_up(((((1 << g.tr) + 2) * ((1 << g.tw) + 2)) << g.ni) * kPitch *
-                      2,
+  return round_up(((((1 << g.tr) + 2) * ((1 << g.tw) + 2)) << g.ni) * kPitch,
                   128);
 }
 
@@ -280,63 +272,95 @@ __device__ __forceinline__ Ring make_ring(unsigned char* base,
   return r;
 }
 
-// The packed block of N tile t, K chunk [c0, c0 + kc) and one tap, for
-// weights packed with cin_pad input channels and pn-wide N tiles: blocks
-// are laid out [tile][chunk][tap], each pn x kc.
-__device__ __forceinline__ const __nv_bfloat16* weight_block(
-    const __nv_bfloat16* w, int cin_pad, int pn, int t, int c0, int kc,
-    int tap) {
-  return w + ((size_t)t * 9 * cin_pad + 9 * c0 + tap * kc) * pn;
-}
-
-// Producer (one thread): stream one conv's weight blocks in the order the
-// consumers take them: M chunks x N tiles [t_first, t_end) in steps of
-// t_step x K chunks x taps.  With t_step 2 (the warpgroups split N) a slot
-// holds tiles t and t + 1.
-__device__ __forceinline__ void produce(Ring& r, const __nv_bfloat16* w,
-                                        int cin_pad, int pn, int t_first,
-                                        int t_end, int t_step,
-                                        int n_mchunks) {
+// Producer (one thread): stream one conv's (or GEMM's) weight blocks in
+// the order the consumers take them: M chunks x N tiles [t_first, t_end)
+// in steps of t_step x K chunks of `chunk` bytes x `taps` taps.  The
+// weights are packed with kpad bytes of K per tap and pn-wide N tiles,
+// blocks laid out [tile][chunk][tap], each pn x kb bytes.  With t_step 2
+// (the warpgroups split N) a slot holds tiles t and t + 1.
+__device__ __forceinline__ void produce(Ring& r, const void* w, int kpad,
+                                        int pn, int t_first, int t_end,
+                                        int t_step, int n_mchunks,
+                                        int chunk = kKB, int taps = 9) {
+  const unsigned char* wb = static_cast<const unsigned char*>(w);
   for (int mc = 0; mc < n_mchunks; ++mc)
     for (int t = t_first; t < t_end; t += t_step) {
       const int parts = t_step == 2 && t + 1 < t_end ? 2 : 1;
-      for (int c0 = 0; c0 < cin_pad; c0 += kKC) {
-        const int kc = min(kKC, cin_pad - c0);
-        const uint32_t bytes = kc * pn * 2;
-        for (int tap = 0; tap < 9; ++tap) {
+      for (int c0 = 0; c0 < kpad; c0 += chunk) {
+        const int kb = min(chunk, kpad - c0);
+        const uint32_t bytes = kb * pn;
+        for (int tap = 0; tap < taps; ++tap) {
           mbar_wait(r.empty + 8 * r.idx, r.phase ^ 1);
           const uint32_t full = r.full + 8 * r.idx;
           mbar_expect_tx(full, bytes * parts);
           for (int p = 0; p < parts; ++p)
             bulk_load(r.slot() + p * bytes,
-                      weight_block(w, cin_pad, pn, t + p, c0, kc, tap), bytes,
-                      full);
+                      wb + ((size_t)(t + p) * taps * kpad +
+                            (size_t)taps * c0 + tap * kb) * pn,
+                      bytes, full);
           r.advance();
         }
       }
     }
 }
 
-// Consumer: acc += the nine taps of one K chunk of KC channels (a
-// multiple of 16).  a_addr: shared address of this lane's ldmatrix row
-// for tap (0, 0) (its pixel, plus 8 channels for lanes 16-31); a tap moves
-// it by dy rows of row_bytes and dx pixels of px_bytes.  `part` picks the
-// warpgroup's N tile inside a slot.  Pipelined: while tap t's wgmma runs,
-// tap t - 1's slot is released and tap t + 1's A fragments are loaded.
-template <int PN, int KC>
-__device__ __forceinline__ void mma_chunk(float (&acc)[PN / 2], Ring& r,
+// Consumer: acc += the TAPS taps of one K chunk of KB bytes (a multiple of
+// 32).  a_addr: shared address of this lane's ldmatrix row for tap (0, 0)
+// (its pixel, plus 16 bytes for lanes 16-31); a tap moves it by dy rows
+// of row_bytes and dx pixels of px_bytes.  `part` picks the warpgroup's N
+// tile inside a slot.  Pipelined: while tap t's wgmma runs, tap t - 1's
+// slot is released and tap t + 1's A fragments are loaded.  At PN = 64,
+// whose two or three blocks per SM leave few registers beside the sums,
+// the pipeline runs per 32-byte step instead (one step's wgmma in flight
+// while the next step's fragment loads: 8 fragment registers, not
+// 8 * KB / 32), so that ptxas keeps every wgmma asynchronous.
+template <int PN, int KB, int TAPS, typename Acc>
+__device__ __forceinline__ void mma_chunk(Acc (&acc)[PN / 2], Ring& r,
                                           uint32_t a_addr, int row_bytes,
                                           int px_bytes, int part) {
-  constexpr int KS = KC / 16;
+  constexpr int KS = KB / 32;
+  if constexpr (PN == 64) {
+    uint32_t frag[2][4];
+    ldmatrix_x4(frag[0], a_addr);
+    int prev = 0;
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      mbar_wait(r.full + 8 * r.idx, r.phase);
+      const uint64_t desc =
+          make_desc(r.slot() + part * KB * PN, 128, KB * 8);
+      const int t = tap + 1;
+      const uint32_t a = a_addr + (tap / 3) * row_bytes + (tap % 3) * px_bytes;
+      const uint32_t a_next = a_addr + (t / 3) * row_bytes + (t % 3) * px_bytes;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const int u = tap * KS + s;
+        wgmma_fence();
+        wgmma_step<PN>(acc, frag[u & 1], desc + s * (256 >> 4));
+        wgmma_commit();
+        wgmma_wait<1>();  // step u - 1 is done with its fragment (and, at
+                          // s = 0, tap - 1 with its slot)
+        if (s == 0 && tap > 0 && (threadIdx.x & 31) == 0)
+          mbar_arrive(r.empty + 8 * prev);
+        if (s + 1 < KS)
+          ldmatrix_x4(frag[(u + 1) & 1], a + (s + 1) * 32);
+        else if (tap + 1 < TAPS)
+          ldmatrix_x4(frag[(u + 1) & 1], a_next);
+      }
+      prev = r.idx;
+      r.advance();
+    }
+    wgmma_wait<0>();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * prev);
+    return;
+  }
   uint32_t frag[2][KS][4];
 #pragma unroll
   for (int s = 0; s < KS; ++s) ldmatrix_x4(frag[0][s], a_addr + s * 32);
   int prev = 0;
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
+  for (int tap = 0; tap < TAPS; ++tap) {
     mbar_wait(r.full + 8 * r.idx, r.phase);
-    const uint64_t desc = make_desc(r.slot() + part * KC * PN * 2, 128,
-                                    KC * 16);
+    const uint64_t desc = make_desc(r.slot() + part * KB * PN, 128, KB * 8);
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < KS; ++s)
@@ -344,7 +368,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[PN / 2], Ring& r,
     wgmma_commit();
     wgmma_wait<1>();  // tap - 1's wgmma is done with its slot and registers
     if (tap > 0 && (threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * prev);
-    if (tap < 8) {
+    if (tap + 1 < TAPS) {
       const int t = tap + 1;
       const uint32_t a = a_addr + (t / 3) * row_bytes + (t % 3) * px_bytes;
 #pragma unroll
@@ -358,20 +382,20 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[PN / 2], Ring& r,
   if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * prev);
 }
 
-// mma_chunk for a chunk of kc channels, a multiple of 16 up to KC: a full
-// chunk, or the shorter last one.
-template <int PN, int KC = kKC>
-__device__ __forceinline__ void mma_chunk(float (&acc)[PN / 2], Ring& r,
+// mma_chunk for a chunk of kb bytes, a multiple of 32 up to KB: a full
+// chunk, or a shorter last one.
+template <int PN, int KB = kKB, int TAPS = 9, typename Acc>
+__device__ __forceinline__ void mma_chunk(Acc (&acc)[PN / 2], Ring& r,
                                           uint32_t a_addr, int row_bytes,
-                                          int px_bytes, int kc, int part) {
-  if constexpr (KC <= 16) {
-    mma_chunk<PN, 16>(acc, r, a_addr, row_bytes, px_bytes, part);
+                                          int px_bytes, int kb, int part) {
+  if constexpr (KB <= 32) {
+    mma_chunk<PN, 32, TAPS>(acc, r, a_addr, row_bytes, px_bytes, part);
   } else {
-    if (kc == KC)
-      mma_chunk<PN, KC>(acc, r, a_addr, row_bytes, px_bytes, part);
+    if (kb == KB)
+      mma_chunk<PN, KB, TAPS>(acc, r, a_addr, row_bytes, px_bytes, part);
     else
-      mma_chunk<PN, KC - 16>(acc, r, a_addr, row_bytes, px_bytes, kc,
-                             part);
+      mma_chunk<PN, KB - 32, TAPS>(acc, r, a_addr, row_bytes, px_bytes, kb,
+                                   part);
   }
 }
 
@@ -384,103 +408,124 @@ __device__ __forceinline__ Px chunk_pixel(int m, Geo g) {
           m & ((1 << g.tw) - 1)};
 }
 
-// Byte offset of this lane's ldmatrix row (pixel of row m, channel 0 or 8)
+// Byte offset of this lane's ldmatrix row (pixel of row m, byte 0 or 16)
 // inside a staged patch of geometry g.
 __device__ __forceinline__ uint32_t patch_row_offset(int m, Geo g) {
   const Px p = chunk_pixel(m, g);
   const int pc = (1 << g.tw) + 2, pr = (1 << g.tr) + 2;
-  const int lane_k = ((threadIdx.x >> 4) & 1) * 8;
-  return (((p.s * pr + p.r) * pc + p.c) * kPitch + lane_k) * 2;
+  return ((p.s * pr + p.r) * pc + p.c) * kPitch +
+         ((threadIdx.x >> 4) & 1) * 16;
 }
+
+template <int ES>
+struct Elem;
+template <>
+struct Elem<1> {
+  using T = unsigned char;
+};
+template <>
+struct Elem<2> {
+  using T = unsigned short;
+};
 
 // Consumers: stage channels [c0, c0 + kc) of the haloed patch of an M
 // chunk (images img.., rows i0 - 1.., columns j0 - 1..) with cp.async,
 // zeros outside the image, past image n - 1 and past the last channel.
-// `vec`: cin % 8 == 0 and x 16-byte aligned; otherwise plain loads.
-__device__ __forceinline__ void stage_patch(__nv_bfloat16* patch,
-                                            const __nv_bfloat16* __restrict__ x,
+// x holds elements of ES bytes (2: bf16, 1: int8); kc is a multiple of
+// 16 / ES.  `vec`: cin * ES % 16 == 0 and x 16-byte aligned; otherwise
+// plain loads.
+template <int ES>
+__device__ __forceinline__ void stage_patch(unsigned char* patch,
+                                            const void* __restrict__ x,
                                             int n, int h, int w, int cin,
                                             Geo g, int img, int i0, int j0,
                                             int c0, int kc, bool vec) {
+  constexpr int V = 16 / ES;  // channels per 16 bytes
+  using E = typename Elem<ES>::T;
   const int pc = (1 << g.tw) + 2, pimg = ((1 << g.tr) + 2) * pc;
-  const int groups = kc / 8, total = (pimg << g.ni) * groups;
+  const int groups = kc / V, total = (pimg << g.ni) * groups;
   for (int idx = threadIdx.x; idx < total; idx += kConsumers) {
     const int v = idx % groups, p = idx / groups;
     const int s = p / pimg, rem = p - s * pimg;
     const int gn = img + s, gi = i0 - 1 + rem / pc, gj = j0 - 1 + rem % pc;
-    const int c = c0 + v * 8;
+    const int c = c0 + v * V;
     const bool inside =
         gn < n && gi >= 0 && gi < h && gj >= 0 && gj < w && c < cin;
-    const __nv_bfloat16* src =
-        inside ? x + (((size_t)gn * h + gi) * w + gj) * cin + c : x;
-    __nv_bfloat16* dst = patch + p * kPitch + v * 8;
+    const E* src = static_cast<const E*>(x) +
+                   (inside ? (((size_t)gn * h + gi) * w + gj) * cin + c : 0);
+    unsigned char* dst = patch + p * kPitch + v * 16;
     if (vec) {
       cp_async16(smem_addr(dst), src, inside ? 16 : 0);
     } else {
       union {
         uint4 u;
-        unsigned short e[8];
+        E e[V];
       } val;
       val.u = make_uint4(0, 0, 0, 0);
       if (inside) {
-        const unsigned short* s16 =
-            reinterpret_cast<const unsigned short*>(src);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (c + e < cin) val.e[e] = s16[e];
+        for (int e = 0; e < V; ++e)
+          if (c + e < cin) val.e[e] = src[e];
       }
       *reinterpret_cast<uint4*>(dst) = val.u;
     }
   }
 }
 
+// ---- epilogues ----
+// A warpgroup's accumulators: acc[4*j + 2*half + e] is row g + 8*half,
+// column 8*j + 2*t + e (g = lane / 4, t = lane % 4).
+
 __device__ __forceinline__ uint32_t pick4(const uint32_t (&p)[4], int i) {
   return i == 0 ? p[0] : i == 1 ? p[1] : i == 2 ? p[2] : p[3];
 }
 
-__device__ __forceinline__ uint32_t relu_bf16x2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(a, 0.f), fmaxf(b, 0.f));
+// Across the four lanes of a quad: q[k] = lane k's p[t] (t = this lane).
+__device__ __forceinline__ void quad_transpose(const uint32_t (&p)[4],
+                                               uint32_t (&q)[4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int x = 1; x < 4; ++x) {
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, pick4(p, t ^ x), x);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k == (t ^ x)) q[k] = got;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k == t) q[k] = p[k];
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Epilogue to device memory: y[row][n0 + col] = bf16(relu(acc + bias)) for
-// the warpgroup's 64 x PN tile.  rows[half] points at channel 0 of the
-// output pixel of accumulator row g + 8*half (nullptr: not a pixel).
-// `vec` (cout % 8 == 0, y 16-byte aligned): the four lanes of a quad swap
-// bf16 pairs so that each writes 8 channels with one 16-byte store.
-template <int PN>
-__device__ __forceinline__ void store_global(const float (&acc)[PN / 2],
-                                             const float* __restrict__ bias,
-                                             int n0, int cout,
-                                             __nv_bfloat16* const (&rows)[2],
-                                             bool vec) {
+__device__ __forceinline__ uint32_t relu_bf16x2(float a, float b) {
+  return bf16x2_bits(fmaxf(a, 0.f), fmaxf(b, 0.f));
+}
+
+// Store a warpgroup's 64 x PN tile of 16-bit values (bf16) to device
+// memory.  val(j, half) gives the lane's two values of block j, row half,
+// packed (column 8j + 2t in the low half).  rows[half] points at channel
+// 0 of the output pixel of accumulator row g + 8*half (nullptr: not a
+// pixel).  `vec` (cout % 8 == 0, rows 16-byte aligned): a quad transposes
+// its pairs so that each lane writes 8 channels with one 16-byte store.
+template <int PN, class F>
+__device__ __forceinline__ void store16(F val, int n0, int cout,
+                                        unsigned short* const (&rows)[2],
+                                        bool vec) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    __nv_bfloat16* row = rows[half];
+    unsigned short* row = rows[half];
     if (vec) {
 #pragma unroll
       for (int jq = 0; jq < PN / 32; ++jq) {
-        uint32_t p[4], q[4] = {0, 0, 0, 0};
+        uint32_t p[4], q[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int j = jq * 4 + k, col = n0 + 8 * j + 2 * t;
-          const float b0 = col < cout ? bias[col] : 0.f;
-          const float b1 = col + 1 < cout ? bias[col + 1] : 0.f;
-          p[k] = relu_bf16x2(acc[4 * j + 2 * half] + b0,
-                             acc[4 * j + 2 * half + 1] + b1);
-        }
-        // q[k] = lane k's pair of block jq*4 + t: channels 2k, 2k + 1
-#pragma unroll
-        for (int x = 1; x < 4; ++x) {
-          const uint32_t got = __shfl_xor_sync(0xffffffffu, pick4(p, t ^ x), x);
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (k == (t ^ x)) q[k] = got;
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (k == t) q[k] = p[k];
+        for (int k = 0; k < 4; ++k) p[k] = val(jq * 4 + k, half);
+        quad_transpose(p, q);  // q[k]: lane k's pair of block jq*4 + t
         const int col8 = n0 + 8 * (jq * 4 + t);
         if (row != nullptr && col8 < cout)
           *reinterpret_cast<uint4*>(row + col8) =
@@ -490,15 +535,116 @@ __device__ __forceinline__ void store_global(const float (&acc)[PN / 2],
 #pragma unroll
       for (int j = 0; j < PN / 8; ++j) {
         const int col = n0 + 8 * j + 2 * t;
-        if (col < cout)
-          row[col] = __float2bfloat16_rn(
-              fmaxf(acc[4 * j + 2 * half] + bias[col], 0.f));
-        if (col + 1 < cout)
-          row[col + 1] = __float2bfloat16_rn(
-              fmaxf(acc[4 * j + 2 * half + 1] + bias[col + 1], 0.f));
+        const uint32_t v = val(j, half);
+        if (col < cout) row[col] = (unsigned short)(v & 0xffff);
+        if (col + 1 < cout) row[col + 1] = (unsigned short)(v >> 16);
       }
     }
   }
+}
+
+// The same for 8-bit values (int8): val(j, half) gives the lane's two
+// bytes of block j in the low 16 bits.  `vec` (cout % 16 == 0, rows
+// 16-byte aligned): each lane writes 16 channels with one 16-byte store.
+template <int PN, class F>
+__device__ __forceinline__ void store8(F val, int n0, int cout,
+                                       unsigned char* const (&rows)[2],
+                                       bool vec) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    unsigned char* row = rows[half];
+    if (vec) {
+#pragma unroll
+      for (int jo = 0; jo < PN / 64; ++jo) {
+        uint32_t p[4], q[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          p[k] = val(jo * 8 + 2 * k, half) |
+                 (val(jo * 8 + 2 * k + 1, half) << 16);
+        // q[x]: lane x's bytes of blocks jo*8 + 2t (low half: columns
+        // 16t + 2x, +1 of the group) and jo*8 + 2t + 1 (high: 16t + 8 + 2x)
+        quad_transpose(p, q);
+        const int col16 = n0 + 64 * jo + 16 * t;
+        if (row != nullptr && col16 < cout)
+          *reinterpret_cast<uint4*>(row + col16) = make_uint4(
+              __byte_perm(q[0], q[1], 0x5410), __byte_perm(q[2], q[3], 0x5410),
+              __byte_perm(q[0], q[1], 0x7632),
+              __byte_perm(q[2], q[3], 0x7632));
+      }
+    } else if (row != nullptr) {
+#pragma unroll
+      for (int j = 0; j < PN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const uint32_t v = val(j, half);
+        if (col < cout) row[col] = (unsigned char)(v & 0xff);
+        if (col + 1 < cout) row[col + 1] = (unsigned char)(v >> 8);
+      }
+    }
+  }
+}
+
+// The same for 32-bit values (int32, fp32 bits): val(j, half, e) gives the
+// lane's value of column 8j + 2t + e.  `vec` (cout % 4 == 0, rows 16-byte
+// aligned): each lane writes 8 channels with two 16-byte stores.
+template <int PN, class F>
+__device__ __forceinline__ void store32(F val, int n0, int cout,
+                                        uint32_t* const (&rows)[2],
+                                        bool vec) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t* row = rows[half];
+    if (vec) {
+#pragma unroll
+      for (int jq = 0; jq < PN / 32; ++jq) {
+        uint32_t lo[4], hi[4], ql[4], qh[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          lo[k] = val(jq * 4 + k, half, 0);
+          hi[k] = val(jq * 4 + k, half, 1);
+        }
+        quad_transpose(lo, ql);  // ql[x], qh[x]: columns 2x, 2x + 1 of
+        quad_transpose(hi, qh);  // block jq*4 + t
+        const int col8 = n0 + 8 * (jq * 4 + t);
+        if (row != nullptr && col8 < cout)
+          *reinterpret_cast<uint4*>(row + col8) =
+              make_uint4(ql[0], qh[0], ql[1], qh[1]);
+        if (row != nullptr && col8 + 4 < cout)
+          *reinterpret_cast<uint4*>(row + col8 + 4) =
+              make_uint4(ql[2], qh[2], ql[3], qh[3]);
+      }
+    } else if (row != nullptr) {
+#pragma unroll
+      for (int j = 0; j < PN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col < cout) row[col] = val(j, half, 0);
+        if (col + 1 < cout) row[col + 1] = val(j, half, 1);
+      }
+    }
+  }
+}
+
+// Epilogue of the bf16 convs to device memory: y[row][n0 + col] =
+// bf16(relu(acc + bias)) for the warpgroup's 64 x PN tile.
+template <int PN>
+__device__ __forceinline__ void store_global(const float (&acc)[PN / 2],
+                                             const float* __restrict__ bias,
+                                             int n0, int cout,
+                                             __nv_bfloat16* const (&rows)[2],
+                                             bool vec) {
+  const int t = threadIdx.x & 3;
+  unsigned short* const r16[2] = {reinterpret_cast<unsigned short*>(rows[0]),
+                                  reinterpret_cast<unsigned short*>(rows[1])};
+  store16<PN>(
+      [&](int j, int half) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float b0 = col < cout ? bias[col] : 0.f;
+        const float b1 = col + 1 < cout ? bias[col + 1] : 0.f;
+        return relu_bf16x2(acc[4 * j + 2 * half] + b0,
+                           acc[4 * j + 2 * half + 1] + b1);
+      },
+      n0, cout, r16, vec);
 }
 
 // Epilogue into the double conv's shared intermediate: channels below

@@ -68,8 +68,7 @@ __global__ void __launch_bounds__(kConvThreads, 1)
   const int pbytes = patch_bytes(g);
   const long long ibytes = inter_bytes(group, h, w, cmid);
   unsigned char* p0 = smem + stages * stage_bytes;
-  __nv_bfloat16* patch[2] = {reinterpret_cast<__nv_bfloat16*>(p0),
-                             reinterpret_cast<__nv_bfloat16*>(p0 + pbytes)};
+  unsigned char* patch[2] = {p0, p0 + pbytes};
   __nv_bfloat16* inter = reinterpret_cast<__nv_bfloat16*>(p0 + 2 * pbytes);
   Ring ring = make_ring(smem, p0 + 2 * pbytes + ibytes, stages, stage_bytes);
 
@@ -83,8 +82,8 @@ __global__ void __launch_bounds__(kConvThreads, 1)
 
   if (threadIdx.x >= kConsumers) {  // the producer warp
     if (threadIdx.x == kConsumers) {
-      produce(ring, w1pk, cin_pad, PN1, 0, n_t1, t_step, n_mc);
-      produce(ring, w2pk, cmid16, PN2, 0, n_t2, t_step, n_mc);
+      produce(ring, w1pk, cin_pad * 2, PN1, 0, n_t1, t_step, n_mc);
+      produce(ring, w2pk, cmid16 * 2, PN2, 0, n_t2, t_step, n_mc);
     }
     return;
   }
@@ -118,8 +117,8 @@ __global__ void __launch_bounds__(kConvThreads, 1)
       const int ci = q % n_ci;
       int s_off, i0, j0;
       chunk_origin(q / (n_ci * n_ts), s_off, i0, j0);
-      stage_patch(patch[q & 1], x, n, h, w, cin, g, img0 + s_off, i0, j0,
-                  ci * kKC, min(kKC, cin_pad - ci * kKC), vec_in);
+      stage_patch<2>(patch[q & 1], x, n, h, w, cin, g, img0 + s_off, i0,
+                     j0, ci * kKC, min(kKC, cin_pad - ci * kKC), vec_in);
       cp_async_commit();
     };
     stage(0);
@@ -136,8 +135,8 @@ __global__ void __launch_bounds__(kConvThreads, 1)
           consumer_sync();  // patch q landed; patch q - 1 is no longer read
           if (q + 1 < total) stage(q + 1);
           mma_chunk<PN1>(acc, ring, smem_addr(patch[q & 1]) + a_off,
-                         pc * kPitch * 2, kPitch * 2,
-                         min(kKC, cin_pad - ci * kKC), part);
+                         pc * kPitch, kPitch,
+                         min(kKC, cin_pad - ci * kKC) * 2, part);
         }
         const int t = ts * t_step + part;
         if (t >= n_t1) continue;  // no N tile left for this warpgroup
@@ -179,7 +178,7 @@ __global__ void __launch_bounds__(kConvThreads, 1)
         for (int ci = 0; ci < n_ci; ++ci)
           mma_chunk<PN2>(acc, ring, a_addr + ci * kKC * 2,
                          (w + 2) * ipitch * 2, ipitch * 2,
-                         min(kKC, cmid16 - ci * kKC), part);
+                         min(kKC, cmid16 - ci * kKC) * 2, part);
         const int t = t0 + part;
         if (t >= n_t2) continue;  // no N tile left for this warpgroup
         __nv_bfloat16* rows[2];
@@ -233,7 +232,7 @@ extern "C" long long fabric_double_conv_smem_bytes(int h, int w, int cmid,
                                                    int pn_max, int tw, int tr,
                                                    int ni, int group,
                                                    int split_n, int stages) {
-  const long long stage = (long long)pn_max * kKC * 2 * (split_n ? 2 : 1);
+  const long long stage = (long long)pn_max * kKB * (split_n ? 2 : 1);
   return stages * stage + 2LL * patch_bytes(Geo{tw, tr, ni}) +
          inter_bytes(group, h, w, cmid) + 16LL * stages;
 }
@@ -263,7 +262,7 @@ extern "C" int fabric_double_conv3x3_bias_relu(
   const long long smem = fabric_double_conv_smem_bytes(
       h, w, cmid, pn_max, tw, tr, ni, group, split_n, stages);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int stage_bytes = pn_max * kKC * 2 * (split_n ? 2 : 1);
+  const int stage_bytes = pn_max * kKB * (split_n ? 2 : 1);
   const Geo g{tw, tr, ni};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FABRIC_LAUNCH(P1, P2)                                                  \

@@ -17,13 +17,16 @@ The quantization scheme is ``fabric_tpu``'s, step for step:
   skip operands f1..f4 to int8, and the decoder runs the split conv
   ``conv(skip, K_skip) + conv(up, K_up)`` without materialising the concat.
 
-Every conv is :func:`fabric_tpu_torch.ops.conv_s8.conv3x3_s8`: int8 x int8
-with exact int32 sums (the hand-written Hopper kernel on the card), 22
-launches per forward.  The dequantize / bias / ReLU / requantize epilogue
-is plain PyTorch, with ``fabric_tpu``'s rounding: round half to even, clip
-to +-127, the input cast to the compute dtype first, scale products in
-float32.  Where ``fabric_tpu``'s XLA (on the CPU) contracts ``acc * scale +
-bias`` into a fused multiply-add, so does the port (``torch.addcmul``).
+Every conv site is one :func:`fabric_tpu_torch.ops.conv_s8.conv3x3_s8_q`:
+int8 x int8 with exact int32 sums and the dequantize / bias / ReLU /
+requantize epilogue fused (the hand-written Hopper kernel on the card, no
+int32 tensor in device memory), 18 launches per forward: the decoder's
+split conv1 is one launch of two K segments.  The epilogue has
+``fabric_tpu``'s rounding: round half to even, clip to +-127, the input
+cast to the compute dtype first, scale products in float32.  Where
+``fabric_tpu``'s XLA (on the CPU) contracts ``acc * scale + bias`` into a
+fused multiply-add, so does the port (``torch.addcmul``; on the card the
+kernel's ``fmaf``).
 The calibration forward applies ReLU after each conv, so it runs each site
 on the bf16 conv kernel (``ops/conv.py``), tapping the input's absmax first.
 """
@@ -37,6 +40,7 @@ from fabric_tpu_torch.models.blocks import max_pool2x2
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import conv_s8
 from fabric_tpu_torch.ops import fused as fused_ops
+from fabric_tpu_torch.ops.conv_s8 import quantize as q
 from fabric_tpu_torch.ops.resize import pad_to_match, upsample2x_align_corners
 
 # bi-date conv sites in forward order (fabric_tpu's table): each entry is
@@ -153,15 +157,6 @@ def quantize_weights(folded) -> dict:
     return out
 
 
-def q(x: torch.Tensor, s: float) -> torch.Tensor:
-    """Symmetric int8: round(x / s) half to even, clipped to +-127.  The
-    division is a float32 multiply by the float32 reciprocal of s, which is
-    what XLA and PyTorch's CUDA kernels both make of a division by a
-    constant."""
-    inv = float(np.float32(1) / np.float32(s))
-    return torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
-
-
 def _absmax(x: torch.Tensor) -> torch.Tensor:
     return x.float().abs().amax()
 
@@ -267,45 +262,48 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
     """The int8 forward ``(d1, d2) -> float32 logits`` of ``fabric_tpu``'s
     ``_make_forward`` in int8 mode, with the serving model's call signature
     (it drops into ``make_scene_infer`` unchanged).  The weights are
-    quantized, moved to the device and packed for the kernel here, once."""
+    quantized, moved to the device and packed for the kernel here, once,
+    with each site's scale product ``sw * sx`` in float32."""
     _check_family(model, local_upsample)
     device = _device(folded)
     s = dict(act_scales)
     w = {}
     for name, p in quantize_weights(folded).items():
+        # the input scale of each site; a decoder conv1's two halves take
+        # the fused skip's and the concat range's
+        block, _, half = name.partition(".conv1.")
+        sx = (s[f"f{5 - int(block[2:])}"] if half == "skip"
+              else s[f"{block}.conv1"] if half == "up" else s[name])
         wq = torch.from_numpy(p["wq"]).to(device)
-        w[name] = {"wq": wq, "sw": torch.from_numpy(p["sw"]).to(device),
+        w[name] = {"wq": wq, "k": torch.from_numpy(p["sw"]).to(device) * sx,
                    "packed": (conv_s8.pack_weight(wq)
                               if device.type == "cuda" else None)}
         if "bias" in p:
             w[name]["bias"] = torch.from_numpy(p["bias"]).to(device)
+    for block in ("up1", "up2", "up3", "up4"):
+        w[f"{block}.conv1.skip"]["bias"] = w[f"{block}.conv1"]["bias"]
 
-    def conv_raw(xq, key):
-        return conv_s8.conv3x3_s8(xq, w[key]["wq"], w[key]["packed"])
-
-    def conv_q(xq, sx, name):
-        """int8 conv -> fma(acc, sw * sx, bias) in float32 -> dtype."""
+    def site(xq, name, s_out=None, up=None):
+        """One conv site (conv3x3_s8_q): int8 in; int8 at s_out, else
+        dtype out."""
         p = w[name]
-        return torch.addcmul(p["bias"], conv_raw(xq, name).float(),
-                             p["sw"] * sx).to(dtype)
+        return conv_s8.conv3x3_s8_q(xq, p["wq"], p["k"], p["bias"], s_out,
+                                    p["packed"], up, dtype)
 
-    def enc_dc(xq, sx, block, s_mid, s_out):
-        h = torch.relu(conv_q(xq, sx, f"{block}.conv1"))
-        y = torch.relu(conv_q(q(h, s_mid), s_mid, f"{block}.conv2"))
-        return q(y, s_out)
+    def enc_dc(xq, block, s_out):
+        h = site(xq, f"{block}.conv1", s[f"{block}.conv2"])
+        return site(h, f"{block}.conv2", s_out)
 
-    def up_q(y, skip_q, s_skip, block):
+    def up_q(y, skip_q, block):
         u = pad_to_match(upsample2x_align_corners(y), skip_q.shape[1],
                          skip_q.shape[2])
-        s_u = s[f"{block}.conv1"]  # the concat range's scale
-        qs, qu = w[f"{block}.conv1.skip"], w[f"{block}.conv1.up"]
-        a = conv_raw(skip_q, f"{block}.conv1.skip").float()
-        bb = conv_raw(q(u, s_u), f"{block}.conv1.up").float()
-        h = torch.addcmul(bb * (qu["sw"] * s_u), a, qs["sw"] * s_skip) \
-            + w[f"{block}.conv1"]["bias"]
-        h = torch.relu(h).to(dtype)
-        s_mid = s[f"{block}.conv2"]
-        return torch.relu(conv_q(q(h, s_mid), s_mid, f"{block}.conv2"))
+        qu = w[f"{block}.conv1.up"]
+        # conv(skip, K_skip) + conv(q(u), K_up), each at its own scale (the
+        # concat range's for u), in one launch
+        h = site(skip_q, f"{block}.conv1.skip", s[f"{block}.conv2"],
+                 (q(u, s[f"{block}.conv1"]), qu["wq"], qu["k"],
+                  qu["packed"]))
+        return site(h, f"{block}.conv2")
 
     def fused_int32(a, n):
         return torch.relu(a[n:].to(torch.int32) * a[:n].to(torch.int32))
@@ -316,10 +314,9 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
         x = torch.cat([x_d1, x_d2]).to(dtype)
         enc = [s[k] for k in ("inc.conv1", "down1.conv1", "down2.conv1",
                               "down3.conv1", "down4.conv1", "enc.x5")]
-        xs = [enc_dc(q(x, enc[0]), enc[0], "inc", s["inc.conv2"], enc[1])]
+        xs = [enc_dc(q(x, enc[0]), "inc", enc[1])]
         for k in range(1, 5):
-            xs.append(enc_dc(max_pool2x2(xs[-1]), enc[k], f"down{k}",
-                             s[f"down{k}.conv2"], enc[k + 1]))
+            xs.append(enc_dc(max_pool2x2(xs[-1]), f"down{k}", enc[k + 1]))
         # the fusion relu(d2 * d1) in int32 on the int8 tensors; f1..f4 are
         # requantized straight to int8 at their own scales, f5 dequantizes
         # to the compute dtype for the upsample
@@ -328,7 +325,7 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
              .to(torch.int8) for k, (a, sk) in enumerate(zip(xs, enc[1:5]))]
         y = (fused_int32(xs[4], n).float() * (enc[5] * enc[5])).to(dtype)
         for k in range(1, 5):
-            y = up_q(y, f[4 - k], s[f"f{5 - k}"], f"up{k}")
+            y = up_q(y, f[4 - k], f"up{k}")
         return _outc(folded, y)
 
     return forward

@@ -25,6 +25,9 @@ SOURCES = ("conv3x3_bias_relu", "double_conv3x3_bias_relu", "int8_matmul",
            "conv3x3_s8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the int8 conv's epilogue rounds as its plain PyTorch version: no float
+# multiply-add is contracted but the ones it spells out (__fmaf_rn)
+EXTRA_FLAGS = {"conv3x3_s8": ("-fmad=false",)}
 
 _lock = threading.Lock()
 
@@ -41,7 +44,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> str:
     """Where the library for ``csrc/<name>.cu`` is built, keyed by the
     contents of the source, the shared headers and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ()))
+                       .encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, fname), "rb") as fin:
@@ -61,8 +65,8 @@ def build(names=SOURCES) -> dict[str, str]:
             if os.path.exists(out):
                 continue
             tmp = f"{out}.tmp.{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, f"{name}.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+                   tmp, os.path.join(CSRC, f"{name}.cu")]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)

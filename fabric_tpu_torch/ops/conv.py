@@ -26,8 +26,9 @@ import torch.nn.functional as F
 
 from fabric_tpu_torch.ops import _build
 
-KC = 32          # kKC in csrc/conv_tile.cuh: input channels per chunk
-PITCH = 40       # kPitch: bf16 per staged pixel
+KB = 64          # kKB in csrc/conv_tile.cuh: bytes of K per staged chunk
+KC = KB // 2     # kKC: the same in bf16 channels
+PITCH = KB + 16  # kPitch: bytes per staged pixel
 STAGES = 4       # weight ring slots of the conv kernel
 MAX_SMEM = 232448  # 227 KB: the most shared memory a Hopper block may use
 
@@ -57,17 +58,43 @@ def n_tile(cout: int) -> int:
 
 def patch_bytes(geo: tuple[int, int, int]) -> int:
     """Shared memory of one staged input patch (patch_bytes in the CUDA
-    core): NI x (TR+2) x (TW+2) pixels of PITCH bf16, rounded to 128."""
+    core): NI x (TR+2) x (TW+2) pixels of PITCH bytes, rounded to 128."""
     tw, tr, ni = geo
-    return _round_up(((1 << tr) + 2) * ((1 << tw) + 2) * (1 << ni) * PITCH
-                     * 2, 128)
+    return _round_up(((1 << tr) + 2) * ((1 << tw) + 2) * (1 << ni) * PITCH,
+                     128)
 
 
 def smem_bytes(h: int, w: int, cout: int) -> int:
     """Shared memory of one conv block (fabric_conv3x3_smem_bytes): the
     weight ring, two staged patches and the ring's barriers."""
-    return (STAGES * n_tile(cout) * KC * 2 + 2 * patch_bytes(
+    return (STAGES * n_tile(cout) * KB + 2 * patch_bytes(
         tile_geometry(h, w)) + 16 * STAGES)
+
+
+def pack_blocks(k: torch.Tensor, pn: int, chunk: int) -> torch.Tensor:
+    """(taps, K, N) -> the flat B layout the CUDA core streams through its
+    ring (``produce`` in csrc/conv_tile.cuh): blocks of pn columns x kc
+    rows of K x one tap, laid out [N tile][K chunk of ``chunk`` elements
+    (the last may be shorter)][tap], each block in the no-swizzle K-major
+    layout wgmma reads: core matrices [n // 8][k // V], each 8 rows n of V
+    contiguous k, V = 16 // element size (8 bf16, 16 int8).  K must be a
+    multiple of 2V (32 bytes), N of pn."""
+    taps, kk, nn = k.shape
+    v, tiles = 16 // k.element_size(), nn // pn
+    full = kk // chunk * chunk
+    pieces = []
+    if full:
+        b = k[:, :full].reshape(taps, full // chunk, chunk // v, v, tiles,
+                                pn // 8, 8)
+        # (tap, chunk, k//V, k%V, tile, n//8, n%8)
+        #   -> (tile, chunk, tap, n//8, k//V, n%8, k%V)
+        pieces.append(b.permute(4, 1, 0, 5, 2, 6, 3).reshape(tiles, -1))
+    if full < kk:
+        kc = kk - full
+        b = k[:, full:].reshape(taps, kc // v, v, tiles, pn // 8, 8)
+        # (tap, k//V, k%V, tile, n//8, n%8) -> (tile, tap, n//8, k//V, n%8, k%V)
+        pieces.append(b.permute(3, 0, 4, 1, 5, 2).reshape(tiles, -1))
+    return torch.cat(pieces, dim=1).reshape(-1).contiguous()
 
 
 def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
@@ -88,14 +115,7 @@ def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
     k = torch.zeros((9, cin_pad, cout_pad), dtype=torch.bfloat16,
                     device=kernel.device)
     k[:, :cin, :cout] = kernel.reshape(9, cin, cout)
-    tiles = cout_pad // pn
-    pieces = []
-    for c0 in range(0, cin_pad, KC):
-        kc = min(KC, cin_pad - c0)
-        b = k[:, c0:c0 + kc].reshape(9, kc // 8, 8, tiles, pn // 8, 8)
-        # (tap, k//8, k%8, tile, n//8, n%8) -> (tile, tap, n//8, k//8, n%8, k%8)
-        pieces.append(b.permute(3, 0, 4, 1, 5, 2).reshape(tiles, -1))
-    return torch.cat(pieces, dim=1).reshape(-1).contiguous()
+    return pack_blocks(k, pn, KC)
 
 
 def check_packed(packed: torch.Tensor, kernel: torch.Tensor) -> None:

@@ -1,27 +1,83 @@
-"""SAME 3x3 conv of NHWC int8 by int8 weights with exact int32 sums.
+"""SAME 3x3 conv of NHWC int8 by int8 weights with exact int32 sums, and
+the int8 serving forward's conv sites with their epilogue fused.
 
-The contract of ``conv_raw`` in ``fabric_tpu/infer/quant.py`` (an XLA conv
-with ``preferred_element_type=int32``), which the int8 serving path runs for
-every conv site.  On a CUDA tensor :func:`conv3x3_s8` launches the
-hand-written Hopper kernel ``csrc/conv3x3_s8.cu`` (implicit GEMM on the int8
-tensor cores, the GEMM core of ``ops/int8_matmul.py``); on a CPU tensor it
-computes :func:`conv3x3_s8_reference`, an exact integer conv.  The weights
-are packed once (:func:`pack_weight`) when the int8 forward is built.
+:func:`conv3x3_s8` is the contract of ``conv_raw`` in
+``fabric_tpu/infer/quant.py`` (an XLA conv with
+``preferred_element_type=int32``).  :func:`conv3x3_s8_q` is one conv site
+of the int8 forward as ``fabric_tpu`` computes it (XLA fuses the conv
+with its consumer): the conv, then the dequantize / bias / ReLU epilogue
+in float32 and bf16, then the requantization to int8 (or bf16 out), and
+in its split form the decoder's ``conv(skip, K_skip) + conv(up, K_up)``.
+
+On CUDA tensors both launch the hand-written Hopper kernel
+``csrc/conv3x3_s8.cu`` (wgmma s8 on the core of ``csrc/conv_tile.cuh``,
+the epilogue in registers; see its header for the design and what bounds
+it), and raise on what it does not take.  On CPU tensors they compute
+their plain versions: :func:`conv3x3_s8_reference`, an exact integer conv,
+and :func:`conv3x3_s8_q_reference`, that conv followed by the epilogue in
+PyTorch.  The weights are packed once (:func:`pack_weight`) when the int8
+forward is built.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fabric_tpu_torch.ops import _build
+from fabric_tpu_torch.ops import conv as conv_ops
+
+KB = conv_ops.KB  # kKB in csrc/conv_tile.cuh: int8 channels per chunk
+STAGES = 4        # weight ring slots
+_MODES = {"raw": 0, "int8": 1, "bf16": 2, "split": 3}
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+class Plan(NamedTuple):
+    """A launch of the int8 conv kernel: N tile ``pn``, M tiles of geometry
+    (tw, tr, ni) (log2s; ``images`` = 2**ni whole images per tile),
+    ``blocks_per_sm`` (the kernel's launch bound), ``smem`` bytes per
+    block (``STAGES`` ring slots of ``KB``-byte chunks, two patches, and
+    for the split form its parked first sums)."""
+    pn: int
+    tw: int
+    tr: int
+    ni: int
+    images: int
+    blocks_per_sm: int
+    smem: int
+
+
+def plan(h: int, w: int, cout: int, mode: str = "int8") -> Plan:
+    """The kernel's tiles for (h, w) images, cout output channels and a
+    launch ``mode`` ("raw", "int8", "bf16" or "split"; mirrors
+    csrc/conv3x3_s8.cu): PN 64 at up to 64 channels (three blocks per SM,
+    two for the split form, whose parked sums leave a third no shared
+    memory), else 128 (one block per SM); 128-pixel M tiles of whole small
+    images, one per block."""
+    pn = conv_ops.n_tile(cout)
+    tw, tr, ni = conv_ops.tile_geometry(h, w)
+    smem = (STAGES * pn * KB + 2 * conv_ops.patch_bytes((tw, tr, ni))
+            + 16 * STAGES + (pn * 512 if mode == "split" else 0))
+    blocks = 1 if pn == 128 else 2 if mode == "split" else 3
+    return Plan(pn, tw, tr, ni, 1 << ni, blocks, smem)
+
+
+def quantize(x: torch.Tensor, s: float) -> torch.Tensor:
+    """Symmetric int8: round(x / s) half to even, clipped to +-127.  The
+    division is a float32 multiply by the float32 reciprocal of s, which is
+    what XLA and PyTorch's CUDA kernels both make of a division by a
+    constant."""
+    inv = float(np.float32(1) / np.float32(s))
+    return torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
 
 
 def conv3x3_s8_reference(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -35,15 +91,39 @@ def conv3x3_s8_reference(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(torch.int32).contiguous()
 
 
+def conv3x3_s8_q_reference(x: torch.Tensor, wq: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor,
+                           s_out: float | None = None, up=None,
+                           dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of :func:`conv3x3_s8_q`: the exact convs, then
+    ``fabric_tpu``'s epilogue in PyTorch (``torch.addcmul`` where XLA
+    contracts a multiply-add)."""
+    a = conv3x3_s8_reference(x, wq).float()
+    if up is None:
+        h = torch.relu(torch.addcmul(bias, a, scale).to(dtype))
+    else:
+        x_up, wq_up, scale_up = up[:3]
+        bb = conv3x3_s8_reference(x_up, wq_up).float()
+        h = torch.relu(torch.addcmul(bb * scale_up, a, scale) + bias).to(dtype)
+    return h if s_out is None else quantize(h, s_out)
+
+
 def pack_weight(wq: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, Cout) int8 HWIO kernel -> the kernel's (9, Cout64, Cin32)
-    layout: input channels contiguous, Cin zero-padded to a multiple of 32
-    (the int8 mma depth) and Cout to a multiple of 64 (a block's width)."""
+    """(3, 3, Cin, Cout) int8 HWIO kernel -> the kernel's packed weights, a
+    flat int8 tensor of 9 * Cin32 * CoutP bytes (Cin zero-padded to a
+    multiple of 32, the int8 wgmma depth; Cout to a multiple of the N tile
+    PN = n_tile(Cout)): ``ops/conv.pack_blocks`` over int8 bytes, blocks
+    [N tile][K chunk of 64 (the last may be 32)][tap], each in 8 x 16-byte
+    core matrices.  Element (tap, ci, co) sits at tile*9*Cin32*PN +
+    9*c0*PN + tap*kc*PN + (n//8)*kc*8 + (k//16)*128 + (n%8)*16 + k%16,
+    with tile, n = divmod(co, PN) and c0, k = the chunk of ci and the
+    offset in it."""
     cin, cout = wq.shape[2], wq.shape[3]
-    packed = torch.zeros((9, _round_up(cout, 64), _round_up(cin, 32)),
-                         dtype=torch.int8, device=wq.device)
-    packed[:, :cout, :cin] = wq.reshape(9, cin, cout).transpose(1, 2)
-    return packed
+    pn = conv_ops.n_tile(cout)
+    k = torch.zeros((9, _round_up(cin, 32), _round_up(cout, pn)),
+                    dtype=torch.int8, device=wq.device)
+    k[:, :cin, :cout] = wq.reshape(9, cin, cout)
+    return conv_ops.pack_blocks(k, pn, KB)
 
 
 def _check(x: torch.Tensor, wq: torch.Tensor) -> None:
@@ -64,23 +144,79 @@ def _check(x: torch.Tensor, wq: torch.Tensor) -> None:
 
 
 def _check_packed(packed: torch.Tensor, wq: torch.Tensor) -> None:
-    want = (9, _round_up(wq.shape[3], 64), _round_up(wq.shape[2], 32))
-    if (tuple(packed.shape) != want or packed.dtype != torch.int8
-            or not packed.is_contiguous() or packed.device != wq.device):
-        raise ValueError(f"packed weights must be a contiguous int8 {want} "
-                         f"tensor on {wq.device} (pack_weight), got "
+    cin, cout = wq.shape[2], wq.shape[3]
+    want = 9 * _round_up(cin, 32) * _round_up(cout, conv_ops.n_tile(cout))
+    if (packed.dim() != 1 or packed.numel() != want
+            or packed.dtype != torch.int8 or not packed.is_contiguous()
+            or packed.device != wq.device or packed.data_ptr() % 16):
+        raise ValueError(f"packed weights must be a contiguous, 16-byte "
+                         f"aligned int8 vector of {want} elements on "
+                         f"{wq.device} (pack_weight), got "
                          f"{tuple(packed.shape)} {packed.dtype} on "
                          f"{packed.device}")
+
+
+def _check_vector(v: torch.Tensor, cout: int, device, what: str) -> None:
+    if (v.shape != (cout,) or v.dtype != torch.float32
+            or not v.is_contiguous() or v.device != device):
+        raise ValueError(f"{what} must be a contiguous float32 ({cout},) "
+                         f"vector on {device}, got {tuple(v.shape)} "
+                         f"{v.dtype} on {v.device}")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_s8")
     fn = lib.fabric_conv3x3_s8
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
+
+
+def _launch(mode: str, x, wq, packed, out_dtype, scale=None, bias=None,
+            inv_s: float = 0.0, up=None) -> torch.Tensor:
+    """Validate and launch csrc/conv3x3_s8.cu in ``mode``."""
+    _check(x, wq)
+    if packed is None:
+        packed = pack_weight(wq)
+    _check_packed(packed, wq)
+    n, h, w, cin = x.shape
+    cout = wq.shape[3]
+    x2 = w2 = k2 = None
+    cin2 = 0
+    if mode != "raw":
+        _check_vector(scale, cout, x.device, "scale")
+        _check_vector(bias, cout, x.device, "bias")
+    if up is not None:
+        x_up, wq_up, k2, w2 = up
+        _check(x_up, wq_up)
+        if x_up.shape[:3] != x.shape[:3] or wq_up.shape[3] != cout:
+            raise ValueError(f"the split form's second segment must match "
+                             f"(N, H, W) = {tuple(x.shape[:3])} and {cout} "
+                             f"output channels, got {tuple(x_up.shape)} and "
+                             f"{tuple(wq_up.shape)}")
+        if x_up.device != x.device:
+            raise ValueError("both segments must be on one device")
+        if w2 is None:
+            w2 = pack_weight(wq_up)
+        _check_packed(w2, wq_up)
+        _check_vector(k2, cout, x.device, "the up segment's scale")
+        x2, cin2 = x_up, x_up.shape[3]
+    p = plan(h, w, cout, mode)
+    y = torch.empty((n, h, w, cout), dtype=out_dtype, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.fabric_conv3x3_s8(
+            x.data_ptr(), packed.data_ptr(), cin, ptr(x2), ptr(w2), cin2,
+            ptr(scale), ptr(k2), ptr(bias), inv_s, y.data_ptr(), n, h, w,
+            cout, p.pn, p.tw, p.tr, p.ni, STAGES, _MODES[mode],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "conv3x3_s8")
+    return y
 
 
 def conv3x3_s8(x: torch.Tensor, wq: torch.Tensor,
@@ -90,22 +226,42 @@ def conv3x3_s8(x: torch.Tensor, wq: torch.Tensor,
     Any H, W and channel counts."""
     if x.device.type == "cpu":
         return conv3x3_s8_reference(x, wq)
-    _check(x, wq)
-    if packed is None:
-        packed = pack_weight(wq)
-    _check_packed(packed, wq)
-    n, h, w, cin = x.shape
-    cout = wq.shape[3]
-    y = torch.empty((n, h, w, cout), dtype=torch.int32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.fabric_conv3x3_s8(
-            x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, h, w, cin, cout,
-            packed.shape[2], packed.shape[1],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "conv3x3_s8")
+    y = _launch("raw", x, wq, packed, torch.int32)
     conv3x3_s8.launches += 1
     return y
 
 
 conv3x3_s8.launches = 0
+
+
+def conv3x3_s8_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor, s_out: float | None = None,
+                 packed: torch.Tensor | None = None, up=None,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """One int8 conv site: h = relu(fma(float(conv3x3_SAME(x, wq)), scale,
+    bias) rounded to ``dtype``); int8 ``quantize(h, s_out)`` when s_out is
+    given, else h.  x: (N, H, W, Cin) int8; wq: (3, 3, Cin, Cout) int8;
+    scale (= sw * sx) and bias: (Cout,) float32; ``packed``:
+    ``pack_weight(wq)``, made here when None.
+
+    ``up`` = (x_up, wq_up, scale_up, packed_up): the decoder's split form,
+    h = relu(fma(a, scale, b * scale_up) + bias) with a and b the exact
+    convs of (x, wq) and (x_up, wq_up) (int8 out only).  On the card the
+    compute dtype is bf16 (the kernel's)."""
+    if x.device.type == "cpu":
+        return conv3x3_s8_q_reference(x, wq, scale, bias, s_out, up, dtype)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_s8_q computes in bfloat16 on the card, "
+                        f"got {dtype}")
+    if up is not None and s_out is None:
+        raise ValueError("the split form writes int8: give s_out")
+    mode = "bf16" if s_out is None else "int8" if up is None else "split"
+    inv = 0.0 if s_out is None else float(np.float32(1) / np.float32(s_out))
+    y = _launch(mode, x, wq, packed,
+                torch.bfloat16 if s_out is None else torch.int8, scale, bias,
+                inv, up)
+    conv3x3_s8_q.launches += 1
+    return y
+
+
+conv3x3_s8_q.launches = 0

@@ -4,10 +4,10 @@ float32.
 Counterpart of the Pallas kernel of
 ``fabric_tpu/tools/ablate_train.py:microbench_int8_matmul`` (``make_pallas``,
 the int8 matrix-rate probe).  On CUDA tensors :func:`int8_matmul` launches
-the hand-written Hopper kernel ``csrc/int8_matmul.cu``, whose GEMM core
-(``csrc/int8_gemm.cuh``) also carries the int8 serving convs
-(``ops/conv_s8.py``); see its header for the design and what bounds it.  On
-CPU tensors it computes :func:`int8_matmul_reference`, the plain version.
+the hand-written Hopper kernel ``csrc/int8_matmul.cu``, a GEMM on the
+wgmma core of the conv kernels (``csrc/conv_tile.cuh``); see its header for
+the design and what bounds it.  On CPU tensors it computes
+:func:`int8_matmul_reference`, the plain version.
 """
 
 from __future__ import annotations
@@ -16,10 +16,14 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from fabric_tpu_torch.ops import _build
+from fabric_tpu_torch.ops import conv as conv_ops
 
 _TYPES = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
+KB = 128     # kMmKB in csrc/int8_matmul.cu: bytes of K per staged chunk
+STAGES = 4   # ring slots
 
 
 def _round_up(x: int, m: int) -> int:
@@ -35,15 +39,26 @@ def int8_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def kpad(k: int, element_size: int) -> int:
+    """K in elements, zero-padded to whole 128-byte chunks."""
+    return _round_up(k, KB // element_size)
+
+
 def pack_b(b: torch.Tensor) -> torch.Tensor:
-    """(k, n) B -> the kernel's (n64, kpad) transposed copy, input channels
-    contiguous, zero past n (to a multiple of 64 columns) and past k (to a
-    multiple of 32 bytes)."""
+    """(k, n) B -> the kernel's packed copy, the layout of the conv weights
+    (``ops/conv.pack_blocks`` with one tap): zero past k (to ``kpad``) and
+    past n (to a multiple of the N tile PN = 64 or 128), blocks [N
+    tile][K chunk of 128 bytes], each in 8 x 16-byte core matrices.  So
+    element (kk, nn) sits at tile*Kpad*PN + c0*PN + (n//8)*C*8 +
+    (k//V)*8V + (n%8)*V + k%V, with tile, n = divmod(nn, PN), c0, k = the
+    chunk of kk and the offset in it, and C and V the elements in 128 and
+    16 bytes."""
     k, n = b.shape
-    kpad = _round_up(k, 32 // b.element_size())
-    bt = torch.zeros((_round_up(n, 64), kpad), dtype=b.dtype, device=b.device)
-    bt[:n, :k] = b.t()
-    return bt
+    pn, chunk = conv_ops.n_tile(n), KB // b.element_size()
+    kp, npad = kpad(k, b.element_size()), _round_up(n, pn)
+    if (kp, npad) != (k, n):
+        b = F.pad(b, (0, npad - n, 0, kp - k))
+    return conv_ops.pack_blocks(b.unsqueeze(0), pn, chunk)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -66,7 +81,7 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int8_matmul")
     fn = lib.fabric_int8_matmul
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -79,12 +94,13 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return int8_matmul_reference(a, b)
     _check(a, b)
     (m, k), n = a.shape, b.shape[1]
-    bt = pack_b(b)
+    bpk = pack_b(b)
     c = torch.empty((m, n), dtype=_TYPES[a.dtype], device=a.device)
     lib = _lib()
     with torch.cuda.device(a.device):
         err = lib.fabric_int8_matmul(
-            a.data_ptr(), bt.data_ptr(), c.data_ptr(), m, k, n, bt.shape[1],
+            a.data_ptr(), bpk.data_ptr(), c.data_ptr(), m, k, n,
+            kpad(k, a.element_size()), conv_ops.n_tile(n), STAGES,
             int(a.dtype == torch.int8),
             torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, err, "int8_matmul")

@@ -299,9 +299,30 @@ def test_train_step_on_card_runs_the_fused_kernel(card):
 
 S8_CONV_SHAPES = [(1, 7, 7, 13, 64), (3, 5, 9, 13, 70), (2, 4, 4, 512, 256),
                   (5, 8, 8, 256, 64), (1, 1, 1, 32, 8), (2, 64, 64, 64, 64),
-                  (1, 33, 300, 48, 24), (9, 16, 16, 128, 128)]
+                  (1, 33, 300, 48, 24), (9, 16, 16, 128, 128),
+                  # many blocks; 2 images of 8x8 per tile, N odd
+                  (35, 64, 64, 64, 64), (1001, 8, 8, 40, 24)]
 MATMUL_SHAPES = [(1000, 100, 24), (37, 13, 70), (4096, 512, 512),
-                 (130, 33, 130), (257, 200, 64)]
+                 (130, 33, 130), (257, 200, 64), (131, 515, 257)]
+# (N, H, W, Cin, Cout, mode) of conv3x3_s8_q: the 18 sites of the int8
+# forward (patch 64), N cut, each in the mode the forward runs it in (the
+# decoder's split conv1 with Cin per segment), then edges: 1x1, 3x5 and
+# 7x9 images, Cin 13 and 1024, Cout 2 and 40, N not a multiple of the
+# images per tile
+S8Q_SHAPES = [(2, 64, 64, 13, 64, "int8"), (2, 64, 64, 64, 64, "int8"),
+              (2, 32, 32, 64, 128, "int8"), (2, 32, 32, 128, 128, "int8"),
+              (3, 16, 16, 128, 256, "int8"), (3, 16, 16, 256, 256, "int8"),
+              (5, 8, 8, 256, 512, "int8"), (5, 8, 8, 512, 512, "int8"),
+              (9, 4, 4, 512, 512, "int8"), (3, 8, 8, 512, 256, "split"),
+              (3, 8, 8, 256, 256, "bf16"), (2, 16, 16, 256, 128, "split"),
+              (2, 16, 16, 128, 128, "bf16"), (2, 32, 32, 128, 64, "split"),
+              (2, 32, 32, 64, 64, "bf16"), (2, 64, 64, 64, 64, "split"),
+              (3, 1, 1, 16, 64, "int8"), (5, 3, 5, 13, 40, "bf16"),
+              (3, 7, 9, 1024, 2, "int8"), (11, 4, 4, 40, 40, "split"),
+              (9, 8, 8, 64, 200, "bf16"), (3, 7, 9, 13, 2, "split"),
+              # many blocks; 2 images of 8x8 per tile, N odd
+              (64, 64, 64, 13, 64, "int8"), (48, 32, 32, 64, 128, "bf16"),
+              (1001, 8, 8, 40, 24, "int8")]
 
 
 def _s8(rng, *shape):
@@ -323,6 +344,51 @@ def test_conv_s8_kernel_matches_plain_exactly(card, n, h, w, cin, cout):
     assert torch.equal(got, conv_s8.conv3x3_s8_reference(x, wq))
     packed = conv_s8.pack_weight(wq)  # the prepacked call gives the same
     assert torch.equal(conv_s8.conv3x3_s8(x, wq, packed), got)
+
+
+def _s8q_case(rng, card, n, h, w, cin, cout, mode):
+    """Inputs of one conv3x3_s8_q launch: int8 tensors, scale vectors that
+    put the sums at a few units (the split form's two halves at unequal
+    scales), a bias, and an output scale that clips some values."""
+    def scale(c, f):
+        return torch.from_numpy(((rng.rand(cout) + 0.5) * f / (
+            np.sqrt(9 * c) * 5400)).astype(np.float32)).to(card)
+    x, wq = _s8(rng, n, h, w, cin).to(card), _s8(rng, 3, 3, cin, cout).to(card)
+    k = scale(cin, 2.0)
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(card)
+    up = None
+    if mode == "split":
+        x2 = _s8(rng, n, h, w, cin).to(card)
+        w2 = _s8(rng, 3, 3, cin, cout).to(card)
+        up = (x2, w2, scale(cin, 0.7), None)
+    s_out = None if mode == "bf16" else 3.0 / 127
+    return x, wq, k, bias, s_out, up
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,mode", S8Q_SHAPES)
+def test_conv_s8_q_kernel_matches_plain(card, n, h, w, cin, cout, mode):
+    """The fused int8 conv site in the mode the forward runs it in against
+    its plain version (the exact conv, then the epilogue in PyTorch):
+    identical."""
+    from fabric_tpu_torch.ops import conv_s8
+    rng = np.random.RandomState(n * h + w + cin)
+    x, wq, k, bias, s_out, up = _s8q_case(rng, card, n, h, w, cin, cout, mode)
+    before = conv_s8.conv3x3_s8_q.launches
+    got = conv_s8.conv3x3_s8_q(x, wq, k, bias, s_out, None, up)
+    torch.cuda.synchronize()
+    assert conv_s8.conv3x3_s8_q.launches == before + 1
+    assert got.shape == (n, h, w, cout)
+    assert got.dtype == (torch.bfloat16 if mode == "bf16" else torch.int8)
+    ref = conv_s8.conv3x3_s8_q_reference(x, wq, k, bias, s_out, up)
+    assert torch.equal(got, ref)
+    if mode != "bf16" and got.numel() >= 4096:  # codes across the range
+        assert 0 < int((got == 127).sum()) < got.numel()
+    packed = conv_s8.pack_weight(wq)  # the prepacked call gives the same
+    if up is not None:
+        up = (*up[:3], conv_s8.pack_weight(up[1]))
+    assert torch.equal(conv_s8.conv3x3_s8_q(x, wq, k, bias, s_out, packed,
+                                            up), got)
 
 
 @pytest.mark.cuda
@@ -374,14 +440,39 @@ def test_int8_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         conv_s8.conv3x3_s8(x.permute(0, 2, 1, 3), wq)
     with pytest.raises(ValueError, match="packed"):
-        conv_s8.conv3x3_s8(x, wq, conv_s8.pack_weight(wq)[:, :, :16])
+        conv_s8.conv3x3_s8(x, wq, conv_s8.pack_weight(wq)[:-16])
+    with pytest.raises(ValueError, match="packed"):
+        conv_s8.conv3x3_s8(x, wq, conv_s8.pack_weight(wq).view(9, -1))
+    k = torch.ones(8, device=card)
+    with pytest.raises(ValueError, match="packed"):
+        conv_s8.conv3x3_s8_q(x, wq, k, k, 0.1, conv_s8.pack_weight(wq)[16:])
+    with pytest.raises(ValueError, match="scale"):
+        conv_s8.conv3x3_s8_q(x, wq, torch.ones(7, device=card), k, 0.1)
+    with pytest.raises(ValueError, match="bias"):
+        conv_s8.conv3x3_s8_q(x, wq, k, k.double(), 0.1)
+    with pytest.raises(ValueError, match="scale"):
+        conv_s8.conv3x3_s8_q(x, wq, k.cpu(), k, 0.1)
+    with pytest.raises(ValueError, match="one device"):
+        conv_s8.conv3x3_s8_q(x, wq.cpu(), k, k, 0.1)
+    with pytest.raises(TypeError):
+        conv_s8.conv3x3_s8_q(x, wq, k, k, 0.1, dtype=torch.float32)
+    with pytest.raises(ValueError, match="s_out"):
+        conv_s8.conv3x3_s8_q(x, wq, k, k, None, None, (x, wq, k, None))
+    with pytest.raises(ValueError, match="one device"):
+        conv_s8.conv3x3_s8_q(x, wq, k, k, 0.1, None, (x, wq.cpu(), k, None))
+    with pytest.raises(ValueError, match="up segment"):
+        conv_s8.conv3x3_s8_q(x, wq, k, k, 0.1, None,
+                             (x, wq, torch.ones(9, device=card), None))
+    with pytest.raises(ValueError, match="second segment"):
+        conv_s8.conv3x3_s8_q(x, wq, k, k, 0.1, None, (x[:, :4], wq, k, None))
 
 
 @pytest.mark.cuda
 def test_int8_serving_equals_its_plain_forward_on_card(card):
-    """ScenePredictor(quant="int8") on the card: 22 conv3x3_s8 launches per
-    forward, and a mask identical to the same int8 forward (same scales)
-    on the plain int8 conv, which leaves nothing else to differ."""
+    """ScenePredictor(quant="int8") on the card: 18 fused conv3x3_s8_q
+    launches per forward (no raw one), and a mask identical to the same
+    int8 forward (same scales) on the plain versions of the conv sites,
+    which leaves nothing else to differ."""
     from fabric_tpu_torch import Config
     from fabric_tpu_torch.infer.device_tiling import make_scene_infer
     from fabric_tpu_torch.infer.service import ScenePredictor
@@ -391,16 +482,19 @@ def test_int8_serving_equals_its_plain_forward_on_card(card):
     cfg = Config(patch_size=32, eval_batch_size=12, model_base=16)
     pred = ScenePredictor(cfg, bucket=0, device=card, quant="int8")
     pred.predict(d1, d2)  # calibrates
-    before = conv_s8.conv3x3_s8.launches
+    before = (conv_s8.conv3x3_s8_q.launches, conv_s8.conv3x3_s8.launches)
     mask = pred.predict(d1, d2)
-    assert conv_s8.conv3x3_s8.launches == before + 22  # 12 tiles, 1 chunk
-    kernel = conv_s8.conv3x3_s8
-    conv_s8.conv3x3_s8 = lambda x, wq, packed=None: \
-        conv_s8.conv3x3_s8_reference(x, wq)
+    # 12 tiles, 1 chunk
+    assert (conv_s8.conv3x3_s8_q.launches,
+            conv_s8.conv3x3_s8.launches) == (before[0] + 18, before[1])
+    kernel = conv_s8.conv3x3_s8_q
+    conv_s8.conv3x3_s8_q = lambda x, wq, k, b, s_out=None, packed=None, \
+        up=None, dtype=torch.bfloat16: conv_s8.conv3x3_s8_q_reference(
+            x, wq, k, b, s_out, up, dtype)
     try:
         plain = make_scene_infer(pred._forward, 32, (96, 128),
                                  batch_size=12)(
             *(torch.from_numpy(d).to(card) for d in (d1, d2)))
     finally:
-        conv_s8.conv3x3_s8 = kernel
+        conv_s8.conv3x3_s8_q = kernel
     np.testing.assert_array_equal(mask, plain.cpu().numpy())
