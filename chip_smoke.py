@@ -20,12 +20,15 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   fused conv sites of one int8 forward, each in its mode (int8 out, the
   decoder's split form, bf16 out), timed beside the unfused raw launch +
   PyTorch epilogue, and exactly in its raw int32 mode at the 22 separate
-  convs; the int8 matrix kernel at 131072 x 512 x 512 (int8 and bf16);
-  runs the int8 microbench, then serves the same scenes through
+  convs; the int8 Siamese fusion (with the encoder's max-pool) exactly at
+  the 5 levels of one int8 forward in every output mode; the int8 matrix
+  kernel at 131072 x 512 x 512 (int8 and bf16); runs the int8
+  microbench, then serves the same scenes through
   ``ScenePredictor(quant="int8")`` (calibration on the first scene, clip
   probes after), checks ``predict_many`` against ``predict``, the mask
-  against the same int8 forward on the plain conv sites and the launch
-  counters, and profiles one scene of each runner;
+  against the same int8 forward on the plain versions of both int8
+  kernels, the launch counters and that a forward makes no int32 tensor,
+  and profiles one scene of each runner;
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -33,7 +36,9 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   counters show the eval-BatchNorm and fusion kernels ran, and the patch
   pipeline, the step and a periodic save are timed apart.  Then it holds
   the eval-BatchNorm kernel against its plain version at every shape of
-  the eval forward (bf16 and fp32), the fused gradient against autograd,
+  the eval forward (bf16 and fp32, without and with the conv bias it
+  fuses; timed back to back and alone, from a CUDA graph's replay), the
+  fused gradient against autograd,
   one fp32 train step on the card against the same step on the CPU, and
   serves the trained checkpoint folded (conv kernels) and unfolded
   (eval-BatchNorm kernel) on the validation city, and runs
@@ -85,6 +90,42 @@ def device_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host time of one fn() call, in microseconds: calls enqueued back to
+    back on the host clock, the card left to catch up afterwards (a
+    kernel shorter than its call never fills the launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of fn() per call without the host's launch cost: the
+    replay of a CUDA graph of reps calls, timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -310,64 +351,167 @@ def eval_bn_shapes():
 
 def check_bn_kernel():
     """The eval-BatchNorm kernel against its plain version at every shape
-    of the eval forward, bf16 and fp32, with its time beside its byte
-    bound, the plain version's and F.batch_norm + relu_'s (two calls).
-    Returns the bf16 rows, one per launch of a forward."""
+    of the eval forward, bf16 and fp32, without and with the conv bias
+    (the form the unfolded eval forward runs), with its time back to back
+    (CUDA events over launches made by the host: what the eval loop waits
+    for) and its device time alone (a CUDA graph's replay), beside its
+    byte bound, the plain version's time and F.batch_norm + relu_'s (two
+    calls; with the conv bias folded into the mean beforehand).  Returns
+    the bf16 conv-bias rows, one per launch of an eval forward."""
     from fabric_tpu_torch.ops import bn_relu
 
     g = torch.Generator().manual_seed(SEED)
-    rows = []
+    rows, sums = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         for level, shape in eval_bn_shapes():
             c = shape[-1]
             x = torch.randn(*shape, generator=g).cuda().to(dtype)
-            scale, bias, mean = (torch.randn(c, generator=g).cuda()
-                                 for _ in range(3))
+            scale, bias, mean, cb = (torch.randn(c, generator=g).cuda()
+                                     for _ in range(4))
             var = (torch.rand(c, generator=g) + 0.1).cuda()
-            args = (x, scale, bias, mean, var)
-            got = bn_relu.bn_relu_inference(*args)
-            torch.cuda.synchronize()
-            ref = bn_relu.bn_relu_inference_reference(*args)
-            diff = (got.float() - ref.float()).abs()
-            err = diff.max().item()
-            # element by element: the kernel may fuse x*s + t into one FMA
-            # where the plain version rounds the product first, so the
-            # fp32 values differ by at most 2^-22 (|x s| + |t|); bf16 adds
-            # one ulp of the output (2^-7 of the larger output, at most)
-            s, t = bn_relu._scale_shift(scale, bias, mean, var, 1e-5)
-            tol = 2.0 ** -22 * (x.float().abs() * s.abs() + t.abs())
-            if dtype == torch.bfloat16:
-                tol += 2.0 ** -7 * torch.maximum(got.float().abs(),
-                                                 ref.float().abs())
-            worst = (diff / tol.clamp_min(1e-30)).max().item()
-            ok = bool((diff <= tol).all()) and bool(
-                torch.isfinite(got.float()).all())
-            del diff, tol
             xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view
-            kms = device_ms(lambda: bn_relu.bn_relu_inference(*args), 10)
-            pms = device_ms(lambda: bn_relu.bn_relu_inference_reference(
-                *args), 3)
-            lms = device_ms(lambda: torch.relu_(F.batch_norm(
-                xc, mean, var, scale, bias, training=False, eps=1e-5)), 10)
-            nbytes = 2 * x.numel() * x.element_size() + 4 * c * 4
-            t_ops, t_bytes = bound(3 * x.numel(), nbytes, PEAK_ELEMENTWISE)
-            print(f"kernel bn_relu_inference {level} {tuple(shape)} "
-                  f"{str(dtype)[6:]}: max_abs_err {err:.4g}, largest "
-                  f"error / per-element tol {worst:.3g} "
-                  f"{'ok' if ok else 'MISMATCH'} | {kms:.4f} ms, plain "
-                  f"{pms:.4f} ms, library {lms:.4f} ms (F.batch_norm + "
-                  f"relu_, two calls), bound {max(t_ops, t_bytes):.4f} ms "
-                  f"(bytes: x read once, y written once, 4 x C fp32)",
-                  flush=True)
-            if not ok:
-                fail(f"bn_relu_inference {shape} {dtype} disagrees with "
-                     "its plain version")
-            if dtype == torch.bfloat16:
-                row = dict(name="bn_relu_inference", err=err, ms=kms,
-                           plain_ms=pms, library_ms=lms, t_ops=t_ops,
-                           t_bytes=t_bytes)
-                rows += [row, row]  # conv1's and conv2's epilogue
-            del args, got, ref, x, xc
+            for conv_bias in (None, cb):
+                args = (x, scale, bias, mean, var, 1e-5, conv_bias)
+                got = bn_relu.bn_relu_inference(*args)
+                torch.cuda.synchronize()
+                ref = bn_relu.bn_relu_inference_reference(*args)
+                diff = (got.float() - ref.float()).abs()
+                err = diff.max().item()
+                n_diff = int((diff > 0).sum())
+                # element by element, the tolerance the Triton kernel was
+                # held to (it fused x*s + t into one FMA): the fp32 values
+                # within 2^-22 (|z s| + |t|); bf16 adds one ulp of the
+                # output (2^-7 of the larger output, at most)
+                z = x.float() if conv_bias is None else (
+                    x + conv_bias.to(dtype)).float()
+                s, t = bn_relu._scale_shift(scale, bias, mean, var, 1e-5)
+                tol = 2.0 ** -22 * (z.abs() * s.abs() + t.abs())
+                if dtype == torch.bfloat16:
+                    tol += 2.0 ** -7 * torch.maximum(got.float().abs(),
+                                                     ref.float().abs())
+                worst = (diff / tol.clamp_min(1e-30)).max().item()
+                ok = bool((diff <= tol).all()) and bool(
+                    torch.isfinite(got.float()).all())
+                del diff, tol, z
+                kms = device_ms(lambda: bn_relu.bn_relu_inference(*args), 30)
+                gms = graph_ms(lambda: bn_relu.bn_relu_inference(*args), 10)
+                hus = host_us(lambda: bn_relu.bn_relu_inference(*args), 30)
+                pms = device_ms(lambda: bn_relu.bn_relu_inference_reference(
+                    *args), 3)
+                lmean = mean if conv_bias is None else mean - conv_bias
+                lms = device_ms(lambda: torch.relu_(F.batch_norm(
+                    xc, lmean, var, scale, bias, training=False, eps=1e-5)),
+                    30)
+                nv = 4 if conv_bias is None else 5
+                nbytes = 2 * x.numel() * x.element_size() + nv * c * 4
+                t_ops, t_bytes = bound(3 * x.numel(), nbytes,
+                                       PEAK_ELEMENTWISE)
+                form = "" if conv_bias is None else " conv_bias"
+                print(f"kernel bn_relu_inference{form} {level} "
+                      f"{tuple(shape)} {str(dtype)[6:]}: max_abs_err "
+                      f"{err:.4g} ({n_diff} of {x.numel()} differ), largest "
+                      f"error / per-element tol {worst:.3g} "
+                      f"{'ok' if ok else 'MISMATCH'} | back to back "
+                      f"{kms:.4f} ms, device alone (graph) {gms:.4f} ms, "
+                      f"host {hus:.1f} us a call, "
+                      f"plain {pms:.4f} ms, library {lms:.4f} ms "
+                      f"(F.batch_norm + relu_, two calls), bound "
+                      f"{max(t_ops, t_bytes):.4f} ms (bytes: x read once, y "
+                      f"written once, {nv} x C fp32)", flush=True)
+                if not ok:
+                    fail(f"bn_relu_inference{form} {shape} {dtype} "
+                         "disagrees with its plain version")
+                key = (str(dtype)[6:], form.strip() or "no conv_bias")
+                acc = sums.setdefault(key, [0.0] * 5 + [[]])
+                for i, v in enumerate((kms, gms, pms, lms, max(t_ops,
+                                                               t_bytes))):
+                    acc[i] += 2 * v  # conv1's and conv2's epilogue
+                if kms >= lms:
+                    acc[5].append(level)
+                if dtype == torch.bfloat16 and conv_bias is not None:
+                    row = dict(name="bn_relu_inference", err=err, ms=kms,
+                               plain_ms=pms, library_ms=lms, t_ops=t_ops,
+                               t_bytes=t_bytes, graph_ms=gms)
+                    rows += [row, row]
+                del args, got, ref
+            del x, xc
+    for (dt, form), (kms, gms, pms, lms, bms, slower) in sums.items():
+        print(f"bn_relu_inference {dt} {form}, summed over the 18 launches "
+              f"of one eval forward of {T_BATCH} tiles at patch {T_PATCH}: "
+              f"back to back {kms:.3f} ms, device alone (graph) {gms:.3f} "
+              f"ms, bound {bms:.3f} ms, plain {pms:.3f} ms, library "
+              f"{lms:.3f} ms; levels where the library is as fast or faster "
+              f"back to back: {slower or 'none'}", flush=True)
+    return rows
+
+
+def fuse_s8_shapes():
+    """(level, (2n, side, side, C)) of the 5 siamese_fuse_s8 launches of
+    one int8 forward of BATCH tiles (both dates stacked)."""
+    return [(f"f{i + 1}", (2 * BATCH, PATCH >> i, PATCH >> i, c))
+            for i, c in enumerate((BASE, 2 * BASE, 4 * BASE, 8 * BASE,
+                                   8 * BASE))]
+
+
+def check_fuse_s8_kernel():
+    """siamese_fuse_s8 at the 5 levels of one int8 forward of BATCH tiles,
+    bit-exact against its plain version (the PyTorch lines the forward ran
+    before: int32 products, round, clamp, cast, and the int8 max-pool) in
+    every output mode, with and without the pool, at a scale that lands
+    on .5 ties and one that clips; the forward's form (int8 out and the
+    pool for f1..f4, bf16 out for f5) timed beside its byte bound and the
+    plain version.  Returns those rows."""
+    from fabric_tpu_torch.ops import fuse_s8
+
+    g = torch.Generator().manual_seed(SEED)
+    rows = []
+    for i, (level, shape) in enumerate(fuse_s8_shapes()):
+        a = torch.randint(-127, 128, shape, generator=g,
+                          dtype=torch.int8).cuda()
+        m_path = (3.1 / 127) ** 2 / (5.3 / 127) if i < 4 else (4.7 / 127) ** 2
+        checked = 0
+        for m in (1.0 / 64, m_path):
+            for out, pool in ((torch.int8, True), (torch.bfloat16, False),
+                              (torch.bfloat16, True), (torch.float32, False)):
+                f, p = fuse_s8.siamese_fuse_s8(a, m, out, pool)
+                torch.cuda.synchronize()
+                rf, rp = fuse_s8.siamese_fuse_s8_reference(a, m, out, pool)
+                if not (torch.equal(f, rf) and (p is None) == (not pool)
+                        and (not pool or torch.equal(p, rp))):
+                    fail(f"siamese_fuse_s8 {level} {shape} m={m} {out} "
+                         f"pool={pool} differs from its plain version")
+                checked += 1
+                del f, p, rf, rp
+        # f5 leaves in the serving compute dtype, bf16
+        out, pool = (torch.int8, True) if i < 4 else (torch.bfloat16, False)
+        args = (a, m_path, out, pool)
+        kms = device_ms(lambda: fuse_s8.siamese_fuse_s8(*args), 10)
+        gms = graph_ms(lambda: fuse_s8.siamese_fuse_s8(*args), 10)
+        pms = device_ms(lambda: fuse_s8.siamese_fuse_s8_reference(*args), 3)
+        n2, h, w, c = shape
+        nbytes = a.numel() + (n2 // 2) * h * w * c * (
+            1 if out == torch.int8 else 2) + (
+            n2 * (h // 2) * (w // 2) * c if pool else 0)
+        t_ops, t_bytes = bound(3 * (n2 // 2) * h * w * c, nbytes,
+                               PEAK_ELEMENTWISE)
+        print(f"kernel siamese_fuse_s8 {level} {shape} {str(out)[6:]} out"
+              f"{', pool' if pool else ''}: identical to its plain version "
+              f"in {checked} forms (int8 + pool, bf16, bf16 + pool, fp32; "
+              f"m = 1/64 and {m_path:.6g}) | back to back {kms:.4f} ms, "
+              f"device alone (graph) {gms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms (bytes: a read once, f and the "
+              f"pool written once)", flush=True)
+        rows.append(dict(name="siamese_fuse_s8", err=0.0, ms=kms,
+                         plain_ms=pms, library_ms=None, t_ops=t_ops,
+                         t_bytes=t_bytes, graph_ms=gms))
+        del a
+    print(f"siamese_fuse_s8 per {BATCH}-tile int8 forward: "
+          f"{sum(r['ms'] for r in rows):.4f} ms back to back, "
+          f"{sum(r['graph_ms'] for r in rows):.4f} ms device alone over 5 "
+          f"launches, bound "
+          f"{sum(max(r['t_ops'], r['t_bytes']) for r in rows):.4f} ms, plain"
+          f" (the PyTorch lines it replaced) "
+          f"{sum(r['plain_ms'] for r in rows):.4f} ms", flush=True)
     return rows
 
 
@@ -921,16 +1065,17 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
     versions of the conv sites (or, where ``within`` says a site differed
     within one code or ulp from its plain version, the same on >= 99.99%
     of the pixels), and the rates beside this run's bf16 ones.  Returns
-    the conv3x3_s8 launches (both wrappers of the kernel)."""
+    the launches of the int8 kernels: conv3x3_s8 (both wrappers of the
+    kernel) and siamese_fuse_s8."""
     from fabric_tpu_torch.infer.device_tiling import make_scene_infer
     from fabric_tpu_torch.infer.service import ScenePredictor
-    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fused
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
 
     pred = ScenePredictor(cfg, checkpoint=None, bucket=512, device="cuda",
                           quant="int8")
     counters = (conv_s8.conv3x3_s8_q, conv_s8.conv3x3_s8,
-                conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
-                fused.fused_mul_relu)
+                fuse_s8.siamese_fuse_s8, conv.conv3x3_bias_relu,
+                double_conv.double_conv3x3_bias_relu, fused.fused_mul_relu)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -938,12 +1083,12 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
     first_s = time.perf_counter() - t0
     many = pred.predict_many(more)
     launches = {fn.__name__: fn.launches for fn in counters}
-    # int8 forwards of BATCH tiles: 4 + 4 + 2, 18 fused conv sites each
-    # and no raw conv; the stats forward (one conv3x3 launch per site, five
-    # fusions) runs for the calibration on the first scene and for the two
-    # probes
+    # int8 forwards of BATCH tiles: 4 + 4 + 2, 18 fused conv sites and 5
+    # fusions each and no raw conv; the stats forward (one conv3x3 launch
+    # per site, five bf16 fusions) runs for the calibration on the first
+    # scene and for the two probes
     expected = {"conv3x3_s8_q": 18 * 10, "conv3x3_s8": 0,
-                "conv3x3_bias_relu": 18 * 3,
+                "siamese_fuse_s8": 5 * 10, "conv3x3_bias_relu": 18 * 3,
                 "double_conv3x3_bias_relu": 0, "fused_mul_relu": 5 * 3}
     print(f"int8 serve: kernels launched {launches} (expected {expected}); "
           f"first predict (with calibration) {first_s:.2f} s; worst clip "
@@ -958,22 +1103,24 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
             fail("int8 predict_many differs from predict")
     print("int8 predict_many == [predict(*p) for p in pairs]: ok", flush=True)
 
-    # the same int8 forward (same scales) on the plain conv sites: the
-    # exact float64 conv, then the epilogue in PyTorch
+    # the same int8 forward (same scales) on the plain versions of both
+    # int8 kernels: the exact float64 conv, then the epilogue in PyTorch;
+    # the fusion's int32 PyTorch lines and the int8 max-pool
     a1, a2 = (torch.from_numpy(d).cuda() for d in (d1, d2))
-    kernel = conv_s8.conv3x3_s8_q
+    kernel, fusion = conv_s8.conv3x3_s8_q, fuse_s8.siamese_fuse_s8
     conv_s8.conv3x3_s8_q = lambda x, wq, k, b, s_out=None, packed=None, \
         up=None, dtype=torch.bfloat16: conv_s8.conv3x3_s8_q_reference(
             x, wq, k, b, s_out, up, dtype)
+    fuse_s8.siamese_fuse_s8 = fuse_s8.siamese_fuse_s8_reference
     try:
         plain = make_scene_infer(pred._forward, PATCH, (SCENE, SCENE),
                                  batch_size=BATCH, dtype=torch.bfloat16)(
                                      a1, a2).cpu().numpy()
     finally:
-        conv_s8.conv3x3_s8_q = kernel
+        conv_s8.conv3x3_s8_q, fuse_s8.siamese_fuse_s8 = kernel, fusion
     agree = float((mask == plain).mean())
-    print(f"2048^2 int8 mask vs the same int8 forward on the plain conv "
-          f"sites on the card: "
+    print(f"2048^2 int8 mask vs the same int8 forward on the plain versions "
+          f"of conv3x3_s8_q and siamese_fuse_s8 on the card: "
           f"{'identical' if agree == 1 else 'DIFFERENT'} ("
           f"{int((mask != plain).sum())} pixels differ, agreement "
           f"{agree:.6f}); change share {mask.mean():.4f}", flush=True)
@@ -996,16 +1143,16 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
             pred._calibration_crops(d1, d2)), pred._scenes_predicted)
         probes.append(time.perf_counter() - t0)
     profile_runner(run, a1, a2, f"int8 {SCENE}^2 runner", top=12)
-    # what an int8 forward makes in int32: the Siamese fusion's products
-    # alone (5 levels x two casts, the product and its ReLU), no conv sum
+    # what an int8 forward makes in int32: nothing (the conv sums and the
+    # fusion's products stay in the kernels' registers)
     tiles = [torch.randn(BATCH, PATCH, PATCH, 13, generator=torch.Generator(
     ).manual_seed(SEED + i)).cuda() for i in range(2)]
     made, addcmul = int32_tensors(pred._forward, *tiles)
     print(f"int32 tensors made by one int8 forward of {BATCH} tiles, by aten "
-          f"op: {made} ({sum(made.values())}; the fusion's alone: 20); "
-          f"addcmul calls: {addcmul}", flush=True)
-    if sum(made.values()) > 20 or addcmul:
-        fail("the int8 forward makes int32 tensors outside the fusion")
+          f"op: {made} ({sum(made.values())}); addcmul calls: {addcmul}",
+          flush=True)
+    if made or addcmul:
+        fail("the int8 forward makes int32 tensors")
     mpx = SCENE * SCENE / 1e6
     print(f"int8 end to end {SCENE}^2: predict {wall * 1e3:.1f} ms median of "
           f"{[round(w * 1e3, 1) for w in walls]} = {mpx / wall:.2f} Mpx/s "
@@ -1017,7 +1164,8 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
           f"{BATCH}-tile int8 forward; bf16 in this run: predict "
           f"{mpx / bf16_wall:.2f} Mpx/s, runner {mpx / bf16_fwd_ms * 1e3:.2f}"
           f" Mpx/s", flush=True)
-    return launches["conv3x3_s8_q"] + launches["conv3x3_s8"]
+    return {"conv3x3_s8": launches["conv3x3_s8_q"] + launches["conv3x3_s8"],
+            "siamese_fuse_s8": launches["siamese_fuse_s8"]}
 
 
 def int32_tensors(forward, x1, x2) -> tuple[dict, int]:
@@ -1185,16 +1333,16 @@ def main() -> int:
 
     # --- int8: the kernels, the microbench path, the int8 serve ---
     s8_rows, mm_row, within = check_int8_kernels()
+    fuse_rows = check_fuse_s8_kernel()
     launches["int8_matmul"] = int8_matmul_path()
-    launches["conv3x3_s8"] = int8_serving(cfg, d1, d2, more, wall, fwd_ms,
-                                          within)
+    launches.update(int8_serving(cfg, d1, d2, more, wall, fwd_ms, within))
     print(f"conv3x3_s8 per {BATCH}-tile int8 forward: "
           f"{sum(r['ms'] for r in s8_rows):.3f} ms over {len(s8_rows)} "
           f"fused launches, bound "
           f"{sum(max(r['t_ops'], r['t_bytes']) for r in s8_rows):.3f} ms; "
           f"unfused (raw launches + plain epilogue) "
           f"{sum(r['unfused_ms'] for r in s8_rows):.3f} ms", flush=True)
-    rows += s8_rows + [mm_row]
+    rows += s8_rows + [mm_row] + fuse_rows
 
     # --- the training path, then its kernel and cross checks ---
     with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:
@@ -1218,13 +1366,16 @@ def main() -> int:
             "fabric_tpu/ops/pallas_double_conv.py:190"),
         "fused_mul_relu": ("triton", "fabric_tpu_torch/ops/fused.py",
                            "fabric_tpu/ops/pallas_fused.py:53"),
-        "bn_relu_inference": ("triton", "fabric_tpu_torch/ops/bn_relu.py",
+        "bn_relu_inference": ("cuda", "fabric_tpu_torch/csrc/bn_relu.cu",
                               "fabric_tpu/ops/pallas_fused.py:77"),
         "int8_matmul": ("cuda", "fabric_tpu_torch/csrc/int8_matmul.cu",
                         "fabric_tpu/tools/ablate_train.py:373"),
         # replaces XLA's s8 conv conv_raw, the serving use of kernel 5
         "conv3x3_s8": ("cuda", "fabric_tpu_torch/csrc/conv3x3_s8.cu",
                        "fabric_tpu/infer/quant.py:176"),
+        # replaces XLA's fusion of fuse_q / f5 and the int8 pool
+        "siamese_fuse_s8": ("cuda", "fabric_tpu_torch/csrc/siamese_s8.cu",
+                            "fabric_tpu/infer/quant.py:336"),
     }
     kernels = []
     for name, (route, source, replaces) in sources.items():
@@ -1248,12 +1399,13 @@ def main() -> int:
           f"the kernel's launches in one forward: {BATCH} serving tiles at "
           f"patch {PATCH} for the conv and fusion kernels (launches: the "
           f"serve), {T_BATCH} eval tiles at patch {T_PATCH} in bf16 for "
-          f"bn_relu_inference (launches: the training run, {evals} eval "
-          f"forwards), one int8 forward of {BATCH} tiles for conv3x3_s8 "
-          "(its 18 fused sites; launches: the int8 serve; no PyTorch call "
-          "computes an int8 conv), the int8 form at 131072 x 512 x 512 "
-          "for int8_matmul "
-          "(library: torch._int_mm; launches: the microbench)")
+          f"bn_relu_inference (its conv-bias form; launches: the training "
+          f"run, {evals} eval forwards), one int8 forward of {BATCH} tiles "
+          "for conv3x3_s8 (its 18 fused sites; launches: the int8 serve; no "
+          "PyTorch call computes an int8 conv) and siamese_fuse_s8 (its 5 "
+          "levels; launches: the int8 serve; no single PyTorch call "
+          "computes it), the int8 form at 131072 x 512 x 512 for "
+          "int8_matmul (library: torch._int_mm; launches: the microbench)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cuda_error.cuh"
+
 namespace fabric {
 
 constexpr int kKB = 64;                  // bytes of K per staged chunk
@@ -673,7 +675,3 @@ __device__ __forceinline__ void store_shared(const float (&acc)[PN / 2],
 }
 
 }  // namespace fabric
-
-extern "C" const char* fabric_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -14,7 +14,10 @@ The quantization scheme is ``fabric_tpu``'s, step for step:
 - **Int8-resident encoder**: every encoder tensor stays int8 (max-pool
   commutes with symmetric quantization; each conv's epilogue requantizes),
   the Siamese fusion runs on the int8 values in int32 and requantizes the
-  skip operands f1..f4 to int8, and the decoder runs the split conv
+  skip operands f1..f4 to int8 (:func:`fabric_tpu_torch.ops.fuse_s8.
+  siamese_fuse_s8`, one pass per level that also pools the next level's
+  input: 5 launches per forward, no int32 tensor in device memory on the
+  card), and the decoder runs the split conv
   ``conv(skip, K_skip) + conv(up, K_up)`` without materialising the concat.
 
 Every conv site is one :func:`fabric_tpu_torch.ops.conv_s8.conv3x3_s8_q`:
@@ -38,7 +41,7 @@ import torch
 
 from fabric_tpu_torch.models.blocks import max_pool2x2
 from fabric_tpu_torch.ops import conv as conv_ops
-from fabric_tpu_torch.ops import conv_s8
+from fabric_tpu_torch.ops import conv_s8, fuse_s8
 from fabric_tpu_torch.ops import fused as fused_ops
 from fabric_tpu_torch.ops.conv_s8 import quantize as q
 from fabric_tpu_torch.ops.resize import pad_to_match, upsample2x_align_corners
@@ -305,25 +308,22 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
                   qu["packed"]))
         return site(h, f"{block}.conv2")
 
-    def fused_int32(a, n):
-        return torch.relu(a[n:].to(torch.int32) * a[:n].to(torch.int32))
-
     @torch.inference_mode()
     def forward(x_d1, x_d2):
-        n = x_d1.shape[0]
         x = torch.cat([x_d1, x_d2]).to(dtype)
         enc = [s[k] for k in ("inc.conv1", "down1.conv1", "down2.conv1",
                               "down3.conv1", "down4.conv1", "enc.x5")]
-        xs = [enc_dc(q(x, enc[0]), "inc", enc[1])]
+        x = enc_dc(q(x, enc[0]), "inc", enc[1])
+        # after each encoder level, one pass: the fusion relu(d2 * d1) of
+        # its int8 codes, requantized straight to int8 at f_k's scale (the
+        # decoder's skip), and the pooled input of the next level; f5
+        # dequantizes to the compute dtype for the upsample
+        f = []
         for k in range(1, 5):
-            xs.append(enc_dc(max_pool2x2(xs[-1]), f"down{k}", enc[k + 1]))
-        # the fusion relu(d2 * d1) in int32 on the int8 tensors; f1..f4 are
-        # requantized straight to int8 at their own scales, f5 dequantizes
-        # to the compute dtype for the upsample
-        f = [torch.clamp(torch.round(fused_int32(a, n).float()
-                                     * (sk * sk / s[f"f{k + 1}"])), 0, 127)
-             .to(torch.int8) for k, (a, sk) in enumerate(zip(xs, enc[1:5]))]
-        y = (fused_int32(xs[4], n).float() * (enc[5] * enc[5])).to(dtype)
+            fk, x = fuse_s8.siamese_fuse_s8(x, enc[k] * enc[k] / s[f"f{k}"])
+            f.append(fk)
+            x = enc_dc(x, f"down{k}", enc[k + 1])
+        y, _ = fuse_s8.siamese_fuse_s8(x, enc[5] * enc[5], dtype, pool=False)
         for k in range(1, 5):
             y = up_q(y, f[4 - k], f"up{k}")
         return _outc(folded, y)

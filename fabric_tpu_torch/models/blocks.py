@@ -14,11 +14,12 @@ path and run on the hand-written conv kernels, dispatched like
 double-conv kernel where its gate holds, otherwise two conv3x3 launches,
 both on the block's kernels packed once (``DoubleConv.packed_kernels``).
 Blocks with BatchNorm train (batch statistics, ``TorchBatchNorm``'s rules)
-or evaluate from running averages; in eval the BatchNorm + ReLU epilogue
-is the ``bn_relu_inference`` kernel (``ops/bn_relu.py``).  Their convs are
-``F.conv2d`` (cuDNN on the card): ``fabric_tpu`` computes them with XLA's
-``nn.Conv`` outside any Pallas kernel (``blocks.py:168-174``), a plain
-large product that stays a library call here, not an unported kernel.
+or evaluate from running averages; in eval the conv bias, BatchNorm and
+ReLU are one ``bn_relu_inference`` kernel launch (``ops/bn_relu.py``).
+Their convs are ``F.conv2d`` (cuDNN on the card): ``fabric_tpu`` computes
+them with XLA's ``nn.Conv`` outside any Pallas kernel
+(``blocks.py:168-174``), a plain large product that stays a library call
+here, not an unported kernel.
 """
 
 from __future__ import annotations
@@ -46,12 +47,16 @@ class Conv(nn.Module):
         self.kernel = _weight(size, size, cin, cout)
         self.bias = _weight(cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """SAME conv + bias in x's dtype (flax ``nn.Conv(dtype=...)``)."""
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """SAME conv in x's dtype, NHWC, without the bias."""
         y = F.conv2d(x.permute(0, 3, 1, 2),
                      self.kernel.to(x.dtype).permute(3, 2, 0, 1),
                      padding=self.kernel.shape[0] // 2)
-        return y.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
+        return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """SAME conv + bias in x's dtype (flax ``nn.Conv(dtype=...)``)."""
+        return self.conv(x) + self.bias.to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -85,10 +90,13 @@ class BatchNorm(nn.Module):
         inv = (var + self.eps) ** -0.5
         return (xf - mean) * (inv * self.scale) + self.bias
 
-    def relu_eval(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval BatchNorm + ReLU, rounded to x's dtype (the kernel)."""
+    def relu_eval(self, x: torch.Tensor,
+                  conv_bias: torch.Tensor | None = None) -> torch.Tensor:
+        """Eval BatchNorm + ReLU of x (plus ``conv_bias``, rounded to x's
+        dtype first), rounded to x's dtype (the kernel)."""
         return bn_relu_ops.bn_relu_inference(x, self.scale, self.bias,
-                                             self.mean, self.var, self.eps)
+                                             self.mean, self.var, self.eps,
+                                             conv_bias)
 
 
 class DoubleConv(nn.Module):
@@ -134,8 +142,13 @@ class DoubleConv(nn.Module):
             x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias, p1)
             return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias, p2)
         for c, bn in ((c1, self.bn1), (c2, self.bn2)):
-            y = c(x)
-            x = torch.relu(bn(y)).to(x.dtype) if train else bn.relu_eval(y)
+            if train:
+                x = torch.relu(bn(c(x))).to(x.dtype)
+            else:
+                # the conv bias rides in the kernel's prologue; the conv's
+                # NHWC output is contiguous (a channels-last cuDNN result
+                # permuted back), as the kernel requires
+                x = bn.relu_eval(c.conv(x), c.bias)
         return x
 
 

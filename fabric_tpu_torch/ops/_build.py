@@ -10,6 +10,7 @@ raises with the compiler's output.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -18,16 +19,19 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("conv3x3_bias_relu", "double_conv3x3_bias_relu", "int8_matmul",
-           "conv3x3_s8")
+           "conv3x3_s8", "bn_relu", "siamese_s8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the int8 conv's epilogue rounds as its plain PyTorch version: no float
-# multiply-add is contracted but the ones it spells out (__fmaf_rn)
-EXTRA_FLAGS = {"conv3x3_s8": ("-fmad=false",)}
+# these kernels round as their plain PyTorch versions: no float
+# multiply-add is contracted but the ones they spell out (__fmaf_rn)
+EXTRA_FLAGS = {name: ("-fmad=false",)
+               for name in ("conv3x3_s8", "bn_relu", "siamese_s8")}
 
 _lock = threading.Lock()
 
@@ -99,3 +103,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         fn.restype = ctypes.c_char_p
         raise RuntimeError(f"{what} failed: CUDA error {err} "
                            f"({fn(err).decode()})")
+
+
+def on_device(index: int):
+    """A context in which CUDA device ``index`` is current: a no-op where
+    it already is, the common case, which then costs the host nothing."""
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``index``
+    (what ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    making a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -195,11 +195,11 @@ def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
     b = bias.float().contiguous()
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.get_device()):
         err = lib.fabric_conv3x3_bias_relu(
             x.data_ptr(), packed.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
             w, cin, cout, _round_up(cin, 16), n_tile(cout), tw, tr, ni,
-            STAGES, torch.cuda.current_stream(x.device).cuda_stream)
+            STAGES, _build.raw_stream(x.get_device()))
     _build.check(lib, err, "conv3x3_bias_relu")
     conv3x3_bias_relu.launches += 1
     return y

@@ -209,12 +209,12 @@ def _launch(mode: str, x, wq, packed, out_dtype, scale=None, bias=None,
     y = torch.empty((n, h, w, cout), dtype=out_dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.get_device()):
         err = lib.fabric_conv3x3_s8(
             x.data_ptr(), packed.data_ptr(), cin, ptr(x2), ptr(w2), cin2,
             ptr(scale), ptr(k2), ptr(bias), inv_s, y.data_ptr(), n, h, w,
             cout, p.pn, p.tw, p.tr, p.ni, STAGES, _MODES[mode],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _build.raw_stream(x.get_device()))
     _build.check(lib, err, "conv3x3_s8")
     return y
 

@@ -128,13 +128,13 @@ def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.get_device()):
         err = lib.fabric_double_conv3x3_bias_relu(
             x.data_ptr(), w1pk.data_ptr(), b1f.data_ptr(), w2pk.data_ptr(),
             b2f.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
             _round_up(cin, 16), n_tile(cmid), n_tile(cout), p.tw, p.tr, p.ni,
             p.group, int(p.split_n), p.stages,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _build.raw_stream(x.get_device()))
     _build.check(lib, err, "double_conv3x3_bias_relu")
     double_conv3x3_bias_relu.launches += 1
     return y

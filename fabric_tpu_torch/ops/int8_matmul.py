@@ -97,12 +97,12 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bpk = pack_b(b)
     c = torch.empty((m, n), dtype=_TYPES[a.dtype], device=a.device)
     lib = _lib()
-    with torch.cuda.device(a.device):
+    with _build.on_device(a.get_device()):
         err = lib.fabric_int8_matmul(
             a.data_ptr(), bpk.data_ptr(), c.data_ptr(), m, k, n,
             kpad(k, a.element_size()), conv_ops.n_tile(n), STAGES,
             int(a.dtype == torch.int8),
-            torch.cuda.current_stream(a.device).cuda_stream)
+            _build.raw_stream(a.get_device()))
     _build.check(lib, err, "int8_matmul")
     int8_matmul.launches += 1
     return c

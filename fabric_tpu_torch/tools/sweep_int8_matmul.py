@@ -35,7 +35,9 @@ VARIANTS = [(128, 5, 1, 4), (128, 2, 2, 4), (128, 3, 1, 4), (128, 4, 1, 4),
 
 def _build_variants(variants, out_dir):
     src = open(os.path.join(_build.CSRC, "int8_matmul.cu")).read()
-    shutil.copy(os.path.join(_build.CSRC, "conv_tile.cuh"), out_dir)
+    for header in os.listdir(_build.CSRC):
+        if header.endswith(".cuh"):
+            shutil.copy(os.path.join(_build.CSRC, header), out_dir)
     procs = []
     for i, (kb, abuf, blocks, _) in enumerate(variants):
         s = src

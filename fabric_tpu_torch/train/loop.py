@@ -59,9 +59,11 @@ def _check_ported(cfg) -> None:
     if cfg.compat_reference:
         raise _not_ported("compat_reference (the python-random augmentation "
                           "stream and the ragged final batch)", "5")
-    for flag in ("remat", "lane_pack", "lane_pack_bwd", "local_upsample"):
+    items = {"remat": "5", "lane_pack": "12", "lane_pack_bwd": "12",
+             "local_upsample": "9"}
+    for flag, item in items.items():
         if getattr(cfg, flag):
-            raise _not_ported(flag, "12" if flag.startswith("lane") else "9")
+            raise _not_ported(flag, item)
     if cfg.profile_dir:
         raise _not_ported("profile_dir", "12 (profiling)")
     if cfg.output_store:

@@ -39,7 +39,12 @@ DOUBLE_SHAPES = [(2, 8, 8, 16, 32, 32), (1, 12, 20, 8, 8, 16),
                  (7, 8, 8, 64, 200, 136)]
 FUSED_SHAPES = [(2, 17, 23, 64), (3, 7, 11, 5), (256, 64, 64, 64)]
 BN_SHAPES = [(2, 9, 9, 32), (3, 5, 7, 24), (256, 96, 96, 64),
-             (128, 12, 12, 256), (256, 6, 6, 512), (1, 3, 3, 13)]
+             (128, 12, 12, 256), (256, 6, 6, 512), (1, 3, 3, 8)]
+# (2n, H, W, C) of siamese_fuse_s8: the 5 levels of an int8 forward
+# (patch 64), N cut, then odd H and W, 1x1 images, C 16 and 48
+FUSE_SHAPES = [(8, 64, 64, 64), (8, 32, 32, 128), (8, 16, 16, 256),
+               (8, 8, 8, 512), (8, 4, 4, 512), (2, 7, 9, 16), (4, 1, 1, 32),
+               (6, 5, 12, 48), (2, 3, 1, 16), (600, 4, 4, 64)]
 
 
 def _conv_case(seed, n, h, w, cin, cout):
@@ -190,6 +195,49 @@ def test_bn_relu_kernel_matches_plain(card, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_relu_kernel_with_conv_bias_matches_plain(card, shape, dtype):
+    """The conv-bias form (the unfolded eval forward's): one launch, and
+    the tolerance of the form without it, the bias add rounded to x's
+    dtype on both sides first."""
+    g = torch.Generator().manual_seed(4)
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=g) * 2).to(card, dtype)
+    scale, bias, mean, cb = (torch.randn(c, generator=g).to(card)
+                             for _ in range(4))
+    var = (torch.rand(c, generator=g) + 0.1).to(card)
+    before = bn_relu.bn_relu_inference.launches
+    got = bn_relu.bn_relu_inference(x, scale, bias, mean, var, 1e-5, cb)
+    torch.cuda.synchronize()
+    assert bn_relu.bn_relu_inference.launches == before + 1
+    ref = bn_relu.bn_relu_inference_reference(x, scale, bias, mean, var,
+                                              1e-5, cb)
+    assert got.dtype == dtype and got.shape == x.shape
+    z = (x + cb.to(dtype)).float()
+    s, t = bn_relu._scale_shift(scale, bias, mean, var, 1e-5)
+    tol = 2.0 ** -22 * (z.abs() * s.abs() + t.abs())
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * torch.maximum(got.float().abs(), ref.float().abs())
+    assert ((got.float() - ref.float()).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_eval_conv_output_is_contiguous(card, dtype):
+    """The unfolded eval forward hands Conv.conv's output (cuDNN's
+    channels-last result, permuted back to NHWC) to the eval-BatchNorm
+    kernel, which takes only a contiguous tensor."""
+    from fabric_tpu_torch.models.blocks import Conv
+    for n, h, w, cin, cout in [(4, 96, 96, 13, 64), (4, 12, 12, 256, 512),
+                               (4, 6, 6, 512, 512), (3, 1, 1, 64, 64),
+                               (2, 24, 24, 1024, 256)]:
+        conv = Conv(cin, cout).to(card)
+        x = torch.randn(n, h, w, cin, device=card).to(dtype)
+        assert conv.conv(x).is_contiguous(), (n, h, w, cin, cout)
+
+
+@pytest.mark.cuda
 def test_bn_relu_refuses_what_it_does_not_take(card):
     x = torch.zeros(1, 4, 4, 8, device=card)
     v = torch.ones(8, device=card)
@@ -201,6 +249,73 @@ def test_bn_relu_refuses_what_it_does_not_take(card):
         bn_relu.bn_relu_inference(x, v[:4], v, v, v)
     with pytest.raises(RuntimeError, match="no backward"):
         bn_relu.bn_relu_inference(x, v.clone().requires_grad_(), v, v, v)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bn_relu.bn_relu_inference(torch.zeros(1, 4, 4, 12, device=card),
+                                  *(torch.ones(12, device=card),) * 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bn_relu.bn_relu_inference(x, v, v.cpu(), v, v)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bn_relu.bn_relu_inference(x, v, v, v, v, 1e-5, v.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        bn_relu.bn_relu_inference(x, v, v, v, v, 1e-5, v.double())
+    with pytest.raises(ValueError, match="aligned"):
+        bn_relu.bn_relu_inference(
+            torch.zeros(8 * 16 + 2, device=card)[2:].view(1, 4, 4, 8),
+            v, v, v, v)
+
+
+def _fuse_case(rng, card, n2, h, w, c):
+    return torch.from_numpy(rng.randint(-128, 128, (n2, h, w, c)).astype(
+        np.int8)).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out,pool", [(torch.int8, True),
+                                      (torch.bfloat16, False),
+                                      (torch.bfloat16, True),
+                                      (torch.float32, True),
+                                      (torch.int8, False)])
+@pytest.mark.parametrize("n2,h,w,c", FUSE_SHAPES)
+def test_siamese_fuse_s8_kernel_matches_plain_exactly(card, n2, h, w, c, out,
+                                                      pool):
+    """One launch, bit-equal to the plain version (exact products, one
+    float32 multiply by the same float32 m, the same rounding), at a scale
+    that lands on .5 ties and clips codes at 127 and at one that does
+    not."""
+    from fabric_tpu_torch.ops import fuse_s8
+    rng = np.random.RandomState(n2 * h + w + c)
+    a = _fuse_case(rng, card, n2, h, w, c)
+    for m in (1.0 / 64, 3.1 * 3.1 / 127 / 5.3):
+        before = fuse_s8.siamese_fuse_s8.launches
+        f, p = fuse_s8.siamese_fuse_s8(a, m, out, pool)
+        torch.cuda.synchronize()
+        assert fuse_s8.siamese_fuse_s8.launches == before + 1
+        rf, rp = fuse_s8.siamese_fuse_s8_reference(a, m, out, pool)
+        assert f.dtype == out and f.shape == (n2 // 2, h, w, c)
+        assert torch.equal(f, rf)
+        assert (p is None) == (not pool)
+        if pool:
+            assert p.shape == (n2, h // 2, w // 2, c) and torch.equal(p, rp)
+
+
+@pytest.mark.cuda
+def test_siamese_fuse_s8_refuses_what_it_does_not_take(card):
+    from fabric_tpu_torch.ops import fuse_s8
+    a = torch.zeros(2, 4, 4, 16, dtype=torch.int8, device=card)
+    with pytest.raises(TypeError):
+        fuse_s8.siamese_fuse_s8(a.float(), 0.5)
+    with pytest.raises(TypeError):
+        fuse_s8.siamese_fuse_s8(a, 0.5, torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fuse_s8.siamese_fuse_s8(a.permute(0, 2, 1, 3), 0.5)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fuse_s8.siamese_fuse_s8(a[..., :8].contiguous(), 0.5)
+    with pytest.raises(ValueError, match="2n"):
+        fuse_s8.siamese_fuse_s8(a[:1], 0.5)
+    with pytest.raises(ValueError, match="aligned"):
+        fuse_s8.siamese_fuse_s8(torch.zeros(
+            2 * 4 * 4 * 16 + 8, dtype=torch.int8,
+            device=card)[8:].view(2, 4, 4, 16), 0.5)
 
 
 @pytest.mark.cuda
@@ -476,25 +591,27 @@ def test_int8_serving_equals_its_plain_forward_on_card(card):
     from fabric_tpu_torch import Config
     from fabric_tpu_torch.infer.device_tiling import make_scene_infer
     from fabric_tpu_torch.infer.service import ScenePredictor
-    from fabric_tpu_torch.ops import conv_s8
+    from fabric_tpu_torch.ops import conv_s8, fuse_s8
     rng = np.random.RandomState(5)
     d1, d2 = (rng.randn(96, 128, 13).astype(np.float32) for _ in range(2))
     cfg = Config(patch_size=32, eval_batch_size=12, model_base=16)
     pred = ScenePredictor(cfg, bucket=0, device=card, quant="int8")
     pred.predict(d1, d2)  # calibrates
-    before = (conv_s8.conv3x3_s8_q.launches, conv_s8.conv3x3_s8.launches)
+    counters = (conv_s8.conv3x3_s8_q, conv_s8.conv3x3_s8,
+                fuse_s8.siamese_fuse_s8)
+    before = [fn.launches for fn in counters]
     mask = pred.predict(d1, d2)
     # 12 tiles, 1 chunk
-    assert (conv_s8.conv3x3_s8_q.launches,
-            conv_s8.conv3x3_s8.launches) == (before[0] + 18, before[1])
-    kernel = conv_s8.conv3x3_s8_q
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [18, 0, 5]
+    kernel, fusion = conv_s8.conv3x3_s8_q, fuse_s8.siamese_fuse_s8
     conv_s8.conv3x3_s8_q = lambda x, wq, k, b, s_out=None, packed=None, \
         up=None, dtype=torch.bfloat16: conv_s8.conv3x3_s8_q_reference(
             x, wq, k, b, s_out, up, dtype)
+    fuse_s8.siamese_fuse_s8 = fuse_s8.siamese_fuse_s8_reference
     try:
         plain = make_scene_infer(pred._forward, 32, (96, 128),
                                  batch_size=12)(
             *(torch.from_numpy(d).to(card) for d in (d1, d2)))
     finally:
-        conv_s8.conv3x3_s8_q = kernel
+        conv_s8.conv3x3_s8_q, fuse_s8.siamese_fuse_s8 = kernel, fusion
     np.testing.assert_array_equal(mask, plain.cpu().numpy())

@@ -53,3 +53,12 @@ def test_chip_smoke_imports_no_jax_or_fabric_tpu():
             "fabric_tpu_torch.train.loop"} <= set(mods)
     assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert _loaded_after(mods + ["chip_smoke"]) == []
+
+
+def test_cuda_kernel_wrappers_import_no_triton():
+    """The eval-BatchNorm and int8-fusion wrappers launch CUDA kernels
+    built by nvcc: neither imports triton, at any level."""
+    for name in ("bn_relu", "fuse_s8"):
+        path = os.path.join(REPO, "fabric_tpu_torch", "ops", f"{name}.py")
+        assert not [m for m in _modules_imported_by(path)
+                    if m.split(".")[0] == "triton"], name

@@ -305,6 +305,16 @@ def test_unported_options_raise(kw, tmp_path):
                        metadata=([], []))
 
 
+@pytest.mark.parametrize("flag,item", [
+    ("remat", "5"), ("lane_pack", "12"), ("local_upsample", "9")])
+def test_unported_flag_names_its_roadmap_item(flag, item, tmp_path):
+    cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
+                 **{flag: True})
+    with pytest.raises(NotImplementedError,
+                       match=f"^{flag} is not ported .* queue 1 item {item}$"):
+        loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
+
+
 def test_infer_city_matches_fabric_tpu(data_root):
     """The port's runner (device tiler, unfolded eval forward) against
     fabric_tpu's infer_city (host tiler, jitted eval step) on a synthetic

@@ -305,6 +305,28 @@ def test_bn_relu_plain_matches_pallas_interpret(dtype):
     assert (np.abs(got - want) <= 2 * 2.0 ** -7 * scale).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_relu_conv_bias_plain_matches_conv_then_bn(dtype):
+    """The conv-bias form, as the unfolded eval forward calls it (the conv
+    without its bias, then the bias in the kernel's prologue), is
+    bit-equal to Conv.forward followed by the form without it."""
+    from fabric_tpu_torch.models.blocks import Conv
+    x, vecs = _bn_inputs(dtype)
+    rng = np.random.RandomState(4)
+    conv = Conv(32, 32)
+    with torch.no_grad():
+        conv.kernel.copy_(torch.from_numpy(rng.randn(3, 3, 32, 32) * 0.1))
+        conv.bias.copy_(torch.from_numpy(rng.randn(32) * 0.5))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tvecs = list(map(torch.from_numpy, vecs))
+    want = bn_relu.bn_relu_inference_reference(conv(tx), *tvecs)
+    got = bn_relu.bn_relu_inference_reference(conv.conv(tx), *tvecs,
+                                              conv_bias=conv.bias)
+    assert got.dtype == tx.dtype and torch.equal(got, want)
+    assert torch.equal(bn_relu.bn_relu_inference(  # the CPU wrapper
+        conv.conv(tx), *tvecs, conv_bias=conv.bias), want)
+
+
 def test_fused_function_gradients_equal_autograd():
     rng = np.random.RandomState(3)
     a0, b0 = (torch.from_numpy(rng.randn(2, 5, 7, 8).astype(np.float32))
