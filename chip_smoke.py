@@ -42,7 +42,17 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   one fp32 train step on the card against the same step on the CPU, and
   serves the trained checkpoint folded (conv kernels) and unfolded
   (eval-BatchNorm kernel) on the validation city, and runs
-  ``tools.validate_int8`` on it (its own gates decide).
+  ``tools.validate_int8`` on it (its own gates decide);
+- the rest of the training path: the loop's batches from the prefetch
+  thread and from N worker processes (N from ``os.cpu_count()``), the
+  first 3 hashed and compared, each source timed alone and with the
+  train step, and one batch's H2D copy; one train step with and without
+  ``remat`` (gradients within a stated bound, BatchNorm statistics
+  equal, peak memory), four micro steps at ``grad_accum_steps=2``; a
+  short run mirrored to a ``file://`` ``output_store`` and resumed from
+  the store URI bit-exactly; and ``cli.evaluate`` on the training run's
+  best checkpoint, its dataset given as a ``.tar.gz``, which must
+  reproduce the loop's validation metrics for that checkpoint.
 
 Prints the card, each check, per-kernel times beside their bound and a
 library yardstick, the serving rate and the training rate, a JSON
@@ -53,8 +63,10 @@ Any failed check exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -798,6 +810,7 @@ def report_training(cfg, state, history, records, smi, model):
     if history["status"] != "complete" or not np.isfinite(losses).all() \
             or not losses[-1] < losses[0]:
         fail("training did not complete with a falling, finite loss")
+    return step
 
 
 def profile_runner(run, a1, a2, label: str, top: int = 8) -> None:
@@ -1207,6 +1220,320 @@ def validate_phase(cfg):
              "checkpoint (agreement < 0.95 or F1 drop > 0.01)")
 
 
+def _digest(batch) -> str:
+    """sha256 over a batch's keys and bytes, on the host."""
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(batch[k].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def loader_phase(cfg, state, step, smi):
+    """The last epoch's batches as the loop draws them, from the prefetch
+    thread (num_workers 0) and from N worker processes: the first 3
+    batches of each hashed and compared, then ms per batch of the source
+    alone (host clock, after the first batch, which carries the workers'
+    start) and with the train step, and the H2D copy of one pinned batch
+    alone (CUDA events).  Returns {workers: ms alone}."""
+    from fabric_tpu_torch.data.oscd import full_load, get_train_val_metadata
+    from fabric_tpu_torch.train.loop import EpochBatches
+
+    n_workers = max(1, (os.cpu_count() or 2) - 1)
+    shm = shutil.disk_usage("/dev/shm")
+    batch_mb = T_BATCH * T_PATCH ** 2 * 13 * 2 * 4 / 1e6
+    print(f"loader: os.cpu_count() {os.cpu_count()}, N = {n_workers} "
+          f"workers; /dev/shm {shm.total / 1e9:.1f} GB ({shm.free / 1e9:.1f} "
+          f"GB free), {batch_mb:.0f} MB of images a batch in flight",
+          flush=True)
+    data = full_load(cfg.dataset_dir, cfg, max_workers=cfg.num_workers or None)
+    train_md, _ = get_train_val_metadata(
+        cfg.dataset_dir, cfg.validation_cities, cfg.patch_size, cfg.stride)
+    epoch = T_EPOCHS - 1
+    digests, alone = {}, {}
+    for workers in (0, n_workers):
+        c = type(cfg).from_dict({**cfg.to_dict(), "num_workers": workers})
+        source = EpochBatches(c, data, train_md, [], "cuda")
+        try:
+            t0 = time.perf_counter()
+            it = source.train(epoch)
+            first = [next(it) for _ in range(3)]
+            first_s = time.perf_counter() - t0
+            it.close()
+            digests[workers] = [_digest(b) for b in first]
+
+            def ms_per_batch(consume) -> float:
+                it = source.train(epoch)
+                consume(next(it))
+                torch.cuda.synchronize()
+                t0, n = time.perf_counter(), 0
+                for batch in it:
+                    consume(batch)
+                    n += 1
+                torch.cuda.synchronize()
+                return 1e3 * (time.perf_counter() - t0) / n
+            alone[workers] = ms_per_batch(lambda b: None)
+            with_step = ms_per_batch(lambda b: step(state, b))
+        finally:
+            source.close()
+        print(f"loader, {workers} workers ({'thread' if not workers else 'processes'}; "
+              f"{smi}): first 3 batches in {first_s:.2f} s; source alone "
+              f"{alone[workers]:.1f} ms a batch = "
+              f"{1e3 * T_BATCH / alone[workers]:.1f} examples/s; with the "
+              f"train step {with_step:.1f} ms a step = "
+              f"{1e3 * T_BATCH / with_step:.1f} train examples/s", flush=True)
+    same = digests[0] == digests[n_workers]
+    print(f"loader: first 3 batches, thread vs {n_workers} workers: sha256 "
+          f"{'equal' if same else 'DIFFERENT'} ({digests[0][0][:16]}..., "
+          f"{digests[0][1][:16]}..., {digests[0][2][:16]}...)", flush=True)
+    if not same:
+        fail("the worker processes' batches differ from the thread's")
+    pinned = {k: v.cpu().pin_memory() for k, v in first[0].items()}
+    h2d_ms = device_ms(lambda: {k: v.to("cuda", non_blocking=True)
+                                for k, v in pinned.items()}, 5)
+    nbytes = sum(v.numel() * v.element_size() for v in pinned.values())
+    print(f"loader: H2D copy of one pinned batch ({nbytes / 1e6:.1f} MB) "
+          f"{h2d_ms:.2f} ms = {nbytes / h2d_ms / 1e6:.1f} GB/s (CUDA "
+          f"events, {smi})", flush=True)
+    return alone
+
+
+def _step_batch(seed: int):
+    rng = np.random.RandomState(seed)
+    img1 = rng.randn(T_BATCH, T_PATCH, T_PATCH, 13).astype(np.float32)
+    label = (rng.rand(T_BATCH, T_PATCH, T_PATCH) < 0.3).astype(np.int32)
+    img2 = img1 + 0.3 * rng.randn(*img1.shape).astype(np.float32)
+    img2[label == 1] += 1.5
+    return {k: torch.from_numpy(v).cuda() for k, v in (
+        ("img1", img1), ("img2", img2), ("label", label),
+        ("weight", np.ones(T_BATCH, np.float32)))}
+
+
+def remat_accum_phase(smi):
+    """At full width, patch 96, batch 128, bf16: one train forward and
+    backward with remat off and on from the same weights and batch
+    (gradients, BatchNorm running statistics, peak memory, time), then
+    four micro steps of the train step at grad_accum_steps=2 with remat:
+    the parameters hold still after micro steps 1 and 3 and move after 2
+    and 4; the fused kernel's launches are counted."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.ops import bn_relu, fused
+    from fabric_tpu_torch.train.state import create_state
+    from fabric_tpu_torch.train.steps import make_train_step
+    from fabric_tpu_torch.weights import init_variables
+
+    variables = init_variables(13, 2, BASE,
+                               torch.Generator().manual_seed(SEED + 2))
+    batch = _step_batch(SEED + 2)
+    out = {}
+    for remat in (False, True):
+        cfg = Config(model_base=BASE, patch_size=T_PATCH,
+                     batch_size=T_BATCH, dtype="bfloat16", remat=remat,
+                     loss_function="tversky")
+        model = build_model(cfg, "cuda", fold_bn=False, variables=variables,
+                            train=True)
+        loss_fn = get_loss_fn(cfg)
+
+        def fwd_bwd():
+            for p in model.parameters():
+                p.grad = None
+            loss = loss_fn(model(batch["img1"], batch["img2"], train=True),
+                           batch["label"])
+            loss.backward()
+            return loss
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        loss = fwd_bwd()
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        stats = {n: b.clone() for n, b in model.named_buffers()}
+        ms = device_ms(fwd_bwd, 3)
+        out[remat] = (loss.item(), grads, stats, peak_mb, base_mb, ms)
+        del model
+    (l0, g0, s0, p0, b0, t0), (l1, g1, s1, p1, b1, t1) = (out[False],
+                                                          out[True])
+    # the biases of the convs before a train-mode BatchNorm have zero
+    # gradient analytically: theirs is rounding noise, so each gradient is
+    # measured against the larger of its own largest component and a
+    # tenth of the model's largest
+    top = max(g.abs().max().item() for g in g0.values())
+    rels = {k: (g1[k] - g0[k]).abs().max().item()
+            / max(g0[k].abs().max().item(), 0.1 * top) for k in g0}
+    worst = max(rels, key=rels.get)
+    rel = rels[worst]
+    stats_equal = all(torch.equal(s0[k], s1[k]) for k in s0)
+    # cuDNN's weight-gradient kernels may sum in another order from run
+    # to run; bound: each gradient within 2e-2 of its scale above (a few
+    # bf16 roundings), the loss equal, the statistics bit-equal
+    ok = rel <= 2e-2 and l0 == l1 and stats_equal
+    print(f"remat ({smi}): train forward + backward, full width, batch "
+          f"{T_BATCH} at patch {T_PATCH}, bf16: loss {l0:.6f} vs {l1:.6f}; "
+          f"gradients' largest relative difference {rel:.3g} at {worst} "
+          f"(bound 2e-2 of each tensor's scale); BatchNorm running "
+          f"statistics {'equal' if stats_equal else 'DIFFERENT'}; peak "
+          f"memory {p0:.0f} MiB without, {p1:.0f} MiB with remat (model "
+          f"and batch {b0:.0f} MiB; activations {p0 - b0:.0f} vs "
+          f"{p1 - b1:.0f} MiB); {t0:.1f} vs {t1:.1f} ms (CUDA events)",
+          flush=True)
+    if not ok:
+        fail("remat changes the train step")
+
+    cfg = Config(model_base=BASE, patch_size=T_PATCH, batch_size=T_BATCH,
+                 dtype="bfloat16", remat=True, grad_accum_steps=2,
+                 learning_rate=0.05, loss_function="tversky")
+    model = build_model(cfg, "cuda", fold_bn=False, variables=variables,
+                        train=True)
+    state = create_state(cfg, model)
+    step = make_train_step(model, get_loss_fn(cfg))
+    batches = [batch, _step_batch(SEED + 3)]
+    for fn in (fused.fused_mul_relu, bn_relu.bn_relu_inference):
+        fn.launches = 0
+    moved = []
+    for micro in range(4):
+        before = [p.detach().clone() for p in model.parameters()]
+        step(state, batches[micro % 2])
+        moved.append(not all(torch.equal(b, p.detach()) for b, p in
+                             zip(before, model.parameters())))
+    torch.cuda.synchronize()
+    launches = {"fused_mul_relu": fused.fused_mul_relu.launches,
+                "bn_relu_inference": bn_relu.bn_relu_inference.launches}
+    expected = {"fused_mul_relu": 4 * 5, "bn_relu_inference": 0}
+    print(f"grad_accum_steps=2 with remat, 4 micro steps: parameters moved "
+          f"{moved} (expected [False, True, False, True]); step "
+          f"{state.step}, optimizer updates {state.tx.gradient_step}; "
+          f"kernels launched {launches} (expected {expected})", flush=True)
+    if moved != [False, True, False, True] or launches != expected \
+            or state.tx.gradient_step != 2:
+        fail("gradient accumulation did not update every second step")
+    return launches
+
+
+def store_phase(cfg, root):
+    """A short run (2 epochs of 3 steps, a periodic save every 2) with
+    output_store=file://<root>/store, then a resume from the store URI:
+    the restored parameters, statistics and optimizer state equal the
+    local checkpoint's bit for bit, and the resumed run trains on."""
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.train.loop import train
+    from fabric_tpu_torch.train.state import create_state
+
+    store = f"file://{os.path.join(root, 'store')}"
+    c = type(cfg).from_dict({
+        **cfg.to_dict(), "weight_dir": os.path.join(root, "w_store"),
+        "log_dir": os.path.join(root, "l_store"), "epochs": 1,
+        "steps_per_epoch": 3, "checkpoint_every": 2, "output_store": store,
+        "resume": ""})
+    t0 = time.perf_counter()
+    state, history = train(c, run_scene_inference=False)
+    wall = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(root, "store")))
+    local = ckpt.read_payload(ckpt.latest_checkpoint(c.weight_dir))
+    r = type(cfg).from_dict({**c.to_dict(), "resume": store,
+                             "output_store": "", "epochs": 2,
+                             "weight_dir": os.path.join(root, "w_resume")})
+    restored = create_state(r, build_model(r, "cuda", fold_bn=False,
+                                           train=True))
+    restored, epoch, _ = ckpt.resume_if_requested(r, restored)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+    got = dict(leaves({"params": restored.variables()[0],
+                       "batch_stats": restored.variables()[1],
+                       "opt_state": restored.opt_state}))
+    want = dict(leaves({k: local[k] for k in ("params", "batch_stats",
+                                              "opt_state")}))
+    same = got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in want) and restored.step == local["step"]
+    state2, history2 = train(r, run_scene_inference=False)
+    print(f"store: {wall:.1f} s run mirrored {len(names)} entries to {store} "
+          f"({', '.join(n for n in names if n.endswith('.json'))}); resume "
+          f"from the store URI: epoch {epoch}, step {restored.step}, "
+          f"{len(got)} leaves {'bit-equal' if same else 'DIFFERENT'} to the "
+          f"local checkpoint; the resumed run ended at step {state2.step}",
+          flush=True)
+    if not (same and "tracker" in names and history["status"] ==
+            history2["status"] == "complete" and state2.step == 6):
+        fail("the store run or the resume from its URI went wrong")
+
+
+def evaluate_phase(cfg, root, smi):
+    """cli.evaluate's main on the training run's best checkpoint over the
+    validation city, the dataset given as a .tar.gz of the synthetic
+    cities (ensure_dataset extracts it): its patch metrics and scene F1
+    equal what the loop recorded with that checkpoint.  Returns the
+    kernel launches it made."""
+    import tarfile
+
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.cli.evaluate import main as evaluate_main
+    from fabric_tpu_torch.data.oscd import patch_grid
+    from fabric_tpu_torch.ops import bn_relu, fused
+
+    t0 = time.perf_counter()
+    archive = os.path.join(root, "cities.tar.gz")
+    with tarfile.open(archive, "w:gz", compresslevel=1) as tf:
+        tf.add(cfg.dataset_dir, arcname="onera")
+    tar_s = time.perf_counter() - t0
+    path = ckpt.read_pointer(cfg.weight_dir, "best")
+    epoch = int(path.rsplit("_", 1)[1].split(".")[0])
+    with open(os.path.join(cfg.weight_dir,
+                           f"metadata_epoch_{epoch}.json")) as fin:
+        recorded = json.load(fin)["validation_metrics"]
+    cfg_path = os.path.join(root, "eval_cfg.json")
+    with open(cfg_path, "w") as fout:
+        json.dump({**cfg.to_dict(),
+                   "dataset_dir": os.path.join(root, "eval_data"),
+                   "dataset_name": archive}, fout)
+    out = os.path.join(root, "eval.json")
+    for fn in (bn_relu.bn_relu_inference, fused.fused_mul_relu):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        rc = evaluate_main(["--config", cfg_path, "--resume", cfg.weight_dir,
+                            "--city", "val", "--output", out])
+    wall = time.perf_counter() - t0
+    launches = {"bn_relu_inference": bn_relu.bn_relu_inference.launches,
+                "fused_mul_relu": fused.fused_mul_relu.launches}
+    with open(out) as fin:
+        result = json.load(fin)
+    n_val = len(patch_grid(T_CITIES["val"], T_PATCH, cfg.stride))
+    tiles = 1
+    for side in T_CITIES["val"]:
+        tiles *= -(-side // T_PATCH)
+    forwards = min(T_STEPS, -(-n_val // T_BATCH)) + -(-tiles // T_BATCH)
+    expected = {"bn_relu_inference": 18 * forwards,
+                "fused_mul_relu": 5 * forwards}
+    keys = ("cd_losses", "cd_corrects", "cd_precisions", "cd_recalls",
+            "cd_f1scores", "global_precision", "global_recall", "global_f1",
+            "global_accuracy")
+    diff = {k: abs(result["patch"][k] - recorded[k]) for k in keys}
+    same = all(v == 0 for v in diff.values()) and \
+        result["scenes"]["val"]["f1"] == recorded["val_scene_f1"]
+    print(f"evaluate ({smi}): python -m fabric_tpu_torch.cli.evaluate's "
+          f"main on {os.path.basename(path)} over 'val' from a "
+          f"{os.path.getsize(archive) / 1e6:.0f} MB .tar.gz (written in "
+          f"{tar_s:.1f} s): rc {rc}, {wall:.1f} s wall (extraction, loading, "
+          f"{forwards} eval forwards); patch metrics vs the loop's "
+          f"validation metrics for that checkpoint: "
+          f"{'equal' if same else 'DIFFERENT ' + json.dumps(diff)} (cd_f1scores "
+          f"{result['patch']['cd_f1scores']:.6f}, scene F1 "
+          f"{result['scenes']['val']['f1']:.6f}); kernels launched "
+          f"{launches} (expected {expected})", flush=True)
+    if rc != 0 or not same or launches != expected:
+        fail("cli.evaluate disagrees with the loop or missed the kernels")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1352,8 +1679,12 @@ def main() -> int:
         check_fused_grad()
         card_vs_cpu_step()
         model = cross_check_serving(cfg_t)
-        report_training(cfg_t, state, history, records, smi, model)
+        step = report_training(cfg_t, state, history, records, smi, model)
         validate_phase(cfg_t)
+        loader_phase(cfg_t, state, step, smi)
+        remat_accum_phase(smi)
+        store_phase(cfg_t, root)
+        evaluate_phase(cfg_t, root, smi)
     rows += bn_rows
     launches["bn_relu_inference"] = t_launches["bn_relu_inference"]
 
@@ -1412,5 +1743,15 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """main(), then the loaders' forkserver and resource tracker stopped
+    and waited for, so that no process outlives the script."""
+    try:
+        return main()
+    finally:
+        if "fabric_tpu_torch.data.loader" in sys.modules:
+            sys.modules["fabric_tpu_torch.data.loader"].stop_worker_server()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -207,15 +207,16 @@ def restore(state, path: str):
 
 def resume_if_requested(cfg, state):
     """Honour ``cfg.resume``: "" -> fresh; a file -> load it; a directory
-    -> load its latest save.  Returns (state, resumed epoch, metadata);
+    -> load its latest save; a store URI (``file://``, ``gs://``) of
+    either -> fetch it into ``<weight_dir>/.resume_cache`` first
+    (``store.fetch_resume``).  Returns (state, resumed epoch, metadata);
     the epoch is -1 and the metadata {} when nothing was loaded."""
     target = getattr(cfg, "resume", "")
     if not target:
         return state, -1, {}
-    if "://" in target:
-        raise NotImplementedError(
-            f"resume from {target!r}: remote stores are not ported to "
-            "fabric_tpu_torch yet: ROADMAP.md queue 1 item 5")
+    from fabric_tpu_torch.store import fetch_resume
+    target = fetch_resume(target, os.path.join(cfg.weight_dir,
+                                               ".resume_cache"))
     path = target
     if os.path.isdir(target):
         path = latest_checkpoint(target)

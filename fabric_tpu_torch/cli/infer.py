@@ -58,14 +58,14 @@ def main(argv=None) -> int:
                 f"queue 1 item {item}")
 
     from fabric_tpu_torch.config import load_config
-    from fabric_tpu_torch.data.oscd import require_layout
+    from fabric_tpu_torch.data.download import ensure_dataset
     from fabric_tpu_torch.track import Tracker
 
     cfg = load_config(argv=rest)
     if not cfg.resume:
         print("error: --resume <checkpoint> is required", file=sys.stderr)
         return 2
-    cfg.dataset_dir = require_layout(cfg.dataset_dir)
+    cfg.dataset_dir = ensure_dataset(cfg)
     tracker = None
     if not own.no_tracker:
         tracker = Tracker(cfg.log_dir, project="serve")

@@ -20,30 +20,6 @@ from fabric_tpu_torch.data.geotiff import read_band
 from fabric_tpu_torch.data.image import read_png_gray, resize_bilinear
 
 
-def resolve_layout(root: str) -> str | None:
-    """The directory holding labels/ under ``root`` (root itself or its one
-    real subdirectory), or None."""
-    if not os.path.isdir(root):
-        return None
-    if os.path.isdir(os.path.join(root, "labels")):
-        return root
-    found = [e for e in os.listdir(root) if not e.startswith((".", "_"))
-             and os.path.isdir(os.path.join(root, e, "labels"))]
-    return os.path.join(root, found[0]) if len(found) == 1 else None
-
-
-def require_layout(root: str) -> str:
-    """:func:`resolve_layout`, raising where ``root`` holds no OSCD layout
-    (fetching or extracting a dataset archive is not ported)."""
-    resolved = resolve_layout(root)
-    if resolved is None:
-        raise NotImplementedError(
-            f"dataset_dir {root!r} holds no OSCD layout (labels/, images/); "
-            "fetching or extracting a dataset archive is not ported to "
-            "fabric_tpu_torch yet: ROADMAP.md queue 1 item 5")
-    return resolved
-
-
 def list_cities(data_dir: str) -> list[str]:
     """Sorted city names under labels/."""
     root = os.path.join(data_dir, "labels")

@@ -3,11 +3,20 @@
 
 - ``PatchSampler`` crops (2, ps, ps, 13) windows from the in-memory
   dataset and augments them (rot90 by k in 0..3, independent H/V flips).
+  With ``compat_aug_stream`` (a ``random.Random``) the augmentation draws
+  come from that one sequential stream in the reference's order
+  (``randint(0, 3)``, then two ``random() > 0.5``), as
+  ``compat_reference`` training takes them.
 - ``batch_iterator`` yields fixed-shape numpy batches: the shuffled order
   is wrap-padded to whole batches (train) or padded with weight-0 rows
-  (eval, ``pad_mode="mask"``).  Each row's augmentation draws come from
-  its own RNG keyed by (seed, row position), so ``skip_batches`` can jump
-  to batch b and produce it bit-identically (mid-epoch resume).
+  (eval, ``pad_mode="mask"``); with ``ragged_tail`` the last batch is
+  short instead (the reference's ``drop_last=False``).  Each row's
+  augmentation draws come from its own RNG keyed by (seed, row position),
+  so ``skip_batches`` can jump to batch b and produce it bit-identically
+  (mid-epoch resume); a compat stream is fast-forwarded past the skipped
+  rows instead (``replay_aug_draws``).  Batch b is
+  ``make_batch(sampler, plan_epoch(...), b)``, which is also what the
+  worker processes of ``data/loader.py`` call.
 - ``prefetch_to_device`` assembles batches in a background thread, copies
   them into pinned host memory and starts non-blocking copies to the card,
   ``size`` batches ahead of the consumer.
@@ -17,7 +26,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -27,26 +36,34 @@ class PatchSampler:
     """Crops + augments patches from the full in-memory dataset dict."""
 
     def __init__(self, dataset: dict, metadata: list, patch_size: int,
-                 augment: bool):
+                 augment: bool, compat_aug_stream=None):
         self.dataset = dataset
         self.metadata = list(metadata)
         self.patch_size = patch_size
         self.augment = augment
+        self.compat_aug_stream = compat_aug_stream
 
     def __len__(self) -> int:
         return len(self.metadata)
 
+    def _aug_decisions(self, rng: np.random.RandomState):
+        """(k, flip_h, flip_w): from the compat stream when there is one
+        (``rng`` is then unused), else from ``rng``."""
+        st = self.compat_aug_stream
+        if st is not None:
+            return st.randint(0, 3), st.random() > 0.5, st.random() > 0.5
+        return rng.randint(0, 4), rng.rand() > 0.5, rng.rand() > 0.5
+
     def sample(self, index: int, rng: np.random.RandomState):
         """(img_d1, img_d2, label) of one patch, augmented with draws from
-        ``rng``."""
+        ``rng`` (or the compat stream)."""
         city, x, y = self.metadata[index]
         s = self.patch_size
         entry = self.dataset[city]
         img = entry["images"][:, x:x + s, y:y + s, :]
         lbl = entry["labels"][x:x + s, y:y + s]
         if self.augment:
-            k, flip_h, flip_w = (rng.randint(0, 4), rng.rand() > 0.5,
-                                 rng.rand() > 0.5)
+            k, flip_h, flip_w = self._aug_decisions(rng)
             if k:
                 img = np.rot90(img, k, axes=(1, 2))
                 lbl = np.rot90(lbl, k, axes=(0, 1))
@@ -57,41 +74,117 @@ class PatchSampler:
         return img[0], img[1], lbl
 
 
-def batch_iterator(sampler: PatchSampler, batch_size: int, shuffle: bool,
-                   pad_mode: str = "wrap", seed: int = 0,
-                   max_batches: int = 0,
-                   skip_batches: int = 0) -> Iterator[dict]:
-    """Yield {'img1', 'img2', 'label', 'weight'} numpy batches of fixed
-    shape; ``max_batches`` caps the epoch, ``skip_batches`` starts at that
-    batch without materialising the ones before."""
-    n = len(sampler)
-    if n == 0:
-        return
+class EpochPlan(NamedTuple):
+    """One epoch's row order (padding included), row weights and batch
+    count: a pure function of the sample count and the seed."""
+    order: np.ndarray
+    weights: np.ndarray
+    batch_size: int
+    seed: int
+    num_batches: int
+
+
+def plan_epoch(n: int, batch_size: int, shuffle: bool,
+               pad_mode: str = "wrap", seed: int = 0, max_batches: int = 0,
+               ragged_tail: bool = False) -> EpochPlan:
+    """The order of ``n`` samples for one epoch: shuffled by
+    ``RandomState(seed)``, then wrap-padded to whole batches (weight 1,
+    or 0 under ``pad_mode="mask"``), or left ragged with ``ragged_tail``;
+    ``max_batches`` caps the batch count."""
     order = np.arange(n)
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
-    pad = (-n) % batch_size
+    pad = 0 if ragged_tail else (-n) % batch_size
     weights = np.ones(n + pad, np.float32)
     if pad:
         order = np.concatenate([order, order[:pad]])
         if pad_mode == "mask":
             weights[n:] = 0.0
-    num_batches = len(order) // batch_size
+    num_batches = -(-len(order) // batch_size)
     if max_batches:
         num_batches = min(num_batches, max_batches)
-    ps, c = sampler.patch_size, sampler.dataset[
-        sampler.metadata[0][0]]["images"].shape[-1]
-    for b in range(skip_batches, num_batches):
-        lo = b * batch_size
-        img1 = np.empty((batch_size, ps, ps, c), np.float32)
-        img2 = np.empty_like(img1)
-        label = np.empty((batch_size, ps, ps), np.int32)
-        for row, i in enumerate(order[lo:lo + batch_size]):
-            rng = np.random.RandomState(
-                (seed * 1_000_003 + lo + row) % (2 ** 31))
-            img1[row], img2[row], label[row] = sampler.sample(int(i), rng)
-        yield {"img1": img1, "img2": img2, "label": label,
-               "weight": weights[lo:lo + batch_size].copy()}
+    return EpochPlan(order, weights, batch_size, seed, num_batches)
+
+
+def make_batch(sampler: PatchSampler, plan: EpochPlan, b: int,
+               out: dict | None = None) -> dict:
+    """Batch ``b`` of ``plan`` as {'img1', 'img2', 'label', 'weight'}
+    numpy arrays, written into ``out``'s arrays when given (a full
+    batch's shapes); row r draws its augmentation from an RNG keyed by
+    (seed, lo + r), so the batch does not depend on the ones before."""
+    lo = b * plan.batch_size
+    rows = plan.order[lo:lo + plan.batch_size]
+    if out is None:
+        ps = sampler.patch_size
+        c = sampler.dataset[sampler.metadata[0][0]]["images"].shape[-1]
+        img = np.empty((len(rows), ps, ps, c), np.float32)
+        out = {"img1": img, "img2": np.empty_like(img),
+               "label": np.empty((len(rows), ps, ps), np.int32),
+               "weight": np.empty(len(rows), np.float32)}
+    img1, img2, label = out["img1"], out["img2"], out["label"]
+    for row, i in enumerate(rows):
+        rng = np.random.RandomState(
+            (plan.seed * 1_000_003 + lo + row) % (2 ** 31))
+        img1[row], img2[row], label[row] = sampler.sample(int(i), rng)
+    out["weight"][:] = plan.weights[lo:lo + len(rows)]
+    return out
+
+
+def batch_iterator(sampler: PatchSampler, batch_size: int, shuffle: bool,
+                   pad_mode: str = "wrap", seed: int = 0,
+                   max_batches: int = 0, skip_batches: int = 0,
+                   ragged_tail: bool = False) -> Iterator[dict]:
+    """Yield {'img1', 'img2', 'label', 'weight'} numpy batches of fixed
+    shape (the last one short with ``ragged_tail``); ``max_batches`` caps
+    the epoch, ``skip_batches`` starts at that batch without materialising
+    the ones before."""
+    n = len(sampler)
+    if n == 0:
+        return
+    stream = sampler.compat_aug_stream
+    if stream is not None and sampler.augment:
+        if (n % batch_size and not ragged_tail
+                and not (max_batches and max_batches <= n // batch_size)):
+            # padded rows would draw (randint, random, random) triples
+            # that the reference's ragged final batch never draws, and
+            # every later decision would shift
+            raise ValueError(
+                f"compat_aug_stream with {n} samples % batch_size "
+                f"{batch_size} != 0 requires ragged_tail=True: padded "
+                f"rows would desynchronize the sequential augmentation "
+                f"stream from the reference's ragged final batch")
+        if skip_batches:
+            # each skipped row drew one triple; only the last batch can be
+            # short, so the replay stops at the epoch's real row count
+            replay_aug_draws(stream, min(skip_batches * batch_size, n)
+                             if ragged_tail else skip_batches * batch_size)
+    plan = plan_epoch(n, batch_size, shuffle, pad_mode, seed, max_batches,
+                      ragged_tail)
+    for b in range(skip_batches, plan.num_batches):
+        yield make_batch(sampler, plan, b)
+
+
+def replay_aug_draws(stream, rows: int) -> None:
+    """Fast-forward a compat augmentation stream past ``rows`` samples by
+    drawing what each drew (a randint and two randoms: the same Mersenne
+    Twister words, which a count of skipped values would not consume)."""
+    for _ in range(rows):
+        stream.randint(0, 3)
+        stream.random()
+        stream.random()
+
+
+def epoch_train_rows(n_samples: int, batch_size: int, max_batches: int = 0,
+                     ragged_tail: bool = False) -> int:
+    """Rows one epoch of ``batch_iterator`` materialises (padding
+    included; a whole ragged epoch is exactly ``n_samples``): how far the
+    compat stream advances per completed epoch."""
+    nb = -(-n_samples // batch_size)
+    if ragged_tail and not (max_batches and max_batches < nb):
+        return n_samples  # no cap stops the epoch before its short tail
+    if max_batches:
+        nb = min(nb, max_batches)
+    return nb * batch_size
 
 
 def prefetch_to_device(iterator: Iterator[dict], device, size: int = 2

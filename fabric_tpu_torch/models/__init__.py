@@ -26,8 +26,8 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     (``train=False``) the model is in eval mode without gradients, with
     BatchNorm folded into the convs when ``fold_bn``.  With ``train`` it
     keeps BatchNorm (``fold_bn`` must be False), its parameters take
-    gradients, and ``cfg.per_date_batchnorm`` selects per-date batch
-    statistics."""
+    gradients, ``cfg.per_date_batchnorm`` selects per-date batch
+    statistics and ``cfg.remat`` rematerialises its stages."""
     if cfg.model != "bidate":
         raise NotImplementedError(
             f"model {cfg.model!r} is not ported yet: the multi-date models "
@@ -43,7 +43,8 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
                                            base, generator)
     model = BiDateNet(cfg.n_channels, cfg.n_classes, base, fold_bn=fold_bn,
                       dtype=compute_dtype(cfg),
-                      joint_date_batchnorm=not cfg.per_date_batchnorm)
+                      joint_date_batchnorm=not cfg.per_date_batchnorm,
+                      remat=cfg.remat)
     weights.load_variables(model, *variables)
     model.requires_grad_(train)
     model = model.to(device).train(train)

@@ -10,14 +10,25 @@ train-mode BatchNorm takes joint two-date batch statistics; with
 ``joint_date_batchnorm=False`` a train forward encodes each date on its
 own, as the reference's twice-applied encoder does
 (``fabric_tpu/models/bidate.py:102-110``).  Eval is the same either way.
+
+With ``remat`` a train forward keeps only each stage's inputs (inc,
+down1-4, up1-4, as ``fabric_tpu``'s ``nn.remat`` stages) and runs the
+stage again in the backward pass (``torch.utils.checkpoint``): activation
+memory for a third more convolution work.  The repeated forward leaves
+the BatchNorm running averages alone, so they move once a step, as
+without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from fabric_tpu_torch.models.blocks import DoubleConv, Down, OutConv, Up
+from fabric_tpu_torch.models.blocks import (BatchNorm, DoubleConv, Down,
+                                            OutConv, Up)
 from fabric_tpu_torch.ops import fused as fused_ops
 
 
@@ -27,15 +38,30 @@ def fuse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fused_ops.FusedMulRelu.apply(b, a)
 
 
+@contextlib.contextmanager
+def _stats_frozen(stage: nn.Module):
+    """The BatchNorm layers of ``stage`` leave their running averages
+    alone inside the block."""
+    layers = [m for m in stage.modules() if isinstance(m, BatchNorm)]
+    for bn in layers:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in layers:
+            bn.update_stats = True
+
+
 class BiDateNet(nn.Module):
     def __init__(self, n_channels: int = 13, n_classes: int = 2,
                  base: int = 64, fold_bn: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
-                 joint_date_batchnorm: bool = True):
+                 joint_date_batchnorm: bool = True, remat: bool = False):
         super().__init__()
         self.fold_bn = fold_bn
         self.dtype = dtype
         self.joint_date_batchnorm = joint_date_batchnorm
+        self.remat = remat
         b = base
         self.inc = DoubleConv(n_channels, b, fold_bn)
         self.down1 = Down(b, 2 * b, fold_bn)
@@ -48,12 +74,21 @@ class BiDateNet(nn.Module):
         self.up4 = Up(2 * b, b, fold_bn)
         self.outc = OutConv(b, n_classes)
 
+    def _stage(self, stage: nn.Module, train: bool, *xs: torch.Tensor):
+        """``stage(*xs, train)``, rematerialised in the backward pass
+        when training with ``remat``."""
+        if not (self.remat and train):
+            return stage(*xs, train)
+        return checkpoint(stage, *xs, train, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _stats_frozen(stage)))
+
     def _encode(self, x: torch.Tensor, train: bool):
-        x1 = self.inc(x, train)
-        x2 = self.down1(x1, train)
-        x3 = self.down2(x2, train)
-        x4 = self.down3(x3, train)
-        return x1, x2, x3, x4, self.down4(x4, train)
+        x1 = self._stage(self.inc, train, x)
+        x2 = self._stage(self.down1, train, x1)
+        x3 = self._stage(self.down2, train, x2)
+        x4 = self._stage(self.down3, train, x3)
+        return x1, x2, x3, x4, self._stage(self.down4, train, x4)
 
     def forward(self, x_d1: torch.Tensor, x_d2: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
@@ -70,8 +105,8 @@ class BiDateNet(nn.Module):
             d1 = self._encode(x_d1.to(self.dtype), train)
             d2 = self._encode(x_d2.to(self.dtype), train)
         f1, f2, f3, f4, f5 = (fuse(a, b) for a, b in zip(d1, d2))
-        y = self.up1(f5, f4, train)
-        y = self.up2(y, f3, train)
-        y = self.up3(y, f2, train)
-        y = self.up4(y, f1, train)
+        y = self._stage(self.up1, train, f5, f4)
+        y = self._stage(self.up2, train, y, f3)
+        y = self._stage(self.up3, train, y, f2)
+        y = self._stage(self.up4, train, y, f1)
         return self.outc(y).float()

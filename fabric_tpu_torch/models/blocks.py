@@ -64,13 +64,18 @@ class BatchNorm(nn.Module):
     statistics in float32; train mode normalises with the biased batch
     variance max(E[x^2] - E[x]^2, 0) and moves the running averages by
     momentum 0.9 on the old value, the variance's by the unbiased
-    n/(n-1) estimate; eval mode uses the running averages."""
+    n/(n-1) estimate; eval mode uses the running averages.
+
+    ``update_stats`` False normalises the same way but leaves the running
+    averages where they are: the rematerialised forward of a checkpointed
+    stage (``BiDateNet.remat``) repeats a forward whose update was made."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.update_stats = True
         self.scale = _weight(features)
         self.bias = _weight(features)
         self.register_buffer("mean", torch.zeros(features))
@@ -82,13 +87,18 @@ class BatchNorm(nn.Module):
         mean = xf.mean((0, 1, 2))
         var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
         n = x.numel() // x.shape[-1]
-        with torch.no_grad():
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1 - m) * mean)
-            unbiased = var * (n / max(n - 1, 1))
-            self.var.copy_(m * self.var + (1 - m) * unbiased)
+        if self.update_stats:
+            self._move_averages(mean, var, n)
         inv = (var + self.eps) ** -0.5
         return (xf - mean) * (inv * self.scale) + self.bias
+
+    @torch.no_grad()
+    def _move_averages(self, mean: torch.Tensor, var: torch.Tensor,
+                       n: int) -> None:
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1 - m) * mean)
+        unbiased = var * (n / max(n - 1, 1))
+        self.var.copy_(m * self.var + (1 - m) * unbiased)
 
     def relu_eval(self, x: torch.Tensor,
                   conv_bias: torch.Tensor | None = None) -> torch.Tensor:

@@ -79,7 +79,7 @@ def validate(cfg, cities=None, max_f1_drop: float = 0.01,
 
 def main(argv=None) -> int:
     from fabric_tpu_torch.config import load_config
-    from fabric_tpu_torch.data.oscd import require_layout
+    from fabric_tpu_torch.data.download import ensure_dataset
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0],
                                  add_help=False)
@@ -92,7 +92,7 @@ def main(argv=None) -> int:
     cfg = load_config(argv=rest)
     if not cfg.resume and not own.bundle:
         ap.error("--resume or --bundle is required")
-    cfg.dataset_dir = require_layout(cfg.dataset_dir)
+    cfg.dataset_dir = ensure_dataset(cfg)
     reports, ok = validate(cfg, own.city, own.max_f1_drop, own.bundle,
                            min_agreement=own.min_agreement,
                            device=own.device)

@@ -16,6 +16,16 @@ unwinds with ``history["status"] == "preempted"``; a non-finite loss
 halts the run at the next host sync, before it can overwrite a finite
 periodic checkpoint.
 
+The batches come from ``cfg.num_workers`` worker processes
+(``data/loader.py``), or with 0 from one prefetch thread; both give the
+same batches.  ``compat_reference`` keeps the thread: it draws the
+augmentation from one ``random.Random(cfg.seed)`` stream across epochs
+(fast-forwarded past the finished epochs on resume) and trains the
+epoch's short final batch as it is, as the reference's DataLoader does.
+With ``cfg.output_store`` every save, and at the end the tracker
+directory, is mirrored to the store (``store.py``), and ``cfg.resume``
+may name a store URI.
+
 Options of ``fabric_tpu``'s loop that the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -24,23 +34,28 @@ from __future__ import annotations
 
 import logging
 import os
+import random
 import time
 
 import numpy as np
 import torch
 
 from fabric_tpu_torch import checkpoint as ckpt
+from fabric_tpu_torch.data.download import dataset_provenance, ensure_dataset
 from fabric_tpu_torch.data.image import read_png_gray, scale, stretch_8bit
+from fabric_tpu_torch.data.loader import BatchLoader, share_dataset
 from fabric_tpu_torch.data.oscd import (full_load, get_train_val_metadata,
-                                        load_label, metadata_from_dataset,
-                                        require_layout)
+                                        load_label, metadata_from_dataset)
 from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_iterator,
-                                            prefetch_to_device)
+                                            epoch_train_rows,
+                                            prefetch_to_device,
+                                            replay_aug_draws)
 from fabric_tpu_torch.infer.runner import infer_city
 from fabric_tpu_torch.infer.service import _not_ported, resolve_device
 from fabric_tpu_torch.losses import get_loss_fn
 from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
 from fabric_tpu_torch.models import build_model
+from fabric_tpu_torch.store import open_store
 from fabric_tpu_torch.track import Tracker
 from fabric_tpu_torch.train.preemption import (PreemptionGuard,
                                                TrainingPreempted)
@@ -55,19 +70,14 @@ _COUNT_KEYS = ("tp", "fp", "fn", "tn")
 
 def _check_ported(cfg) -> None:
     """Raise for a config option of fabric_tpu's loop that is not ported
-    (the model, the optimizer and the resume target check their own)."""
-    if cfg.compat_reference:
-        raise _not_ported("compat_reference (the python-random augmentation "
-                          "stream and the ragged final batch)", "5")
-    items = {"remat": "5", "lane_pack": "12", "lane_pack_bwd": "12",
+    (the model checks its own)."""
+    items = {"lane_pack": "12", "lane_pack_bwd": "12",
              "local_upsample": "9"}
     for flag, item in items.items():
         if getattr(cfg, flag):
             raise _not_ported(flag, item)
     if cfg.profile_dir:
         raise _not_ported("profile_dir", "12 (profiling)")
-    if cfg.output_store:
-        raise _not_ported("output_store", "5")
     if max(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_model) > 1:
         raise _not_ported("a multi-device mesh", "10 (multi-GPU)")
 
@@ -170,6 +180,86 @@ def _log_scene_figure(tracker, cfg, city: str, epoch: int,
                        mask * 255)
 
 
+class EpochBatches:
+    """The train and validation batches of each epoch, on ``device``: from
+    ``cfg.num_workers`` worker processes (``data/loader.py``), started at
+    the first epoch that asks and kept for the run, or with 0 workers, or
+    under ``compat_reference``, from the prefetch thread.
+
+    Under ``compat_reference`` the training batches draw their
+    augmentation from one ``random.Random(cfg.seed)`` stream, fast-forwarded
+    past ``start_epoch`` finished epochs, and the epoch's last batch is
+    short when the samples do not fill it."""
+
+    def __init__(self, cfg, data: dict, train_md: list, val_md: list,
+                 device, start_epoch: int = 0):
+        self.cfg, self.train_md, self.val_md = cfg, train_md, val_md
+        self.device = device
+        self.compat_aug = None
+        if cfg.compat_reference and cfg.augmentation:
+            self.compat_aug = random.Random(cfg.seed)
+            replay_aug_draws(self.compat_aug, start_epoch * epoch_train_rows(
+                len(train_md), cfg.batch_size, cfg.steps_per_epoch,
+                ragged_tail=True))
+        self.workers = 0 if cfg.compat_reference else cfg.num_workers
+        if cfg.compat_reference and cfg.num_workers:
+            log.info("compat_reference: batches from one thread, not %d "
+                     "worker processes (the augmentation is one sequential "
+                     "stream, the final batch ragged)", cfg.num_workers)
+        self.data = share_dataset(data) if self.workers else data
+        self._loaders: dict[str, BatchLoader] = {}
+
+    def _loader(self, name: str, md: list, augment: bool, batch_size: int,
+                shuffle: bool, pad_mode: str) -> BatchLoader:
+        if name not in self._loaders:
+            self._loaders[name] = BatchLoader(
+                self.data, md, self.cfg.patch_size, augment, batch_size,
+                shuffle=shuffle, pad_mode=pad_mode,
+                num_workers=self.workers, device=self.device,
+                prefetch=self.cfg.prefetch)
+        return self._loaders[name]
+
+    def train(self, epoch: int, skip: int = 0):
+        """Epoch ``epoch``'s shuffled, augmented, wrap-padded batches from
+        batch ``skip``."""
+        cfg = self.cfg
+        if self.workers:
+            return self._loader(
+                "train", self.train_md, cfg.augmentation, cfg.batch_size,
+                cfg.shuffle_train, "wrap").epoch(
+                seed=cfg.seed + epoch, max_batches=cfg.steps_per_epoch,
+                skip_batches=skip)
+        sampler = PatchSampler(self.data, self.train_md, cfg.patch_size,
+                               augment=cfg.augmentation,
+                               compat_aug_stream=self.compat_aug)
+        return prefetch_to_device(
+            batch_iterator(sampler, cfg.batch_size, shuffle=cfg.shuffle_train,
+                           pad_mode="wrap", seed=cfg.seed + epoch,
+                           max_batches=cfg.steps_per_epoch,
+                           skip_batches=skip,
+                           ragged_tail=cfg.compat_reference),
+            self.device, size=cfg.prefetch)
+
+    def val(self):
+        """The validation patches in order, mask-padded."""
+        cfg = self.cfg
+        if self.workers:
+            return self._loader("val", self.val_md, False,
+                                cfg.eval_batch_size, False, "mask").epoch(
+                max_batches=cfg.steps_per_epoch)
+        return prefetch_to_device(
+            batch_iterator(PatchSampler(self.data, self.val_md,
+                                        cfg.patch_size, augment=False),
+                           cfg.eval_batch_size, shuffle=False,
+                           pad_mode="mask", max_batches=cfg.steps_per_epoch),
+            self.device, size=cfg.prefetch)
+
+    def close(self) -> None:
+        """Stop the worker processes."""
+        for loader in self._loaders.values():
+            loader.close()
+
+
 def train(cfg, dataset: dict | None = None, tracker=None,
           run_scene_inference: bool = True,
           metadata: tuple[list, list] | None = None,
@@ -185,7 +275,7 @@ def train(cfg, dataset: dict | None = None, tracker=None,
     _check_ported(cfg)
     device = resolve_device(device)
     if dataset is None:
-        cfg.dataset_dir = require_layout(cfg.dataset_dir)
+        cfg.dataset_dir = ensure_dataset(cfg)
     owned_tracker = tracker is None
     if owned_tracker:
         tracker = Tracker(cfg.log_dir, project=cfg.project_name)
@@ -199,7 +289,11 @@ def train(cfg, dataset: dict | None = None, tracker=None,
 
 def _train(cfg, dataset, tracker, run_scene_inference, metadata,
            preemption_guard, device):
-    tracker.log_params(cfg.to_dict())
+    params = cfg.to_dict()
+    if dataset is None:  # an in-memory dataset has no identity on disk
+        params["dataset_provenance"] = dataset_provenance(cfg,
+                                                          cfg.dataset_dir)
+    tracker.log_params(params)
 
     log.info("loading dataset from %s", cfg.dataset_dir)
     data = dataset if dataset is not None else full_load(
@@ -243,31 +337,63 @@ def _train(cfg, dataset, tracker, run_scene_inference, metadata,
         log.info("mid-epoch resume: completing epoch %d from batch %d",
                  start_epoch, resume_skip)
 
+    store = open_store(cfg.output_store)
+    if store is not None:
+        log.info("mirroring checkpoints and tracker output to %s",
+                 cfg.output_store)
     guard, owned_guard = preemption_guard, False
     if guard is None and cfg.handle_preemption:
         guard = PreemptionGuard()
         owned_guard = guard.install()
+    batches = EpochBatches(cfg, data, train_md, val_md, device, start_epoch)
+    del data  # with workers, the shared copy is the one kept
     try:
-        _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
+        _run_epochs(cfg, state, batches, tracker, device,
                     make_train_step(model, loss_fn),
                     make_eval_step(model, loss_fn), best, history,
                     start_epoch, resume_skip, resume_rows, guard,
-                    run_scene_inference)
+                    run_scene_inference, store)
     except TrainingPreempted:
         tracker.set_status("preempted")
         history["status"] = "preempted"
         log.warning("training preempted: resume with resume=%s to complete "
                     "the run exactly", cfg.weight_dir)
+        _store_epilogue(store, tracker)
         return state, history
     finally:
+        batches.close()
         if owned_guard:
             guard.uninstall()
     tracker.set_status("complete")
     history["status"] = "complete"
+    _store_epilogue(store, tracker)
     return state, history
 
 
-def _periodic_saver(cfg, tracker, guard, best, epoch, rows):
+def _store_epilogue(store, tracker) -> None:
+    """Mirror the tracker directory and wait for the queued uploads
+    (bounded, so a wedged store cannot hang the exit)."""
+    if store is None:
+        return
+    tdir = getattr(tracker, "dir", None)  # a NullTracker writes nothing
+    if tdir and os.path.isdir(tdir):
+        store.upload_dir(tdir, rel=os.path.join(
+            "tracker", os.path.basename(os.path.normpath(tdir))))
+    failed = store.flush()
+    if failed:
+        log.warning("%d artifact uploads failed this run (local copies "
+                    "are intact)", failed)
+
+
+def _save(cfg, state, epoch, store, **kw) -> None:
+    """ckpt.save into cfg.weight_dir, mirrored to ``store``."""
+    path = ckpt.save(state, cfg.weight_dir, epoch, keep_last=cfg.keep_last,
+                     **kw)
+    if store is not None:
+        store.upload_checkpoint(cfg.weight_dir, path)
+
+
+def _periodic_saver(cfg, tracker, guard, best, epoch, rows, store):
     """The per-step callback that writes periodic (and preemption) saves
     carrying the epoch's progress and stat rows."""
     def on_step(s, stats):
@@ -281,18 +407,17 @@ def _periodic_saver(cfg, tracker, guard, best, epoch, rows):
         _check_finite(np.asarray([r[0] for r in rows]), tracker,
                       f"of epoch {epoch}; caught at the periodic-checkpoint "
                       "sync, the last finite periodic checkpoint is kept")
-        ckpt.save(s, cfg.weight_dir, epoch, tag="periodic",
-                  metadata={"periodic": True, "batches_done": len(rows),
-                            "train_rows": rows, "best_metrics": dict(best)},
-                  keep_last=cfg.keep_last)
+        _save(cfg, s, epoch, store, tag="periodic",
+              metadata={"periodic": True, "batches_done": len(rows),
+                        "train_rows": rows, "best_metrics": dict(best)})
         if preempt:
             raise TrainingPreempted(s)
     return on_step
 
 
-def _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
-                train_step, eval_step, best, history, start_epoch,
-                resume_skip, resume_rows, guard, run_scene_inference):
+def _run_epochs(cfg, state, batches, tracker, device, train_step,
+                eval_step, best, history, start_epoch, resume_skip,
+                resume_rows, guard, run_scene_inference, store):
     for epoch in range(start_epoch, cfg.epochs):
         if guard is not None and guard.requested:
             # the request landed between epochs: save the epoch boundary
@@ -300,10 +425,9 @@ def _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
             # while a mid-epoch resume is pending: the checkpoint it came
             # from is the right resume point)
             if epoch > 0 and not resume_skip:
-                ckpt.save(state, cfg.weight_dir, epoch - 1, tag="periodic",
-                          metadata={"periodic": True, "batches_done": 0,
-                                    "best_metrics": dict(best)},
-                          keep_last=cfg.keep_last)
+                _save(cfg, state, epoch - 1, store, tag="periodic",
+                      metadata={"periodic": True, "batches_done": 0,
+                                "best_metrics": dict(best)})
             raise TrainingPreempted(state)
         t0 = time.time()
         train_acc, val_acc = MetricAccumulator(), MetricAccumulator()
@@ -312,20 +436,12 @@ def _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
         for row in replay:
             train_acc.update(row[0], dict(zip(_COUNT_KEYS, row[1:])))
 
-        sampler = PatchSampler(data, train_md, cfg.patch_size,
-                               augment=cfg.augmentation)
-        batches = prefetch_to_device(
-            batch_iterator(sampler, cfg.batch_size,
-                           shuffle=cfg.shuffle_train, pad_mode="wrap",
-                           seed=cfg.seed + epoch,
-                           max_batches=cfg.steps_per_epoch,
-                           skip_batches=skip),
-            device, size=cfg.prefetch)
         on_step = None
         if cfg.checkpoint_every > 0 or guard is not None:
             on_step = _periodic_saver(cfg, tracker, guard, best, epoch,
-                                      list(replay))
-        steps = _epoch(train_step, state, batches, train_acc, train=True,
+                                      list(replay), store)
+        steps = _epoch(train_step, state, batches.train(epoch, skip),
+                       train_acc, train=True,
                        on_step=on_step, tracker=tracker,
                        log_every=cfg.log_every, prefix="batch_train_")
         train_seconds = time.time() - t0
@@ -339,13 +455,7 @@ def _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
         log.info("epoch %d train %s", epoch,
                  {k: round(v, 4) for k, v in mean_train.items()})
 
-        val_batches = prefetch_to_device(
-            batch_iterator(PatchSampler(data, val_md, cfg.patch_size,
-                                        augment=False),
-                           cfg.eval_batch_size, shuffle=False,
-                           pad_mode="mask", max_batches=cfg.steps_per_epoch),
-            device, size=cfg.prefetch)
-        _epoch(eval_step, state, val_batches, val_acc, train=False,
+        _epoch(eval_step, state, batches.val(), val_acc, train=False,
                on_first_batch=lambda b, s: _log_val_patches(tracker, epoch,
                                                             b, s),
                tracker=tracker, log_every=cfg.log_every,
@@ -380,8 +490,7 @@ def _run_epochs(cfg, state, data, train_md, val_md, tracker, device,
         if improved(mean_val, best):
             meta = dict(cfg.to_dict())
             meta["validation_metrics"] = mean_val
-            ckpt.save(state, cfg.weight_dir, epoch, metadata=meta,
-                      keep_last=cfg.keep_last)
+            _save(cfg, state, epoch, store, metadata=meta)
             best.update({k: mean_val[k] for k in best})
             log.info("epoch %d: new best, checkpointed", epoch)
 

@@ -11,11 +11,17 @@ warmup, ``linear``) and compute what optax computes:
   bias-corrected with the incremented count, update ``-lr * mu_hat /
   (sqrt(nu_hat) + eps)``; adamw adds ``weight_decay * param`` before the
   learning rate (optax's decoupled decay);
-- a schedule reads its own count, starting at 0, so update t uses lr(t).
+- a schedule reads its own count, starting at 0, so update t uses lr(t);
+- ``grad_accum_steps`` k > 1 (optax ``MultiSteps``): each step folds its
+  gradient into a running mean, ``acc + (g - acc) / (n + 1)`` (Welford,
+  n the micro step), and every k-th step applies the optimizer above to
+  that mean and resets it; the other steps leave the parameters alone,
+  and the optimizer's and the schedule's counts advance only on updates.
 
 :meth:`Optimizer.state_tree` lays the state out as flax serialises
 optax's state for the same config (a chain's tuple as ``{"0": ..., "1":
-...}``, empty states as ``{}``), so checkpoints restore in either package.
+...}``, empty states as ``{}``, ``MultiStepsState``'s fields by name), so
+checkpoints restore in either package.
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ import math
 import numpy as np
 import torch
 
-from fabric_tpu_torch.infer.service import _not_ported
 from fabric_tpu_torch.weights import (flatten_tree, unflatten_tree,
                                       variables_of)
 
@@ -73,9 +78,13 @@ class Optimizer:
         self.name = cfg.optimizer
         if self.name not in ("sgd", "adam", "adamw"):
             raise ValueError(f"unknown optimizer: {self.name!r}")
-        if cfg.grad_accum_steps > 1:
-            raise _not_ported("grad_accum_steps > 1", "5")
         self.params = dict(named_params)
+        self.accum = max(cfg.grad_accum_steps, 1)
+        self.mini_step = 0      # MultiSteps' counts
+        self.gradient_step = 0
+        self.acc_grads = ({n: torch.zeros_like(p)
+                           for n, p in self.params.items()}
+                          if self.accum > 1 else {})
         self.schedule = make_schedule(cfg)
         self.scheduled = cfg.lr_schedule != "constant"
         self.momentum = cfg.momentum if self.name == "sgd" else 0.0
@@ -93,7 +102,25 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        """Apply one update from the parameters' ``.grad``."""
+        """Take the parameters' ``.grad``: apply one update, or with
+        ``grad_accum_steps`` > 1 fold it into the running mean and update
+        from the mean every k-th call."""
+        grads = {n: p.grad for n, p in self.params.items()}
+        if self.accum == 1:
+            self._update(grads)
+            return
+        n = self.mini_step
+        for name, acc in self.acc_grads.items():
+            acc.add_((grads[name] - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.accum
+        if n == self.accum - 1:
+            self.gradient_step += 1
+            self._update(self.acc_grads)
+            for acc in self.acc_grads.values():
+                acc.mul_(0)  # optax's (1 - emit) * acc: -0.0 stays -0.0
+
+    def _update(self, grads: dict[str, torch.Tensor]) -> None:
+        """One update of the optimizer from ``grads``."""
         lr = self.schedule(self.sched_count)
         if self.scheduled:
             self.sched_count += 1
@@ -102,7 +129,7 @@ class Optimizer:
             bc1 = 1 - np.float32(_B1) ** np.float32(self.count)
             bc2 = 1 - np.float32(_B2) ** np.float32(self.count)
         for n, p in self.params.items():
-            g = p.grad
+            g = grads[n]
             if self.momentum:
                 u = self.moments["trace"][n].mul_(self.momentum).add_(g)
             elif self.name == "sgd":
@@ -133,7 +160,13 @@ class Optimizer:
             chain.append({})  # add_decayed_weights: no state
         chain.append({"count": count(self.sched_count)} if self.scheduled
                      else {})
-        return {str(i): s for i, s in enumerate(chain)}
+        inner = {str(i): s for i, s in enumerate(chain)}
+        if self.accum == 1:
+            return inner
+        return {"mini_step": count(self.mini_step),
+                "gradient_step": count(self.gradient_step),
+                "inner_opt_state": inner, "acc_grads": tree(self.acc_grads),
+                "skip_state": {}}
 
     def load_state_tree(self, tree: dict) -> None:
         """Take the state from an optax-layout tree (a checkpoint's
@@ -142,16 +175,27 @@ class Optimizer:
             raise ValueError(
                 f"opt_state does not match the configured optimizer "
                 f"({self.name}, momentum={self.momentum}, schedule="
-                f"{'on' if self.scheduled else 'off'})")
+                f"{'on' if self.scheduled else 'off'}, grad_accum_steps="
+                f"{self.accum})")
+        if self.accum > 1:
+            self.mini_step = int(tree["mini_step"])
+            self.gradient_step = int(tree["gradient_step"])
+            _copy_into(self.acc_grads, tree["acc_grads"])
+            tree = tree["inner_opt_state"]
         first = tree["0"]
         for key, moments in self.moments.items():
-            flat = flatten_tree(first[key])
-            for n, t in moments.items():
-                t.copy_(torch.from_numpy(np.asarray(flat[n], np.float32)))
+            _copy_into(moments, first[key])
         if self.name != "sgd":
             self.count = int(first["count"])
         if self.scheduled:
             self.sched_count = int(tree[str(len(tree) - 1)]["count"])
+
+
+def _copy_into(tensors: dict[str, torch.Tensor], tree: dict) -> None:
+    """Copy a numpy tree's leaves into the tensors of its flat names."""
+    flat = flatten_tree(tree)
+    for n, t in tensors.items():
+        t.copy_(torch.from_numpy(np.asarray(flat[n], np.float32)))
 
 
 def _structure(tree: dict) -> dict:

@@ -43,7 +43,10 @@ def test_port_imports_no_jax_or_fabric_tpu():
             ".__init__")
         for p in glob.glob(os.path.join(REPO, "fabric_tpu_torch", "**",
                                         "*.py"), recursive=True))
-    assert "fabric_tpu_torch.train.loop" in modules
+    assert {"fabric_tpu_torch.train.loop", "fabric_tpu_torch.evaluate",
+            "fabric_tpu_torch.cli.evaluate", "fabric_tpu_torch.store",
+            "fabric_tpu_torch.data.download",
+            "fabric_tpu_torch.data.loader"} <= set(modules)
     assert _loaded_after(modules) == []
 
 

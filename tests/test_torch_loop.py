@@ -290,23 +290,30 @@ def test_prune_keeps_the_newest_and_what_pointers_name(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(compat_reference=True), dict(grad_accum_steps=2), dict(remat=True),
     dict(lane_pack=True), dict(local_upsample=True),
-    dict(profile_dir="/nonexistent"), dict(output_store="file:///x"),
-    dict(model="unet3d"), dict(mesh_data=2), dict(resume="gs://b/ckpt"),
-    dict(dataset_dir="/nonexistent/onera"),
+    dict(profile_dir="/nonexistent"), dict(model="unet3d"),
+    dict(mesh_data=2),
 ])
 def test_unported_options_raise(kw, tmp_path):
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
                  **kw)
-    dataset = None if "dataset_dir" in kw else {}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        loop_mod.train(cfg, dataset=dataset, device="cpu",
-                       metadata=([], []))
+        loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
+
+
+def test_gs_resume_is_gated(tmp_path, monkeypatch):
+    """A gs:// resume target needs gsutil or gcloud on PATH; without them
+    the store refuses it before any transfer."""
+    import fabric_tpu_torch.store as store_mod
+    monkeypatch.setattr(store_mod.shutil, "which", lambda _: None)
+    cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
+                 resume="gs://b/ckpt", model_base=8, num_workers=0)
+    with pytest.raises(RuntimeError, match="gsutil or gcloud"):
+        loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("remat", "5"), ("lane_pack", "12"), ("local_upsample", "9")])
+    ("lane_pack", "12"), ("local_upsample", "9")])
 def test_unported_flag_names_its_roadmap_item(flag, item, tmp_path):
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
                  **{flag: True})

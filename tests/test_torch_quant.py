@@ -445,8 +445,6 @@ def test_validate_int8_gate(dataset, capsys):
     assert lines[0]["verdict"] == lines[-1]["summary"] == "FAIL"
     with pytest.raises(NotImplementedError, match="item 11"):
         validate(dataset, bundle="b.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(_cli_args(dataset) + ["--dataset_dir", "/nonexistent"])
 
 
 @pytest.mark.parametrize("quant", ["int8", None])
