@@ -29,6 +29,18 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   against the same int8 forward on the plain versions of both int8
   kernels, the launch counters and that a forward makes no int32 tensor,
   and profiles one scene of each runner;
+- the other tiled modes and the multi-date models: the 2048^2 pair at
+  ``infer_overlap`` 32 (bf16 folded), unbanded and banded at
+  ``overlap_band_rows`` 8 (masks equal; against the same overlap forward
+  on the plain versions, flips only where the averaged probability is
+  within 1/32 of 0.5), then at int8 (identical to the int8 forward on
+  the plain versions); sixteen 512^2 pairs, bf16 and int8, through
+  ``predict_many(pack="auto")`` (equal to ``predict`` pair by pair) and
+  unpacked; UNetLSTM (base 64) and UNet3D (base 32) at T = 5 on a 1024^2
+  stack through ``predict_multidate`` (the bi-date margin rule against
+  the plain versions), four packed 512^2 stacks, and int8 (identical to
+  the plain versions); each run's wall time, rate, peak memory and kernel
+  launches against the count its tiles make;
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -813,19 +825,19 @@ def report_training(cfg, state, history, records, smi, model):
     return step
 
 
-def profile_runner(run, a1, a2, label: str, top: int = 8) -> None:
-    """One scene through a runner under torch.profiler: the card's busy
-    time (the kernels' summed device time) against the wall clock, and
-    the ``top`` kernels that take the most of it."""
+def profile_runner(run, args, label: str, top: int = 8) -> None:
+    """One scene (``run(*args)``) through a runner under torch.profiler:
+    the card's busy time (the kernels' summed device time) against the
+    wall clock, and the ``top`` kernels that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run(a1, a2)
+    run(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(a1, a2)
+        run(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1120,25 +1132,11 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
     # int8 kernels: the exact float64 conv, then the epilogue in PyTorch;
     # the fusion's int32 PyTorch lines and the int8 max-pool
     a1, a2 = (torch.from_numpy(d).cuda() for d in (d1, d2))
-    kernel, fusion = conv_s8.conv3x3_s8_q, fuse_s8.siamese_fuse_s8
-    conv_s8.conv3x3_s8_q = lambda x, wq, k, b, s_out=None, packed=None, \
-        up=None, dtype=torch.bfloat16: conv_s8.conv3x3_s8_q_reference(
-            x, wq, k, b, s_out, up, dtype)
-    fuse_s8.siamese_fuse_s8 = fuse_s8.siamese_fuse_s8_reference
-    try:
+    with plain_int8():
         plain = make_scene_infer(pred._forward, PATCH, (SCENE, SCENE),
                                  batch_size=BATCH, dtype=torch.bfloat16)(
                                      a1, a2).cpu().numpy()
-    finally:
-        conv_s8.conv3x3_s8_q, fuse_s8.siamese_fuse_s8 = kernel, fusion
-    agree = float((mask == plain).mean())
-    print(f"2048^2 int8 mask vs the same int8 forward on the plain versions "
-          f"of conv3x3_s8_q and siamese_fuse_s8 on the card: "
-          f"{'identical' if agree == 1 else 'DIFFERENT'} ("
-          f"{int((mask != plain).sum())} pixels differ, agreement "
-          f"{agree:.6f}); change share {mask.mean():.4f}", flush=True)
-    if agree < (0.9999 if within else 1.0):
-        fail("the int8 kernel forward differs from the plain-version one")
+    int8_identical(f"{SCENE}^2 int8 mask", mask, plain, within)
 
     walls = []
     for _ in range(3):
@@ -1155,7 +1153,7 @@ def int8_serving(cfg, d1, d2, more, bf16_wall, bf16_fwd_ms, within):
         pred._int8_probe_check(pred._int8_scene_prologue(
             pred._calibration_crops(d1, d2)), pred._scenes_predicted)
         probes.append(time.perf_counter() - t0)
-    profile_runner(run, a1, a2, f"int8 {SCENE}^2 runner", top=12)
+    profile_runner(run, (a1, a2), f"int8 {SCENE}^2 runner", top=12)
     # what an int8 forward makes in int32: nothing (the conv sums and the
     # fusion's products stay in the kernels' registers)
     tiles = [torch.randn(BATCH, PATCH, PATCH, 13, generator=torch.Generator(
@@ -1202,6 +1200,366 @@ def int32_tensors(forward, x1, x2) -> tuple[dict, int]:
     with Count():
         forward(x1, x2)
     return made, len(addcmul)
+
+
+# the other tiled modes and the multi-date models
+OVERLAP, BAND_ROWS = 32, 8     # infer_overlap and overlap_band_rows
+FLEET, FLEET_SIDE = 16, 512    # the packing phase's pairs and their side
+MD_DATES, MD_SCENE = 5, 1024   # the multi-date phases' dates and side
+MD_SMALL, MD_SMALL_SIDE = 4, 512  # the stacks the multi-date phases pack
+
+
+def zero_counts(counters) -> None:
+    for fn in counters:
+        fn.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def timed(fn):
+    """(fn(), wall seconds to its end on the card, peak bytes allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def times(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def block_calls(base: int, levels) -> dict:
+    """{kernel: launches} of the folded 2-D DoubleConv blocks ``levels``
+    in one forward, each where the gate sends it (the gate reads the image
+    and channel shape only, not the batch)."""
+    from fabric_tpu_torch.ops.double_conv import supports
+    from fabric_tpu_torch.weights import block_channels
+
+    out = {"conv3x3_bias_relu": 0, "double_conv3x3_bias_relu": 0}
+    for level, (cin, cout) in block_channels(13, base).items():
+        if level in levels:
+            s = PATCH // LEVEL_SIDE[level]
+            if supports(s, s, cin, cout, cout):
+                out["double_conv3x3_bias_relu"] += 1
+            else:
+                out["conv3x3_bias_relu"] += 2
+    return out
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Run the int8 forwards on the int8 conv and fusion kernels' plain
+    versions (the ops are looked up on their modules at call time)."""
+    from fabric_tpu_torch.ops import conv_s8, fuse_s8
+
+    saved = (conv_s8.conv3x3_s8_q, conv_s8.conv3x3_s8,
+             fuse_s8.siamese_fuse_s8)
+    conv_s8.conv3x3_s8_q = lambda x, wq, k, b, s_out=None, packed=None, \
+        up=None, dtype=torch.bfloat16: conv_s8.conv3x3_s8_q_reference(
+            x, wq, k, b, s_out, up, dtype)
+    conv_s8.conv3x3_s8 = lambda x, wq, packed=None: \
+        conv_s8.conv3x3_s8_reference(x, wq)
+    fuse_s8.siamese_fuse_s8 = fuse_s8.siamese_fuse_s8_reference
+    try:
+        yield
+    finally:
+        (conv_s8.conv3x3_s8_q, conv_s8.conv3x3_s8,
+         fuse_s8.siamese_fuse_s8) = saved
+
+
+def int8_identical(label: str, mask, plain, within: bool) -> None:
+    """The int8 mask against the same int8 forward on the plain versions:
+    identical (>= 99.99% where a site of the kernel check differed within
+    one code or ulp)."""
+    agree = float((mask == plain).mean())
+    print(f"{label} vs the same int8 forward on the plain versions on the "
+          f"card: {'identical' if agree == 1 else 'DIFFERENT'} "
+          f"({int((mask != plain).sum())} pixels differ, agreement "
+          f"{agree:.6f}); change share {mask.mean():.4f}", flush=True)
+    if agree < (0.9999 if within else 1.0):
+        fail(f"{label}: the int8 kernel forward differs from the "
+             "plain-version one")
+
+
+def overlap_average(model, a1, a2):
+    """The overlap-averaged class-1 probability (fp32 canvas) of the
+    2048^2 scene through ``model``, as the overlap runner computes it."""
+    from fabric_tpu_torch.infer import device_tiling as tdt
+
+    stride = PATCH - OVERLAP
+    ys = xs = tdt._axis_positions(SCENE, PATCH, stride)
+    tiles = tuple(tdt._gather_tiles(a.to(torch.bfloat16), ys, xs, PATCH)
+                  for a in (a1, a2))
+    with torch.inference_mode():
+        probs = tdt._run_chunks(model, tiles, BATCH, True)
+    acc, cnt = tdt._overlap_sums(probs, ys, xs, SCENE, SCENE, PATCH, stride)
+    return (acc / cnt.clamp(min=1.0)).cpu().numpy()
+
+
+def overlap_phases(d1, d2, within):
+    """Phases 1 and 2 of the tiled modes: the 2048^2 pair at infer_overlap
+    32, bf16 folded, unbanded and banded at overlap_band_rows 8 (masks
+    equal; against the same overlap forward on the plain versions, flips
+    only where the averaged probability is within 1/32 of 0.5, on <= 0.1%
+    of the pixels), then at int8 (identical to the int8 forward on the
+    plain versions).  Each run's wall time, Mpx/s and peak memory, and its
+    kernel launches against the count its tiles make."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer import device_tiling as tdt
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
+
+    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
+                 model_base=BASE, infer_overlap=OVERLAP)
+    n_pos = len(tdt._axis_positions(SCENE, PATCH, PATCH - OVERLAP))
+    if (n_pos - 1) * (PATCH - OVERLAP) != SCENE - PATCH:
+        fail("the overlap grid should need no edge stop")
+    forwards = {0: -(-n_pos * n_pos // BATCH),
+                BAND_ROWS: sum(-(-min(BAND_ROWS, n_pos - b) * n_pos // BATCH)
+                               for b in range(0, n_pos, BAND_ROWS))}
+    per_fwd = {**block_calls(BASE, LEVEL_SIDE), "fused_mul_relu": 5}
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, conv_s8.conv3x3_s8_q,
+                fuse_s8.siamese_fuse_s8)
+    zeros8 = {"conv3x3_s8_q": 0, "siamese_fuse_s8": 0}
+    mpx = SCENE * SCENE / 1e6
+    masks = {}
+    for rows in (0, BAND_ROWS):
+        pred = ScenePredictor(cfg, bucket=512, device="cuda",
+                              overlap_band_rows=rows)
+        pred.predict(d1, d2)  # the runner's first call
+        zero_counts(counters)
+        masks[rows], wall, peak = timed(lambda: pred.predict(d1, d2))
+        launches = read_counts(counters)
+        expected = {**times(per_fwd, forwards[rows]), **zeros8}
+        label = f"banded ({rows} tile rows)" if rows else "unbanded"
+        print(f"overlap {OVERLAP} {label} {SCENE}^2 bf16: predict "
+              f"{wall * 1e3:.1f} ms = {mpx / wall:.2f} Mpx/s, peak "
+              f"allocated {peak / 2**20:.0f} MiB; {forwards[rows]} forwards"
+              f", kernels launched {launches} (expected {expected})",
+              flush=True)
+        if launches != expected:
+            fail(f"overlap {label}: the kernels did not run as planned")
+    if not np.array_equal(masks[0], masks[BAND_ROWS]):
+        fail("banded overlap differs from unbanded")
+    print("banded overlap mask == unbanded: ok", flush=True)
+
+    a1, a2 = (torch.from_numpy(d).cuda() for d in (d1, d2))
+    profile_runner(pred._get_runner(SCENE, SCENE), (a1, a2),
+                   f"overlap {OVERLAP} banded {SCENE}^2 bf16 runner")
+    with plain_versions():
+        avg = overlap_average(pred.model, a1, a2)
+    flips = masks[0] != (avg > 0.5)
+    near = np.abs(avg - 0.5) <= 1 / 32
+    print(f"overlap mask vs the plain-version forward on the card: "
+          f"{int(flips.sum())} flips ({flips.mean():.2e} of the pixels), "
+          f"{int((flips & ~near).sum())} where the averaged probability is "
+          f"farther than 1/32 from 0.5; change share {masks[0].mean():.4f}",
+          flush=True)
+    if (flips & ~near).any() or flips.mean() > 1e-3:
+        fail("the overlap mask breaks the margin rule")
+
+    pred8 = ScenePredictor(cfg, bucket=512, device="cuda", quant="int8")
+    pred8.predict(d1, d2)  # calibrates on this scene
+    zero_counts(counters)
+    m8, wall, peak = timed(lambda: pred8.predict(d1, d2))
+    launches = read_counts(counters)
+    n_fw = forwards[0]
+    # and the clip probe's stats forward: a conv3x3 launch per site and
+    # the five bf16 fusions
+    expected = {"conv3x3_bias_relu": 18, "double_conv3x3_bias_relu": 0,
+                "fused_mul_relu": 5, "conv3x3_s8_q": 18 * n_fw,
+                "siamese_fuse_s8": 5 * n_fw}
+    print(f"overlap {OVERLAP} {SCENE}^2 int8: predict {wall * 1e3:.1f} ms = "
+          f"{mpx / wall:.2f} Mpx/s, peak allocated {peak / 2**20:.0f} MiB; "
+          f"kernels launched {launches} (expected {expected})", flush=True)
+    if launches != expected:
+        fail("int8 overlap: the kernels did not run as planned")
+    with plain_int8():
+        plain = tdt.make_scene_infer(pred8._forward, PATCH, (SCENE, SCENE),
+                                     batch_size=BATCH, overlap=OVERLAP)(
+                                         a1, a2).cpu().numpy()
+    int8_identical(f"int8 overlap {SCENE}^2 mask", m8, plain, within)
+
+
+def fleet_phase(cfg):
+    """Phase 3: sixteen 512^2 pairs, bf16 and int8: predict_many(pack=
+    "auto") equals predict pair by pair, bit for bit (the chunks mix the
+    scenes' tiles); the packed and the unpacked rate."""
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
+
+    rng = np.random.RandomState(SEED + 7)
+    pairs = [tuple(rng.randn(FLEET_SIDE, FLEET_SIDE, 13).astype(np.float32)
+                   for _ in range(2)) for _ in range(FLEET)]
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, conv_s8.conv3x3_s8_q,
+                fuse_s8.siamese_fuse_s8)
+    packs = FLEET * (FLEET_SIDE // PATCH) ** 2 // BATCH
+    mpx = FLEET * FLEET_SIDE ** 2 / 1e6
+    for quant in ("none", "int8"):
+        pred = ScenePredictor(cfg, bucket=512, device="cuda", quant=quant)
+        seq = [pred.predict(*p) for p in pairs]  # int8: calibrates first
+        zero_counts(counters)
+        packed, wall_p, _ = timed(lambda: pred.predict_many(pairs,
+                                                            pack="auto"))
+        launches = read_counts(counters)
+        if quant == "none":
+            expected = {**times({**block_calls(BASE, LEVEL_SIDE),
+                                 "fused_mul_relu": 5}, packs),
+                        "conv3x3_s8_q": 0, "siamese_fuse_s8": 0}
+        else:  # and a clip probe per pair
+            expected = {"conv3x3_bias_relu": 18 * FLEET,
+                        "double_conv3x3_bias_relu": 0,
+                        "fused_mul_relu": 5 * FLEET,
+                        "conv3x3_s8_q": 18 * packs,
+                        "siamese_fuse_s8": 5 * packs}
+        if launches != expected:
+            fail(f"packed {quant}: kernels launched {launches}, expected "
+                 f"{expected}")
+        for a, b in zip(packed, seq, strict=True):
+            if not np.array_equal(a, b):
+                fail(f"packed {quant} serving differs from predict")
+        _, wall_u, _ = timed(lambda: pred.predict_many(pairs))
+        run = pred._get_packed_runner(FLEET_SIDE, FLEET_SIDE, FLEET // packs)
+        stacks = [torch.from_numpy(np.stack([p[i] for p in pairs[:FLEET //
+                                                                 packs]]))
+                  .cuda() for i in (0, 1)]
+        dev_ms = device_ms(lambda: run(*stacks), 3) * packs
+        print(f"fleet of {FLEET} {FLEET_SIDE}^2 pairs, {quant}: "
+              f"predict_many(pack='auto') == [predict(*p) for p in pairs]: "
+              f"ok; packed {wall_p * 1e3:.1f} ms = {mpx / wall_p:.2f} Mpx/s "
+              f"({packs} forwards; launches {launches}; the packed runner "
+              f"alone, scenes on the card, {dev_ms:.1f} ms = "
+              f"{mpx / dev_ms * 1e3:.2f} Mpx/s), unpacked {wall_u * 1e3:.1f}"
+              f" ms = {mpx / wall_u:.2f} Mpx/s ({FLEET} forwards)",
+              flush=True)
+
+
+def plain_multidate(model, a):
+    """Mask, fp32 logit margin |l1 - l0| and logit scale of the forward on
+    the plain versions over the stack's grid."""
+    from fabric_tpu_torch.infer import device_tiling as tdt
+
+    ys, xs, k, _, _ = tdt._plan_grid(MD_SCENE, MD_SCENE, PATCH, PATCH, BATCH)
+    tiles = tdt._multidate_tiles(a.to(torch.bfloat16), ys, xs, PATCH)
+    with plain_versions(), torch.inference_mode():
+        logits = torch.cat([model(tiles[i:i + BATCH])
+                            for i in range(0, k, BATCH)])
+
+    def stitch(o):
+        return tdt._stitch(o, ys, xs, k, MD_SCENE, MD_SCENE,
+                           PATCH).cpu().numpy()
+    return (stitch(logits.argmax(-1).to(torch.uint8)),
+            stitch((logits[..., 1] - logits[..., 0]).abs()),
+            logits.abs().max().item())
+
+
+def multidate_phase(name: str, within):
+    """Phases 4 and 5 for one multi-date family at T = 5, full width
+    (UNetLSTM base 64, UNet3D base 32), bf16 folded: a 1024^2 stack
+    through predict_multidate (launches per forward against the count;
+    the mask held to the plain versions by the bi-date margin rule), four
+    512^2 stacks packed == one by one, the time per forward; then int8:
+    calibrated on the stack, the mask identical to the int8 forward on the
+    plain versions, conv3x3_s8 launches per forward."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
+    from fabric_tpu_torch.infer.device_tiling import (
+        make_scene_infer_multidate)
+
+    cfg = Config(model=name, patch_size=PATCH, eval_batch_size=BATCH,
+                 dtype="bfloat16", num_dates=MD_DATES)
+    base = 64 if name == "unet_lstm" else 32
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, conv_s8.conv3x3_s8_q,
+                conv_s8.conv3x3_s8, fuse_s8.siamese_fuse_s8)
+    rng = np.random.RandomState(SEED + 11)
+    stack = rng.randn(MD_DATES, MD_SCENE, MD_SCENE, 13).astype(np.float32)
+    smalls = [rng.randn(MD_DATES, MD_SMALL_SIDE, MD_SMALL_SIDE,
+                        13).astype(np.float32) for _ in range(MD_SMALL)]
+    levels = (LEVEL_SIDE if name == "unet_lstm"
+              else [k for k in LEVEL_SIDE if k.startswith("up")])
+    per_fwd = block_calls(base, levels)
+    none8 = {"conv3x3_s8_q": 0, "conv3x3_s8": 0, "siamese_fuse_s8": 0}
+    n_fw = (MD_SCENE // PATCH) ** 2 // BATCH
+    mpx = MD_SCENE * MD_SCENE / 1e6
+    pred = ScenePredictor(cfg, bucket=512, device="cuda")
+    zero_counts(counters)
+    mask, wall, peak = timed(lambda: pred.predict_multidate(stack))
+    launches = read_counts(counters)
+    expected = {**times(per_fwd, n_fw), "fused_mul_relu": 0, **none8}
+    print(f"{name} T={MD_DATES} {MD_SCENE}^2 bf16 ("
+          f"{sum(p.numel() for p in pred.model.parameters())} parameters, "
+          f"BatchNorm folded): predict_multidate "
+          f"{wall * 1e3:.1f} ms (first call), peak allocated "
+          f"{peak / 2**20:.0f} MiB; kernels launched {launches} (expected "
+          f"{expected})", flush=True)
+    if launches != expected:
+        fail(f"{name}: the kernels did not run as planned")
+    a = torch.from_numpy(stack).cuda()
+    plain_mask, margin, scale = plain_multidate(pred.model, a)
+    flips = mask != plain_mask
+    worst = float(margin[flips].max()) if flips.any() else 0.0
+    print(f"{name} {MD_SCENE}^2 mask vs the plain-version forward on the "
+          f"card: agreement {1 - flips.mean():.6f} ({int(flips.sum())} "
+          f"flips, largest plain margin at a flip {worst:.4g}, bound "
+          f"{scale / 16:.4g}); change share {mask.mean():.4f}", flush=True)
+    if worst > scale / 16 or flips.mean() > 1e-3:
+        fail(f"{name}: the kernel forward disagrees with the plain one")
+    run = pred._get_runner(MD_SCENE, MD_SCENE)
+    fwd_ms = device_ms(lambda: run(a), 3) / n_fw
+    profile_runner(run, (a,), f"{name} {MD_SCENE}^2 bf16 runner")
+    seq = [pred.predict_multidate(s) for s in smalls]
+    zero_counts(counters)
+    packed = pred.predict_many_multidate(smalls, pack="auto")
+    launches = read_counts(counters)
+    small_fw = MD_SMALL * (MD_SMALL_SIDE // PATCH) ** 2 // BATCH
+    for x, y in zip(packed, seq, strict=True):
+        if not np.array_equal(x, y):
+            fail(f"{name}: packed multi-date serving differs from predict")
+    if launches != {**times(per_fwd, small_fw), "fused_mul_relu": 0,
+                    **none8}:
+        fail(f"{name}: packed launches {launches}")
+    print(f"{name}: predict_many_multidate(pack='auto') over {MD_SMALL} "
+          f"{MD_SMALL_SIDE}^2 stacks == one by one: ok ({small_fw} forward);"
+          f" bf16 forward of {BATCH} tiles x {MD_DATES} dates {fwd_ms:.2f} "
+          f"ms = "
+          f"{BATCH * PATCH * PATCH / fwd_ms / 1e3:.2f} Mpx/s "
+          f"(device-resident runner)", flush=True)
+
+    pred8 = ScenePredictor(cfg, bucket=512, device="cuda", quant="int8")
+    pred8.predict_multidate(stack)  # calibrates on this stack
+    zero_counts(counters)
+    m8, wall8, _ = timed(lambda: pred8.predict_multidate(stack))
+    launches = read_counts(counters)
+    # the clip probe's stats forward: a conv3x3 launch per 2-D site
+    probe = 18 if name == "unet_lstm" else 8
+    expected = {"conv3x3_bias_relu": probe, "double_conv3x3_bias_relu": 0,
+                "fused_mul_relu": 0, "conv3x3_s8_q": 18 * n_fw,
+                "conv3x3_s8": (2 * MD_DATES if name == "unet_lstm" else 0)
+                * n_fw, "siamese_fuse_s8": 0}
+    if launches != expected:
+        fail(f"{name} int8: kernels launched {launches}, expected "
+             f"{expected}")
+    run8 = pred8._get_runner(MD_SCENE, MD_SCENE)
+    fwd8_ms = device_ms(lambda: run8(a), 3) / n_fw
+    profile_runner(run8, (a,), f"{name} {MD_SCENE}^2 int8 runner", top=12)
+    print(f"{name} T={MD_DATES} {MD_SCENE}^2 int8: predict_multidate "
+          f"{wall8 * 1e3:.1f} ms; kernels launched {launches} (expected "
+          f"{expected}); int8 forward {fwd8_ms:.2f} ms = "
+          f"{BATCH * PATCH * PATCH / fwd8_ms / 1e3:.2f} Mpx/s "
+          f"(device-resident runner)", flush=True)
+    with plain_int8():
+        plain8 = make_scene_infer_multidate(
+            pred8._forward, PATCH, (MD_SCENE, MD_SCENE), num_dates=MD_DATES,
+            batch_size=BATCH)(a).cpu().numpy()
+    int8_identical(f"{name} int8 {MD_SCENE}^2 mask", m8, plain8, within)
 
 
 def validate_phase(cfg):
@@ -1656,7 +2014,7 @@ def main() -> int:
           f"{fwd_ms / (SCENE * SCENE / (PATCH * PATCH) / BATCH):.2f} ms",
           flush=True)
 
-    profile_runner(run, a1, a2, f"bf16 {SCENE}^2 runner")
+    profile_runner(run, (a1, a2), f"bf16 {SCENE}^2 runner")
 
     # --- int8: the kernels, the microbench path, the int8 serve ---
     s8_rows, mm_row, within = check_int8_kernels()
@@ -1670,6 +2028,15 @@ def main() -> int:
           f"unfused (raw launches + plain epilogue) "
           f"{sum(r['unfused_ms'] for r in s8_rows):.3f} ms", flush=True)
     rows += s8_rows + [mm_row] + fuse_rows
+
+    # --- the other tiled modes, the multi-date models ---
+    t0 = time.perf_counter()
+    overlap_phases(d1, d2, within)
+    fleet_phase(cfg)
+    for name in ("unet_lstm", "unet3d"):
+        multidate_phase(name, within)
+    print(f"tiled modes and multi-date phases: {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
 
     # --- the training path, then its kernel and cross checks ---
     with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:

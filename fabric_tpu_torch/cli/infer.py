@@ -1,15 +1,23 @@
 """``python -m fabric_tpu_torch.cli.infer --config <json> --resume <ckpt>
-[--city X ...] [--quant int8] [--device cpu]``
+[--city X ...] [--quant int8] [--overlap_band_rows N] [--pack N|auto]
+[--device cpu]``
 
 Whole-scene inference of dataset cities (counterpart of
-``fabric_tpu/cli/infer.py``): loads a checkpoint (for a directory, its
-best-metric save, else the latest), predicts each requested city (default:
-``validation_cities``) and writes ``<output_dir>/<city>_mask.png``.  Without
-``--quant`` it runs the reference grid path (``infer/runner.infer_city`` on
-the unfolded eval forward); ``--quant int8`` serves through
-``ScenePredictor`` (BatchNorm folded, int8, calibrated on the first city).
-Unless ``--no_tracker``, every scene writes a ``serve_*`` record to
-``<log_dir>/<run>/metrics.jsonl``.  On the card unless ``--device cpu``.
+``fabric_tpu/cli/infer.py``), for the bi-date model or a multi-date one
+(``--model unet_lstm|unet3d``, ``--num_dates T``): loads a checkpoint (for
+a directory, its best-metric save, else the latest), predicts each
+requested city (default: ``validation_cities``) and writes
+``<output_dir>/<city>_mask.png``.  Without ``--quant``, ``--pack`` or
+``--overlap_band_rows`` it runs the reference path
+(``infer/runner.infer_city`` on the unfolded eval forward, grid or
+``--infer_overlap``); with any of them it serves through ``ScenePredictor``
+(BatchNorm folded; ``--quant int8`` calibrated on the first city;
+``--overlap_band_rows`` accumulating overlap-mode probabilities in bands
+of N tile rows; ``--pack`` packing N same-bucket cities, or "auto" as many
+as fill the tile batch, into one forward, the cities loaded lazily as the
+packs fill).  Unless ``--no_tracker``, every scene writes a ``serve_*``
+record to ``<log_dir>/<run>/metrics.jsonl``.  On the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -22,8 +30,6 @@ import time
 
 # fabric_tpu serving options the port does not have yet -> ROADMAP item
 _NOT_PORTED = {
-    "pack": "6 (fleet packing)",
-    "overlap_band_rows": "6 (other tiled modes)",
     "fullconv_band_rows": "9 (seamless fullconv)",
     "fullconv_stream": "9 (seamless fullconv)",
     "shard_scene": "10 (multi-GPU)",
@@ -41,12 +47,22 @@ def main(argv=None) -> int:
                        help="int8 = post-training-quantized serving, "
                             "calibrated once on the first city")
     extra.add_argument("--bucket", type=int, default=512,
-                       help="int8: scene dims pad up to multiples of this")
+                       help="int8, --pack, --overlap_band_rows: scene dims "
+                            "pad up to multiples of this")
+    extra.add_argument("--overlap_band_rows", type=int, default=0,
+                       help="overlap mode (--infer_overlap > 0), bi-date: "
+                            "accumulate in bands of N tile rows (bounded "
+                            "memory on large scenes; the same masks)")
+    extra.add_argument("--pack", default=0,
+                       type=lambda v: v if v == "auto" else int(v),
+                       help="grid mode: run N same-bucket cities per "
+                            "forward (their tiles share the chunks; the "
+                            "masks are the unpacked ones); 'auto' packs, "
+                            "per bucket, as many as fill the tile batch")
     extra.add_argument("--device", default=None, help="cuda (default) or cpu")
     extra.add_argument("--no_tracker", action="store_true",
                        help="write no serve_* records")
-    for opt in ("pack", "overlap_band_rows", "fullconv_band_rows", "bundle",
-                "aot_dir"):
+    for opt in ("fullconv_band_rows", "bundle", "aot_dir"):
         extra.add_argument(f"--{opt}", default=None)
     for opt in ("fullconv_stream", "shard_scene"):
         extra.add_argument(f"--{opt}", action="store_true")
@@ -86,13 +102,14 @@ def main(argv=None) -> int:
 def _serve(own, cfg, tracker) -> None:
     from fabric_tpu_torch import checkpoint as ckpt
     from fabric_tpu_torch.data.image import write_png
-    from fabric_tpu_torch.infer.runner import infer_city
+    from fabric_tpu_torch.infer.runner import infer_city, load_scene
     from fabric_tpu_torch.infer.service import ScenePredictor, resolve_device
     from fabric_tpu_torch.models import build_model
 
-    if own.quant == "int8":
+    if own.quant == "int8" or own.overlap_band_rows > 0 or own.pack:
         pred = ScenePredictor(cfg, checkpoint=cfg.resume, bucket=own.bucket,
-                              device=own.device, quant="int8",
+                              device=own.device, quant=own.quant,
+                              overlap_band_rows=own.overlap_band_rows,
                               tracker=tracker)
         predict_city = pred.predict_city
     else:
@@ -117,8 +134,21 @@ def _serve(own, cfg, tracker) -> None:
             return mask
 
     os.makedirs(own.output_dir, exist_ok=True)
-    for city in own.city or cfg.validation_cities:
-        mask = predict_city(city)
+    cities = list(own.city or cfg.validation_cities)
+    if own.pack:
+        # a city is loaded when its pack has room: the host holds the open
+        # packs and the packs in flight, not every city
+        scenes = (load_scene(cfg, city) for city in cities)
+        if pred.multi_date:
+            masks = pred.predict_many_multidate(scenes, pack=own.pack,
+                                                scene_ids=cities)
+        else:
+            masks = pred.predict_many(((s[0], s[1]) for s in scenes),
+                                      pack=own.pack, scene_ids=cities)
+        results = zip(cities, masks)
+    else:
+        results = ((city, predict_city(city)) for city in cities)
+    for city, mask in results:
         out = os.path.join(own.output_dir, f"{city}_mask.png")
         write_png(out, mask * 255)
         logging.info("wrote %s (%dx%d, %.2f%% change)", out, mask.shape[0],

@@ -1,12 +1,14 @@
 """Synthetic OSCD-layout dataset for tests and smoke runs (a copy of
-``fabric_tpu/data/synthetic.py``, bi-date).
+``fabric_tpu/data/synthetic.py``).
 
-Writes ``images/<city>/imgs_{1,2}/<city>_<date>_<BAND>.npy``,
-``labels/<city>/cm/cm.png`` and ``images/<city>/pair/img{1,2}.png``, with
-band values whose normalised form is ~N(0, 1), blob-shaped change masks,
-and date 2 shifted inside the change regions: enough signal that a few
-training steps measurably reduce the loss.  The same seed writes the same
-files as ``fabric_tpu``'s generator.
+Writes ``images/<city>/imgs_{1..T}/<city>_<date>_<BAND>.npy``,
+``labels/<city>/cm/cm.png`` and ``images/<city>/pair/img{1,2}.png`` (the
+first and the last date), with band values whose normalised form is
+~N(0, 1), blob-shaped change masks, and each date t shifted by 2t/(T-1)
+inside the change regions (T = 2 for the bi-date model; more for the
+multi-date ones): enough signal that a few training steps measurably
+reduce the loss.  The same seed writes the same files as ``fabric_tpu``'s
+generator.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ def _blob_mask(h: int, w: int, rng: np.random.RandomState,
 
 def generate_synthetic_dataset(root: str, cfg, cities: list[str] | None = None,
                                sizes: list[tuple[int, int]] | None = None,
-                               seed: int = 0) -> list[str]:
-    """Create a synthetic dataset under ``root``; returns the city list."""
+                               seed: int = 0, num_dates: int = 2) -> list[str]:
+    """Create a synthetic dataset of ``num_dates`` dates under ``root``;
+    returns the city list."""
     rng = np.random.RandomState(seed)
     cities = cities or ["alpha", "beta", "gamma"]
     sizes = sizes or [(97, 113), (128, 96), (75, 75)]
@@ -43,9 +46,10 @@ def generate_synthetic_dataset(root: str, cfg, cities: list[str] | None = None,
         mask = _blob_mask(h, w, rng)
         base = rng.randn(h, w, nb).astype(np.float32)
         dates = []
-        for t in range(2):
+        for t in range(num_dates):
             d = base + rng.randn(h, w, nb).astype(np.float32) * 0.1
-            d[mask] += 2.0 * t
+            # the change ramps up over the sequence (0 at date 1)
+            d[mask] += 2.0 * t / max(num_dates - 1, 1)
             dates.append(d)
         for t, cube in enumerate(dates):
             date = f"imgs_{t + 1}"
@@ -60,7 +64,7 @@ def generate_synthetic_dataset(root: str, cfg, cities: list[str] | None = None,
         write_png(os.path.join(ldir, "cm.png"), mask.astype(np.uint8) * 255)
         pdir = os.path.join(root, "images", city, "pair")
         os.makedirs(pdir, exist_ok=True)
-        for t, cube in enumerate(dates):
+        for t, cube in enumerate((dates[0], dates[-1])):
             rgb = np.clip((cube[:, :, 1:4] + 3) * 42, 0, 255).astype(np.uint8)
             write_png(os.path.join(pdir, f"img{t + 1}.png"), rgb)
     return list(cities)

@@ -47,7 +47,7 @@ def evaluate(cfg, dataset: dict | None = None,
                                             load_label,
                                             metadata_from_dataset)
     from fabric_tpu_torch.infer.runner import infer_city
-    from fabric_tpu_torch.infer.service import resolve_device
+    from fabric_tpu_torch.infer.service import _not_ported, resolve_device
     from fabric_tpu_torch.losses import get_loss_fn
     from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
     from fabric_tpu_torch.models import build_model
@@ -55,6 +55,9 @@ def evaluate(cfg, dataset: dict | None = None,
     from fabric_tpu_torch.train.state import create_state
     from fabric_tpu_torch.train.steps import make_eval_step
 
+    if cfg.model != "bidate":
+        raise _not_ported(f"evaluating model {cfg.model!r}",
+                          "8b (multi-date training)")
     device = resolve_device(device)
     cities = list(cities or cfg.validation_cities)
     if dataset is None:

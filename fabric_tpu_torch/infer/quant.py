@@ -1,5 +1,8 @@
-"""Int8 post-training-quantized bi-date serving (counterpart of
-``fabric_tpu/infer/quant.py``, bi-date model).
+"""Int8 post-training-quantized serving (counterpart of
+``fabric_tpu/infer/quant.py``): the scheme, the building blocks every
+model family shares (:class:`StatsBlocks`, :class:`Int8Blocks`) and the
+bi-date forward; the UNetLSTM and UNet3D forwards are in
+``infer/quant_multidate.py``, and ``model=`` sends each family to its own.
 
 The quantization scheme is ``fabric_tpu``'s, step for step:
 
@@ -39,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fabric_tpu_torch.models import MULTI_DATE
 from fabric_tpu_torch.models.blocks import max_pool2x2
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import conv_s8, fuse_s8
@@ -76,10 +80,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_family(model: str, local_upsample: bool) -> None:
-    if model in ("unet_lstm", "unet3d"):
-        raise _not_ported(f"int8 serving of model {model!r}",
-                          "8 (multi-date models)")
-    if model != "bidate":
+    if model not in ("bidate",) + MULTI_DATE:
         raise ValueError(f"no int8 forward for model {model!r}")
     if local_upsample:
         raise _not_ported("int8 with local_upsample (fullconv)",
@@ -99,8 +100,8 @@ def _np(a) -> np.ndarray:
 
 
 def folded_params(model: torch.nn.Module) -> dict:
-    """A folded BiDateNet's parameters as ``fabric_tpu``'s folded params
-    tree (``inc/conv1/kernel``, ``down1/conv/conv1/bias``, ...), the tensors
+    """A folded model's parameters as ``fabric_tpu``'s folded params tree
+    (``inc/conv1/kernel``, ``down1/conv/conv1/bias``, ...), the tensors
     themselves (no copies)."""
     if not getattr(model, "fold_bn", False):
         raise ValueError("the int8 forward runs on BatchNorm-folded weights")
@@ -115,9 +116,11 @@ def folded_params(model: torch.nn.Module) -> dict:
 
 
 def derive_conv_sites(folded) -> list[tuple[str, tuple]]:
-    """[(name, path)] for every quantizable conv site of a BN-folded tree:
-    every leaf dict holding a ``kernel``, ``conv`` wrapper levels elided
-    from the dotted name; the 1x1 head ``outc`` stays unquantized."""
+    """[(name, path)] for every quantizable conv site of a BN-folded tree
+    of any family: every leaf dict holding a ``kernel``, ``conv`` wrapper
+    levels elided from the dotted name (so UNet3D's ``down1/conv1`` and
+    BiDateNet's ``down1/conv/conv1`` are both ``down1.conv1``); the 1x1
+    head ``outc`` stays unquantized."""
     sites: list[tuple[str, tuple]] = []
 
     def walk(tree, path: tuple):
@@ -135,7 +138,8 @@ def derive_conv_sites(folded) -> list[tuple[str, tuple]]:
 
 
 def _quantize_kernel(k: np.ndarray) -> dict:
-    """Symmetric per-output-channel int8 for a (kh, kw, cin, cout) kernel."""
+    """Symmetric per-output-channel int8 for a conv kernel of any spatial
+    rank ((kh, kw, cin, cout) or (kd, kh, kw, cin, cout))."""
     sw = np.max(np.abs(k), axis=tuple(range(k.ndim - 1))) / 127.0
     sw = np.maximum(sw, 1e-12)
     wq = np.clip(np.rint(k / sw), -127, 127).astype(np.int8)
@@ -146,17 +150,21 @@ def quantize_weights(folded) -> dict:
     """{site: {"wq": int8 kernel, "sw": float32 (Cout,), "bias": float32
     (Cout,)}} as numpy, bit-equal to ``fabric_tpu``'s; each ``upK.conv1``
     also gets ``.skip`` / ``.up`` entries, the kernel split at cin // 2 and
-    each half quantized with its own per-channel scales."""
+    each half quantized with its own per-channel scales, and the UNetLSTM
+    gate conv ``.x`` / ``.h`` entries, split the same way at its [x | h]
+    concat boundary."""
     out = {}
     for name, path in derive_conv_sites(folded):
         p = _get(folded, path)
         k = _np(p["kernel"]).astype(np.float32)
         out[name] = dict(_quantize_kernel(k),
                          bias=_np(p["bias"]).astype(np.float32))
-        if name.startswith("up") and name.endswith("conv1"):
-            cs = k.shape[-2] // 2
-            out[name + ".skip"] = _quantize_kernel(k[..., :cs, :])
-            out[name + ".up"] = _quantize_kernel(k[..., cs:, :])
+        if ((name.startswith("up") and name.endswith("conv1"))
+                or name == "bottleneck_lstm.gates"):
+            cs = k.shape[-2] // 2  # equal halves in every family
+            a, b = (".skip", ".up") if name.startswith("up") else (".x", ".h")
+            out[name + a] = _quantize_kernel(k[..., :cs, :])
+            out[name + b] = _quantize_kernel(k[..., cs:, :])
     return out
 
 
@@ -164,45 +172,69 @@ def _absmax(x: torch.Tensor) -> torch.Tensor:
     return x.float().abs().amax()
 
 
-def make_stats_forward(folded, dtype=torch.bfloat16, local_upsample=False,
-                       model: str = "bidate"):
-    """The exact folded forward ``(d1, d2) -> (logits, {site: absmax})``,
-    the calibration taps: each conv site's input absmax, ``enc.x5`` and the
-    fused skips ``f1..f4``.  The absmaxes are 0-dim tensors on the device
-    (nothing waits for them here)."""
-    _check_family(model, local_upsample)
-    sites = dict(derive_conv_sites(folded))
-    on_card = _device(folded).type == "cuda"
-    packed = {name: (conv_ops.pack_weight(_get(folded, path)["kernel"])
-                     if on_card else None) for name, path in sites.items()}
+class StatsBlocks:
+    """The exact folded forward's 2-D blocks with their calibration taps,
+    shared by every family: :meth:`dc` runs a folded DoubleConv as two
+    conv3x3_bias_relu launches (the site's input absmax tapped first, on
+    weights packed once), :meth:`decode` the Up stack and the head."""
 
-    def dc(x, block, stats):
+    def __init__(self, folded):
+        self.folded = folded
+        self.sites = dict(derive_conv_sites(folded))
+        on_card = _device(folded).type == "cuda"
+        self.packed = {}
+        for name, path in self.sites.items():
+            k = _get(folded, path)["kernel"]
+            if k.dim() == 4 and name != "bottleneck_lstm.gates":
+                self.packed[name] = conv_ops.pack_weight(k) if on_card \
+                    else None
+
+    def dc(self, x: torch.Tensor, block: str, stats: dict) -> torch.Tensor:
         for conv in ("conv1", "conv2"):
             name = f"{block}.{conv}"
             stats[name] = _absmax(x)
-            p = _get(folded, sites[name])
+            p = _get(self.folded, self.sites[name])
             x = conv_ops.conv3x3_bias_relu(x, p["kernel"], p["bias"],
-                                           packed[name])
+                                           self.packed[name])
         return x
+
+    def decode(self, y: torch.Tensor, skips, stats: dict) -> torch.Tensor:
+        """The decoder from the bottleneck ``y`` over the fused skips
+        (f4, f3, f2, f1), then the head: float32 logits."""
+        for k, skip in zip(range(1, 5), skips):
+            u = pad_to_match(upsample2x_align_corners(y), skip.shape[1],
+                             skip.shape[2])
+            y = self.dc(torch.cat([skip, u], dim=-1), f"up{k}", stats)
+        return _outc(self.folded, y)
+
+
+def make_stats_forward(folded, dtype=torch.bfloat16, local_upsample=False,
+                       model: str = "bidate"):
+    """The exact folded forward ``(*inputs) -> (logits, {site: absmax})``,
+    the calibration taps: each conv site's input absmax, ``enc.x5`` and
+    the fused skips ``f1..f4`` (UNetLSTM: ``lstm.h`` too).  The inputs are
+    (d1, d2) for the bi-date model, one (N, T, H, W, C) stack for a
+    multi-date one.  The absmaxes are 0-dim tensors on the device (nothing
+    waits for them here)."""
+    _check_family(model, local_upsample)
+    if model in MULTI_DATE:
+        from fabric_tpu_torch.infer import quant_multidate
+        return quant_multidate.make_stats_forward(folded, dtype, model)
+    blocks = StatsBlocks(folded)
 
     @torch.inference_mode()
     def forward(x_d1, x_d2):
         stats: dict = {}
         n = x_d1.shape[0]
         x = torch.cat([x_d1, x_d2]).to(dtype)
-        feats = [dc(x, "inc", stats)]
+        feats = [blocks.dc(x, "inc", stats)]
         for k in range(1, 5):
-            feats.append(dc(max_pool2x2(feats[-1]), f"down{k}", stats))
+            feats.append(blocks.dc(max_pool2x2(feats[-1]), f"down{k}", stats))
         stats["enc.x5"] = _absmax(feats[4])
         f = [fused_ops.fused_mul_relu(a[n:], a[:n]) for a in feats]
         for k in range(1, 5):
             stats[f"f{k}"] = _absmax(f[k - 1])
-        y = f[4]
-        for k, skip in zip(range(1, 5), (f[3], f[2], f[1], f[0])):
-            u = pad_to_match(upsample2x_align_corners(y), skip.shape[1],
-                             skip.shape[2])
-            y = dc(torch.cat([skip, u], dim=-1), f"up{k}", stats)
-        return _outc(folded, y), stats
+        return blocks.decode(f[4], (f[3], f[2], f[1], f[0]), stats), stats
 
     return forward
 
@@ -221,11 +253,19 @@ def stack_stats(stats: dict) -> tuple[list[str], torch.Tensor]:
     return names, torch.stack([stats[k] for k in names])
 
 
+def as_args(item, device) -> tuple:
+    """A calibration batch item as the forward's inputs on ``device``: a
+    (d1, d2) pair for the bi-date model, one (N, T, H, W, C) stack for a
+    multi-date one."""
+    items = item if isinstance(item, (tuple, list)) else (item,)
+    return tuple(torch.as_tensor(np.asarray(a), device=device)
+                 for a in items)
+
+
 def _absmaxes(fwd, batches, device) -> dict:
     maxes: dict = {}
-    for d1, d2 in batches:
-        _, stats = fwd(*(torch.as_tensor(np.asarray(d), device=device)
-                         for d in (d1, d2)))
+    for item in batches:
+        _, stats = fwd(*as_args(item, device))
         names, vals = stack_stats(stats)
         for k, v in zip(names, vals.tolist()):
             maxes[k] = max(maxes.get(k, 0.0), v)
@@ -239,9 +279,10 @@ def _device(folded) -> torch.device:
 def calibrate(folded, batches, dtype=torch.bfloat16, headroom: float = 1.0,
               stats_forward=None, local_upsample: bool = False,
               model: str = "bidate") -> dict:
-    """{site: scale}: absmax / 127 of each tap over the (d1, d2) NHWC
-    ``batches``, times ``headroom`` (0.9 clips the top 10% of the observed
-    range).  ``stats_forward``: a cached :func:`make_stats_forward`."""
+    """{site: scale}: absmax / 127 of each tap over ``batches`` ((d1, d2)
+    NHWC pairs, or (N, T, H, W, C) stacks for a multi-date ``model``),
+    times ``headroom`` (0.9 clips the top 10% of the observed range).
+    ``stats_forward``: a cached :func:`make_stats_forward`."""
     fwd = stats_forward or make_stats_forward(folded, dtype, local_upsample,
                                               model)
     maxes = _absmaxes(fwd, batches, _device(folded))
@@ -260,60 +301,110 @@ def clip_report(folded, act_scales: dict, batches, dtype=torch.bfloat16,
             for k in maxes if k in act_scales}
 
 
-def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
-                    local_upsample: bool = False, model: str = "bidate"):
-    """The int8 forward ``(d1, d2) -> float32 logits`` of ``fabric_tpu``'s
-    ``_make_forward`` in int8 mode, with the serving model's call signature
-    (it drops into ``make_scene_infer`` unchanged).  The weights are
-    quantized, moved to the device and packed for the kernel here, once,
-    with each site's scale product ``sw * sx`` in float32."""
-    _check_family(model, local_upsample)
-    device = _device(folded)
-    s = dict(act_scales)
-    w = {}
-    for name, p in quantize_weights(folded).items():
-        # the input scale of each site; a decoder conv1's two halves take
-        # the fused skip's and the concat range's
-        block, _, half = name.partition(".conv1.")
-        sx = (s[f"f{5 - int(block[2:])}"] if half == "skip"
-              else s[f"{block}.conv1"] if half == "up" else s[name])
-        wq = torch.from_numpy(p["wq"]).to(device)
-        w[name] = {"wq": wq, "k": torch.from_numpy(p["sw"]).to(device) * sx,
-                   "packed": (conv_s8.pack_weight(wq)
-                              if device.type == "cuda" else None)}
-        if "bias" in p:
-            w[name]["bias"] = torch.from_numpy(p["bias"]).to(device)
-    for block in ("up1", "up2", "up3", "up4"):
-        w[f"{block}.conv1.skip"]["bias"] = w[f"{block}.conv1"]["bias"]
+class Int8Blocks:
+    """The int8 forward's conv sites and decoder, shared by every family.
 
-    def site(xq, name, s_out=None, up=None):
-        """One conv site (conv3x3_s8_q): int8 in; int8 at s_out, else
-        dtype out."""
-        p = w[name]
+    The weights are quantized, moved to the device and packed for the
+    kernel once, each with its scale product ``sw * sx`` in float32, sx
+    the input's activation scale: a decoder conv1's two halves take the
+    skip's (``skip_scales[block]``) and the concat range's, the UNetLSTM
+    gate conv's halves ``enc.x5`` and ``lstm.h``; a conv that runs as its
+    two halves keeps only its bias.  UNet3D's DHWIO kernels are folded to
+    (3, 3, 3 * Cin, Cout) (:func:`conv_s8.fold_depth`), the kernel of the
+    conv over T-neighbour stacks."""
+
+    def __init__(self, folded, act_scales: dict, skip_scales: dict,
+                 dtype=torch.bfloat16):
+        self.folded = folded
+        self.s = s = dict(act_scales)
+        self.dtype = dtype
+        device = _device(folded)
+        self.w = w = {}
+        for name, p in quantize_weights(folded).items():
+            block, _, half = name.partition(".conv1.")
+            if half:
+                sx = skip_scales[block] if half == "skip" \
+                    else s[f"{block}.conv1"]
+            elif name.startswith("bottleneck_lstm.gates."):
+                sx = s["enc.x5"] if name.endswith(".x") else s["lstm.h"]
+            elif name == "bottleneck_lstm.gates" or (
+                    name.startswith("up") and name.endswith(".conv1")):
+                w[name] = {"bias": torch.from_numpy(p["bias"]).to(device)}
+                continue
+            else:
+                sx = s[name]
+            wq = torch.from_numpy(p["wq"])
+            if wq.dim() == 5:
+                wq = conv_s8.fold_depth(wq)
+            wq = wq.to(device)
+            w[name] = {"wq": wq,
+                       "k": torch.from_numpy(p["sw"]).to(device) * sx,
+                       "packed": (conv_s8.pack_weight(wq)
+                                  if device.type == "cuda" else None)}
+            if "bias" in p:
+                w[name]["bias"] = torch.from_numpy(p["bias"]).to(device)
+        for block in ("up1", "up2", "up3", "up4"):
+            w[f"{block}.conv1.skip"]["bias"] = w[f"{block}.conv1"]["bias"]
+
+    def site(self, xq, name, s_out=None, up=None):
+        """One conv site (conv3x3_s8_q): int8 in; int8 at s_out, else the
+        compute dtype out."""
+        p = self.w[name]
         return conv_s8.conv3x3_s8_q(xq, p["wq"], p["k"], p["bias"], s_out,
-                                    p["packed"], up, dtype)
+                                    p["packed"], up, self.dtype)
 
-    def enc_dc(xq, block, s_out):
-        h = site(xq, f"{block}.conv1", s[f"{block}.conv2"])
-        return site(h, f"{block}.conv2", s_out)
+    def raw(self, xq, name) -> torch.Tensor:
+        """The exact int32 conv of a site (conv3x3_s8, raw mode)."""
+        p = self.w[name]
+        return conv_s8.conv3x3_s8(xq, p["wq"], p["packed"])
 
-    def up_q(y, skip_q, block):
+    def enc_dc(self, xq, block: str, s_out: float):
+        """A 2-D encoder DoubleConv, int8 in and int8 out at s_out."""
+        h = self.site(xq, f"{block}.conv1", self.s[f"{block}.conv2"])
+        return self.site(h, f"{block}.conv2", s_out)
+
+    def up_q(self, y, skip_q, block: str):
+        """The decoder's Up: conv(skip, K_skip) + conv(q(u), K_up), each at
+        its own scale (the concat range's for u), in one launch, then
+        conv2 to the compute dtype."""
+        s, w = self.s, self.w
         u = pad_to_match(upsample2x_align_corners(y), skip_q.shape[1],
                          skip_q.shape[2])
         qu = w[f"{block}.conv1.up"]
-        # conv(skip, K_skip) + conv(q(u), K_up), each at its own scale (the
-        # concat range's for u), in one launch
-        h = site(skip_q, f"{block}.conv1.skip", s[f"{block}.conv2"],
-                 (q(u, s[f"{block}.conv1"]), qu["wq"], qu["k"],
-                  qu["packed"]))
-        return site(h, f"{block}.conv2")
+        h = self.site(skip_q, f"{block}.conv1.skip", s[f"{block}.conv2"],
+                      (q(u, s[f"{block}.conv1"]), qu["wq"], qu["k"],
+                       qu["packed"]))
+        return self.site(h, f"{block}.conv2")
+
+    def decode(self, y, skips_q) -> torch.Tensor:
+        """The decoder over the int8 skips (f4, f3, f2, f1) and the head:
+        float32 logits."""
+        for k, skip in zip(range(1, 5), skips_q):
+            y = self.up_q(y, skip, f"up{k}")
+        return _outc(self.folded, y)
+
+
+def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
+                    local_upsample: bool = False, model: str = "bidate"):
+    """The int8 forward of ``fabric_tpu``'s ``_make_forward`` (or, for a
+    multi-date ``model``, of ``quant_multidate``'s) in int8 mode, with the
+    serving model's call signature: ``(d1, d2)`` or ``(stack)`` -> float32
+    logits (it drops into the scene runners unchanged)."""
+    _check_family(model, local_upsample)
+    if model in MULTI_DATE:
+        from fabric_tpu_torch.infer import quant_multidate
+        return quant_multidate.make_int8_forward(folded, act_scales, dtype,
+                                                 model)
+    s = dict(act_scales)
+    blocks = Int8Blocks(folded, s, {f"up{k}": s[f"f{5 - k}"]
+                                    for k in range(1, 5)}, dtype)
 
     @torch.inference_mode()
     def forward(x_d1, x_d2):
         x = torch.cat([x_d1, x_d2]).to(dtype)
         enc = [s[k] for k in ("inc.conv1", "down1.conv1", "down2.conv1",
                               "down3.conv1", "down4.conv1", "enc.x5")]
-        x = enc_dc(q(x, enc[0]), "inc", enc[1])
+        x = blocks.enc_dc(q(x, enc[0]), "inc", enc[1])
         # after each encoder level, one pass: the fusion relu(d2 * d1) of
         # its int8 codes, requantized straight to int8 at f_k's scale (the
         # decoder's skip), and the pooled input of the next level; f5
@@ -322,10 +413,8 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
         for k in range(1, 5):
             fk, x = fuse_s8.siamese_fuse_s8(x, enc[k] * enc[k] / s[f"f{k}"])
             f.append(fk)
-            x = enc_dc(x, f"down{k}", enc[k + 1])
+            x = blocks.enc_dc(x, f"down{k}", enc[k + 1])
         y, _ = fuse_s8.siamese_fuse_s8(x, enc[5] * enc[5], dtype, pool=False)
-        for k in range(1, 5):
-            y = up_q(y, f[4 - k], f"up{k}")
-        return _outc(folded, y)
+        return blocks.decode(y, (f[3], f[2], f[1], f[0]))
 
     return forward

@@ -1,16 +1,23 @@
-"""ScenePredictor: whole-scene bi-date change-map serving (counterpart of
-``fabric_tpu/infer/service.py``, grid mode, exact or int8).
+"""ScenePredictor: whole-scene change-map serving (counterpart of
+``fabric_tpu/infer/service.py``: the tiled modes, exact or int8, for the
+bi-date model and the multi-date ones).
 
 Loads a checkpoint once (or initialises weights from a seed), folds
-BatchNorm on the host, and serves scene pairs of any size: each scene is
-edge-padded up to the next multiple of ``bucket``, run through the grid
-tiler of ``infer/device_tiling.py`` on the device, and the mask is cropped
-back.  One runner is built per bucket and reused.  The folded forward runs
-on the port's hand-written kernels; with ``fold_bn=False`` the eval-BN
+BatchNorm on the host, and serves scenes of any size: each scene is
+edge-padded up to the next multiple of ``bucket``, run through a tiler of
+``infer/device_tiling.py`` on the device, and the mask is cropped back.
+One runner is built per bucket and reused.  The tiled modes are grid
+(``cfg.infer_overlap`` 0), overlap (overlap-averaged probabilities) and
+banded overlap (``overlap_band_rows``: the same in bands of tile rows, for
+bounded memory); in grid mode ``predict_many(pack=...)`` packs several
+same-bucket scenes into one chunked forward.  The folded forward runs on
+the port's hand-written kernels; with ``fold_bn=False`` the eval-BN
 forward runs, on the eval-BatchNorm kernel; with ``quant="int8"`` the
 post-training-quantized forward of ``infer/quant.py`` runs, on the int8
-conv kernel, calibrated on the first scene and probed for clipping on
-every later one.
+kernels, calibrated on the first scene and probed for clipping on every
+later one.  A multi-date model (``cfg.model`` "unet_lstm" or "unet3d")
+serves (T, H, W, C) date stacks through :meth:`predict_multidate` and
+:meth:`predict_many_multidate`.
 
 Serving modes of ``fabric_tpu`` that this port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
@@ -27,8 +34,11 @@ import torch
 
 from fabric_tpu_torch import checkpoint as ckpt
 from fabric_tpu_torch.infer import quant as q
-from fabric_tpu_torch.infer.device_tiling import make_scene_infer
-from fabric_tpu_torch.models import build_model, compute_dtype
+from fabric_tpu_torch.infer.device_tiling import (make_banded_overlap_infer,
+                                                  make_packed_scene_infer,
+                                                  make_scene_infer,
+                                                  make_scene_infer_multidate)
+from fabric_tpu_torch.models import MULTI_DATE, build_model, compute_dtype
 
 log = logging.getLogger("fabric_tpu_torch")
 
@@ -56,7 +66,7 @@ class ScenePredictor:
     """Checkpoint-backed whole-scene change-map server.
 
     Args:
-      cfg: Config (model, patch, eval batch, dtype, overlap).
+      cfg: Config (model, patch, eval batch, dtype, overlap, num_dates).
       checkpoint: a ``fabric_tpu`` checkpoint file, or a directory (its
         best-metric save, else the latest); None draws fresh weights from
         a generator seeded 0 (benchmarks, smoke runs).
@@ -76,13 +86,18 @@ class ScenePredictor:
         probe its activation ranges on the corner and centre crops against
         the scales and warn when a site's absmax exceeds this multiple of
         its covered range (``last_clip_report``); 0 turns the probe off.
+      overlap_band_rows: overlap mode (``cfg.infer_overlap`` > 0), bi-date:
+        accumulate the probabilities in bands of this many tile rows, so
+        that one band's tiles are live at a time instead of the scene's
+        (``make_banded_overlap_infer``); the masks are the unbanded ones.
+        0 = unbanded.
       tracker: a ``fabric_tpu_torch.track.Tracker``: every served scene
         writes a ``serve_``-prefixed record (dims, bucket, new runner or
-        cached, wall ms, Mpx/s, mode, quant and, for int8, the worst clip
-        site and ratio).
-      mesh, shard_scene, overlap_band_rows, fullconv_band_rows,
-      fullconv_stream, aot_dir, bundle: ``fabric_tpu`` serving modes that
-        are not ported yet; anything but their default raises.
+        cached, wall ms, Mpx/s, serving mode, quant, the pack size of a
+        packed scene and, for int8, the worst clip site and ratio).
+      mesh, shard_scene, fullconv_band_rows, fullconv_stream, aot_dir,
+      bundle: ``fabric_tpu`` serving modes that are not ported yet;
+        anything but their default raises.
     """
 
     def __init__(self, cfg, checkpoint: str | None = None, bucket: int = 512,
@@ -95,15 +110,21 @@ class ScenePredictor:
             raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
         if mesh is not None or shard_scene:
             raise _not_ported("mesh / shard_scene serving", "10 (multi-GPU)")
-        if overlap_band_rows:
-            raise _not_ported("overlap_band_rows", "6 (other tiled modes)")
         if fullconv_band_rows or fullconv_stream:
             raise _not_ported("fullconv serving", "9 (seamless fullconv)")
         if aot_dir is not None or bundle is not None:
             raise _not_ported("aot_dir / bundle serving",
                               "11 (frozen artifacts and bundles)")
-        if cfg.model != "bidate":
-            raise _not_ported(f"model {cfg.model!r}", "8 (multi-date models)")
+        self.multi_date = cfg.model in MULTI_DATE
+        if overlap_band_rows:
+            if not cfg.infer_overlap:
+                raise ValueError("overlap_band_rows requires "
+                                 "cfg.infer_overlap > 0 (grid-mode tiles "
+                                 "are disjoint: no banding needed)")
+            if self.multi_date:
+                raise ValueError("overlap_band_rows supports the bi-date "
+                                 "model only")
+        self.overlap_band_rows = overlap_band_rows
         self.quant = quant or "none"
         if self.quant == "int8" and not fold_bn:
             raise ValueError("quant='int8' requires fold_bn=True (the "
@@ -128,7 +149,7 @@ class ScenePredictor:
         # what the runners call: the model, or the int8 forward once the
         # scales exist
         self._forward = self.model
-        self._runners: dict[tuple[int, int], object] = {}
+        self._runners: dict[tuple, object] = {}
         self._scales: dict | None = None
         self._stats_fwd = None
         self._scenes_predicted = 0
@@ -139,17 +160,20 @@ class ScenePredictor:
     def _stats_forward(self):
         if self._stats_fwd is None:
             self._stats_fwd = q.make_stats_forward(
-                q.folded_params(self.model), self.dtype)
+                q.folded_params(self.model), self.dtype, model=self.cfg.model)
         return self._stats_fwd
 
     def calibrate(self, batches) -> None:
         """Calibrate the int8 activation scales on (d1, d2) NHWC batch
-        pairs (e.g. patches cropped from held-out scenes) and serve the
-        int8 forward with them from now on (the runners are rebuilt)."""
+        pairs, or for a multi-date model on (N, T, H, W, C) stacks (e.g.
+        patches cropped from held-out scenes), and serve the int8 forward
+        with them from now on (the runners are rebuilt)."""
         folded = q.folded_params(self.model)
         scales = q.calibrate(folded, batches, self.dtype,
-                             stats_forward=self._stats_forward())
-        self._forward = q.make_int8_apply(folded, scales, self.dtype)
+                             stats_forward=self._stats_forward(),
+                             model=self.cfg.model)
+        self._forward = q.make_int8_apply(folded, scales, self.dtype,
+                                          model=self.cfg.model)
         self._scales = dict(scales)
         self._runners.clear()
         # a scene served right after a calibration ran no probe: the last
@@ -160,18 +184,20 @@ class ScenePredictor:
         """Corner and centre patch crops of a scene pair, edge-padded up to
         a full patch if the scene is smaller (int8 calibration and the
         per-scene clip probe)."""
+        return tuple(self._crops(d[None])[:, 0] for d in (d1, d2))
+
+    def _calibration_crops_multidate(self, scenes) -> np.ndarray:
+        """(N, T, patch, patch, C) corner and centre crops of a (T, H, W, C)
+        date stack (the multi-date form of :meth:`_calibration_crops`)."""
+        return self._crops(scenes)
+
+    def _crops(self, scenes) -> np.ndarray:
         p = self.cfg.patch_size
-        h0, w0 = d1.shape[:2]
-        e1, e2 = d1, d2
-        if h0 < p or w0 < p:  # (np.pad copies the whole scene even if not)
-            pads = [(0, max(p - h0, 0)), (0, max(p - w0, 0)), (0, 0)]
-            e1, e2 = (np.pad(x, pads, mode="edge") for x in (d1, d2))
-        crops1, crops2 = [], []
-        for (y, x) in self._crop_anchors(h0, w0):
-            crops1.append(e1[y:y + p, x:x + p])
-            crops2.append(e2[y:y + p, x:x + p])
-        return (np.stack(crops1).astype(np.float32),
-                np.stack(crops2).astype(np.float32))
+        h0, w0 = scenes.shape[1:3]
+        scenes = self._pad(scenes, max(h0, p), max(w0, p))
+        crops = [scenes[:, y:y + p, x:x + p]
+                 for (y, x) in self._crop_anchors(h0, w0)]
+        return np.stack(crops).astype(np.float32)
 
     def _crop_anchors(self, h0: int, w0: int) -> set:
         p = self.cfg.patch_size
@@ -182,7 +208,8 @@ class ScenePredictor:
     def _int8_scene_prologue(self, crops):
         """First-scene or cadence-due calibration (synchronous: it rebuilds
         the int8 forward), otherwise dispatch the clip probe on ``crops``
-        without waiting for it.  Returns the pending probe for
+        (what :meth:`calibrate` takes: a (d1, d2) pair, or an (N, T, p, p,
+        C) stack) without waiting for it.  Returns the pending probe for
         :meth:`_int8_probe_check`, or None when this scene calibrated or
         probing is off."""
         due = (self._scales is None
@@ -193,11 +220,14 @@ class ScenePredictor:
         if due:
             self.calibrate([crops])
             log.info("int8 calibration on scene %d (%d crops)",
-                     self._scenes_predicted, crops[0].shape[0])
+                     self._scenes_predicted,
+                     (crops[0] if isinstance(crops, tuple)
+                      else crops).shape[0])
             return None
         if not self.clip_warn_ratio:
             return None
-        args = [torch.from_numpy(c) for c in crops]
+        args = [torch.from_numpy(c) for c in
+                (crops if isinstance(crops, tuple) else (crops,))]
         if self.device.type == "cuda":
             args = [t.pin_memory() for t in args]
         _, stats = self._stats_forward()(
@@ -237,11 +267,20 @@ class ScenePredictor:
 
     # --- serving ---
 
+    def serving_mode(self) -> str:
+        """The configured serving mode: "banded_overlap", "overlap" or
+        "grid"."""
+        if self.overlap_band_rows:
+            return "banded_overlap"
+        if self.cfg.infer_overlap:
+            return "overlap"
+        return "grid"
+
     _CLIP_UNSET = object()  # the caller did not track this scene's probe
 
     def _record_scene(self, scene_id, dims, runner_key, new_runner, wall_s,
-                      pipelined: bool = False,
-                      clip_report=_CLIP_UNSET) -> None:
+                      pipelined: bool = False, clip_report=_CLIP_UNSET,
+                      packed: int = 0) -> None:
         """Stream one served scene's ``serve_*`` record through the tracker
         (nothing without one)."""
         if self.tracker is None:
@@ -254,14 +293,18 @@ class ScenePredictor:
             "compiled": bool(new_runner),
             "wall_ms": round(wall_s * 1000.0, 2),
             "mpx_per_sec": round(h * w / wall_s / 1e6, 3),
-            "mode": "grid",
+            "mode": self.serving_mode(),
             "quant": self.quant,
             "aot": False,
         }
         if pipelined:
-            # predict_many keeps several scenes in flight: this scene's
-            # wall clock overlaps its neighbours' compute
+            # several scenes are in flight: this scene's wall clock
+            # overlaps its neighbours' compute
             rec["pipelined"] = True
+        if packed:
+            # fleet-packed: this scene shared its forward with up to
+            # packed - 1 others (wall_ms covers the pack)
+            rec["packed"] = packed
         if self.quant == "int8":
             # a scene that (re)calibrated ran no probe and carries no clip
             # fields; predict passes nothing and uses the probe just run
@@ -286,60 +329,125 @@ class ScenePredictor:
     def _get_runner(self, h: int, w: int):
         key = (h, w)
         if key not in self._runners:
-            self._runners[key] = make_scene_infer(
-                self._forward, self.cfg.patch_size, key,
-                batch_size=self.cfg.eval_batch_size,
-                overlap=self.cfg.infer_overlap, dtype=self.dtype)
+            cfg = self.cfg
+            common = dict(batch_size=cfg.eval_batch_size, dtype=self.dtype)
+            if self.multi_date:
+                run = make_scene_infer_multidate(
+                    self._forward, cfg.patch_size, key,
+                    num_dates=cfg.num_dates, overlap=cfg.infer_overlap,
+                    **common)
+            elif self.overlap_band_rows:
+                run = make_banded_overlap_infer(
+                    self._forward, cfg.patch_size, key,
+                    overlap=cfg.infer_overlap,
+                    band_tile_rows=self.overlap_band_rows, **common)
+            else:
+                run = make_scene_infer(self._forward, cfg.patch_size, key,
+                                       overlap=cfg.infer_overlap, **common)
+            self._runners[key] = run
         return self._runners[key]
 
+    def _upload(self, slots, n: int | None = None):
+        """Host arrays to the device: ``(device tensor, host buffer)``.
+        The arrays of ``slots`` are copied once into one host buffer (on the
+        card page-locked, so the upload is asynchronous; the buffer must
+        live until the copy is done), stacked on a new first axis of ``n``
+        slots with zeros in the slots no array fills, or with ``n`` None
+        the single array of ``slots`` as it is."""
+        first = torch.from_numpy(np.asarray(slots[0]))
+        shape = first.shape if n is None else (n,) + tuple(first.shape)
+        host = torch.empty(shape, dtype=first.dtype,
+                           pin_memory=self.device.type == "cuda")
+        view = host.unsqueeze(0) if n is None else host
+        for j, a in enumerate(slots):
+            view[j].copy_(torch.from_numpy(np.asarray(a)))
+        view[len(slots):].zero_()
+        return host.to(self.device, non_blocking=True), host
+
+    def _pad(self, a: np.ndarray, ph: int, pw: int) -> np.ndarray:
+        """Edge-pad the (H, W) axes of an (H, W, C) or (T, H, W, C) array
+        up to (ph, pw)."""
+        h, w = a.shape[-3:-1]
+        if (ph, pw) == (h, w):
+            return a
+        return np.pad(a, [(0, 0)] * (a.ndim - 3)
+                      + [(0, ph - h), (0, pw - w), (0, 0)], mode="edge")
+
     def _dispatch(self, d1: np.ndarray, d2: np.ndarray):
-        """Pad, upload and start one scene without waiting for it: returns
-        ``(mask, h, w, host_buffers)`` with ``mask`` the (bucket-sized)
-        device tensor, possibly still being computed."""
+        """Pad, upload and start one scene pair without waiting for it:
+        returns ``(mask, h, w, host_buffers)`` with ``mask`` the
+        (bucket-sized) device tensor, possibly still being computed."""
         h, w = d1.shape[:2]
         ph, pw = self._bucket_dims(h, w)
-        if (ph, pw) != (h, w):
-            pads = [(0, ph - h), (0, pw - w), (0, 0)]
-            d1 = np.pad(d1, pads, mode="edge")
-            d2 = np.pad(d2, pads, mode="edge")
         run = self._get_runner(ph, pw)
-        hosts = [torch.from_numpy(np.ascontiguousarray(d)) for d in (d1, d2)]
-        if self.device.type == "cuda":
-            # page-locked copies, so the uploads below are asynchronous
-            hosts = [t.pin_memory() for t in hosts]
-        a1, a2 = (t.to(self.device, non_blocking=True) for t in hosts)
-        return run(a1, a2), h, w, hosts
+        (a1, h1), (a2, h2) = (self._upload([self._pad(d, ph, pw)])
+                              for d in (d1, d2))
+        return run(a1, a2), h, w, (h1, h2)
 
-    def predict(self, d1: np.ndarray, d2: np.ndarray,
-                scene_id: str | None = None) -> np.ndarray:
-        """(H, W, C) scene pair -> (H, W) uint8 change mask."""
+    def _dispatch_multidate(self, scenes: np.ndarray):
+        """The multi-date form of :meth:`_dispatch`, for a (T, H, W, C)
+        date stack."""
+        h, w = scenes.shape[1:3]
+        ph, pw = self._bucket_dims(h, w)
+        run = self._get_runner(ph, pw)
+        a, host = self._upload([self._pad(scenes, ph, pw)])
+        return run(a), h, w, host
+
+    def _check_bidate(self, call: str) -> None:
+        if self.multi_date:
+            raise ValueError(f"{call} serves bi-date pairs; this predictor "
+                             f"serves the multi-date model {self.cfg.model!r}"
+                             f": use {call}_multidate with (T, H, W, C) "
+                             f"stacks")
+
+    def _check_multidate(self, call: str) -> None:
+        if not self.multi_date:
+            raise ValueError(f"{call} requires a multi-date model "
+                             f"(cfg.model unet_lstm or unet3d); use "
+                             f"{call.removesuffix('_multidate')} for "
+                             f"bi-date pairs")
+
+    def _predict_one(self, crops, dims, dispatch, scene_id) -> np.ndarray:
         t0 = time.perf_counter()
         if self.quant == "int8":
-            probe = self._int8_scene_prologue(self._calibration_crops(d1, d2))
+            probe = self._int8_scene_prologue(crops())
             self._int8_probe_check(probe, self._scenes_predicted)
         self._scenes_predicted += 1
-        key = self._bucket_dims(*d1.shape[:2])
+        key = self._bucket_dims(*dims)
         new_runner = key not in self._runners
-        mask, h, w, _ = self._dispatch(d1, d2)
+        mask, h, w, _ = dispatch()
         out = mask.cpu().numpy()[:h, :w]
         self._record_scene(scene_id, (h, w), key, new_runner,
                            time.perf_counter() - t0)
         return out
 
-    def predict_many(self, pairs, window: int = 2, scene_ids=None,
-                     pack: int = 0) -> list[np.ndarray]:
-        """Serve a sequence of ``(d1, d2)`` pairs with up to ``window``
-        scenes in flight: scene n+1's padding, upload and launches are
-        queued while the card computes scene n, and only the read-back of
-        the oldest scene waits.  Equal to ``[predict(*p) for p in pairs]``.
-        int8 scenes pipeline too: the clip probe is dispatched ahead of the
-        scene and checked right after the scene's own dispatch (before the
-        next scene's), so it waits on the probe's few crops alone; only a
-        calibration synchronises.  ``scene_ids`` label the tracker
-        records; ``pack`` (fleet packing) is not ported yet."""
-        if pack:
-            raise _not_ported("predict_many(pack=...)",
-                              "6 (fleet packing)")
+    def predict(self, d1: np.ndarray, d2: np.ndarray,
+                scene_id: str | None = None) -> np.ndarray:
+        """(H, W, C) scene pair -> (H, W) uint8 change mask."""
+        self._check_bidate("predict")
+        return self._predict_one(lambda: self._calibration_crops(d1, d2),
+                                 d1.shape[:2], lambda: self._dispatch(d1, d2),
+                                 scene_id)
+
+    def predict_multidate(self, scenes: np.ndarray,
+                          scene_id: str | None = None) -> np.ndarray:
+        """(T, H, W, C) date stack -> (H, W) uint8 change mask (the
+        UNetLSTM and UNet3D serving path)."""
+        self._check_multidate("predict_multidate")
+        return self._predict_one(
+            lambda: self._calibration_crops_multidate(scenes),
+            scenes.shape[1:3], lambda: self._dispatch_multidate(scenes),
+            scene_id)
+
+    def _predict_pipelined(self, items, window: int, dispatch, dims_of,
+                           crops_of, scene_ids=None) -> list[np.ndarray]:
+        """Serve ``items`` with up to ``window`` scenes in flight: scene
+        n+1's padding, upload and launches are queued while the card
+        computes scene n, and only the read-back of the oldest scene
+        waits.  int8 scenes pipeline too: the clip probe is dispatched
+        ahead of the scene and checked right after the scene's own
+        dispatch (before the next scene's), so it waits on the probe's few
+        crops alone; only a calibration synchronises."""
         results: list[np.ndarray] = []
         pending: deque = deque()
 
@@ -351,18 +459,17 @@ class ScenePredictor:
                                time.perf_counter() - t0, pipelined=True,
                                clip_report=report)
 
-        for i, (d1, d2) in enumerate(pairs):
+        for i, item in enumerate(items):
             sid = scene_ids[i] if scene_ids else None
             t0 = time.perf_counter()
             probe = None
             if self.quant == "int8":
-                probe = self._int8_scene_prologue(
-                    self._calibration_crops(d1, d2))
+                probe = self._int8_scene_prologue(crops_of(item))
             idx = self._scenes_predicted
             self._scenes_predicted += 1
-            key = self._bucket_dims(*d1.shape[:2])
+            key = self._bucket_dims(*dims_of(item))
             new_runner = key not in self._runners
-            dispatched = self._dispatch(d1, d2)
+            dispatched = dispatch(item)
             report = self._int8_probe_check(probe, idx)
             pending.append((*dispatched, key, new_runner, sid, t0, report))
             while len(pending) > max(window, 1):
@@ -371,12 +478,138 @@ class ScenePredictor:
             drain()
         return results
 
+    def _get_packed_runner(self, ph: int, pw: int, pack: int):
+        key = (ph, pw, pack, "packed")
+        if key not in self._runners:
+            self._runners[key] = make_packed_scene_infer(
+                self._forward, self.cfg.patch_size, (ph, pw), pack,
+                batch_size=self.cfg.eval_batch_size, dtype=self.dtype,
+                num_dates=self.cfg.num_dates if self.multi_date else 0)
+        return self._runners[key]
+
+    def _pack_for(self, pack, bkey: tuple[int, int]) -> int:
+        """``pack``, or for "auto" the first pack that fills the tile batch
+        of this bucket: eval_batch_size // tiles per scene (at least 1)."""
+        if pack != "auto":
+            return pack
+        p = self.cfg.patch_size
+        k = -(-bkey[0] // p) * -(-bkey[1] // p)  # tiles per scene
+        return max(1, self.cfg.eval_batch_size // k)
+
+    def _predict_packed(self, items, pack, window: int, scene_ids,
+                        multidate: bool) -> list[np.ndarray]:
+        """Fleet-packed serving: group the scenes by bucket, run ``pack``
+        of a bucket per call so that their tiles share the chunks, and keep
+        up to ``window`` packs in flight.  A partial pack's free slots
+        take zero scenes, whose masks are dropped.  ``items`` may be a lazy
+        iterator: a scene is taken when its pack has room, so the host
+        holds the open packs and the packs in flight, not the fleet.  Each
+        scene's mask equals :meth:`predict`'s (each kernel computes an
+        image on its own; the chunk size is the same).  With
+        ``recalibrate_every`` > 0 every scene of a pack serves with the
+        scales of the pack's dispatch."""
+        if self.serving_mode() != "grid":
+            raise ValueError(
+                f"pack= serves the grid tiling mode only (this predictor "
+                f"is configured for {self.serving_mode()!r}); overlap "
+                f"scenes do not tile into packable batches")
+        if pack != "auto" and (not isinstance(pack, int) or pack < 1):
+            raise ValueError(f"pack must be >= 1 or 'auto', got {pack!r}")
+        results: dict[int, np.ndarray] = {}
+        groups: dict[tuple[int, int], list] = {}
+        packs: dict[tuple[int, int], int] = {}
+        pending: deque = deque()
+
+        def flush(bkey):
+            entries = groups.pop(bkey)
+            pk = packs[bkey]
+            new_runner = (*bkey, pk, "packed") not in self._runners
+            run = self._get_packed_runner(*bkey, pk)
+            scenes = [e["scene"] for e in entries]
+            uploads = ([self._upload(scenes, pk)] if multidate else
+                       [self._upload([s[i] for s in scenes], pk)
+                        for i in (0, 1)])
+            pending.append((run(*(a for a, _ in uploads)), uploads, entries,
+                            bkey, new_runner))
+            while len(pending) > max(window, 1):
+                drain()
+
+        def drain():
+            masks, _, entries, bkey, new_runner = pending.popleft()
+            host = masks.cpu().numpy()
+            for slot, e in enumerate(entries):
+                results[e["idx"]] = host[slot, :e["h"], :e["w"]]
+                self._record_scene(e["sid"], (e["h"], e["w"]), bkey,
+                                   new_runner and slot == 0,
+                                   time.perf_counter() - e["t0"],
+                                   pipelined=True, clip_report=e["report"],
+                                   packed=packs[bkey])
+
+        for i, item in enumerate(items):
+            sid = scene_ids[i] if scene_ids else None
+            t0 = time.perf_counter()
+            report = None
+            if self.quant == "int8":
+                crops = (self._calibration_crops_multidate(item) if multidate
+                         else self._calibration_crops(*item))
+                # a calibration rebuilds the runners, so it comes before
+                # this scene joins a pack
+                report = self._int8_probe_check(
+                    self._int8_scene_prologue(crops), self._scenes_predicted)
+            self._scenes_predicted += 1
+            h, w = item.shape[1:3] if multidate else item[0].shape[:2]
+            bkey = self._bucket_dims(h, w)
+            packs.setdefault(bkey, self._pack_for(pack, bkey))
+            scene = (self._pad(item, *bkey) if multidate else
+                     tuple(self._pad(d, *bkey) for d in item))
+            groups.setdefault(bkey, []).append(
+                {"idx": i, "scene": scene, "h": h, "w": w, "sid": sid,
+                 "t0": t0, "report": report})
+            if len(groups[bkey]) == packs[bkey]:
+                flush(bkey)
+        for bkey in list(groups):
+            flush(bkey)
+        while pending:
+            drain()
+        return [results[i] for i in range(len(results))]
+
+    def predict_many(self, pairs, window: int = 2, scene_ids=None,
+                     pack=0) -> list[np.ndarray]:
+        """Serve a sequence of ``(d1, d2)`` pairs (any iterable, consumed
+        lazily), equal to ``[predict(*p) for p in pairs]``, with up to
+        ``window`` scenes (or packs) in flight.  ``scene_ids`` label the
+        tracker records.  ``pack`` (grid mode): run N same-bucket scenes
+        per call, their tiles sharing the chunks; "auto" picks per bucket
+        the first pack that fills the tile batch; 0 serves scene by
+        scene."""
+        self._check_bidate("predict_many")
+        if pack:
+            return self._predict_packed(pairs, pack, window, scene_ids,
+                                        multidate=False)
+        return self._predict_pipelined(
+            pairs, window, dispatch=lambda p: self._dispatch(*p),
+            dims_of=lambda p: p[0].shape[:2],
+            crops_of=lambda p: self._calibration_crops(*p),
+            scene_ids=scene_ids)
+
+    def predict_many_multidate(self, stacks, window: int = 2, scene_ids=None,
+                               pack=0) -> list[np.ndarray]:
+        """The multi-date form of :meth:`predict_many`, over (T, H, W, C)
+        date stacks: equal to ``[predict_multidate(s) for s in stacks]``."""
+        self._check_multidate("predict_many_multidate")
+        if pack:
+            return self._predict_packed(stacks, pack, window, scene_ids,
+                                        multidate=True)
+        return self._predict_pipelined(
+            stacks, window, dispatch=self._dispatch_multidate,
+            dims_of=lambda s: s.shape[1:3],
+            crops_of=self._calibration_crops_multidate, scene_ids=scene_ids)
+
     def predict_city(self, city: str) -> np.ndarray:
         """The mask of a dataset city (``cfg.dataset_dir``), at the dims of
         its bands as the reference takes them."""
-        from fabric_tpu_torch.data.oscd import load_city
-        from fabric_tpu_torch.infer.runner import scene_dims
-        dims = scene_dims(self.cfg.dataset_dir, city)
-        stacked = load_city(self.cfg.dataset_dir, city, self.cfg,
-                            out_shape=dims)
+        from fabric_tpu_torch.infer.runner import load_scene
+        stacked = load_scene(self.cfg, city)
+        if self.multi_date:
+            return self.predict_multidate(stacked, scene_id=city)
         return self.predict(stacked[0], stacked[1], scene_id=city)

@@ -8,6 +8,10 @@ from fabric_tpu_torch import weights
 from fabric_tpu_torch.models.bidate import BiDateNet  # noqa: F401
 from fabric_tpu_torch.models.blocks import (  # noqa: F401
     DoubleConv, Down, OutConv, Up)
+from fabric_tpu_torch.models.unet3d import UNet3D  # noqa: F401
+from fabric_tpu_torch.models.unet_lstm import UNetLSTM  # noqa: F401
+
+MULTI_DATE = ("unet_lstm", "unet3d")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -16,8 +20,9 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def build_model(cfg, device, generator: torch.Generator | None = None,
                 fold_bn: bool = True, variables: tuple | None = None,
-                train: bool = False) -> BiDateNet:
-    """A BiDateNet for ``cfg`` on ``device``.
+                train: bool = False) -> torch.nn.Module:
+    """The ``cfg.model`` network (BiDateNet, base 64 by default; UNetLSTM,
+    base 64; UNet3D, base 32) on ``device``.
 
     Weights come from ``variables`` (a ``fabric_tpu`` (params,
     batch_stats) tree, e.g. from a checkpoint) or, when it is None, from
@@ -27,24 +32,33 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     BatchNorm folded into the convs when ``fold_bn``.  With ``train`` it
     keeps BatchNorm (``fold_bn`` must be False), its parameters take
     gradients, ``cfg.per_date_batchnorm`` selects per-date batch
-    statistics and ``cfg.remat`` rematerialises its stages."""
-    if cfg.model != "bidate":
+    statistics and ``cfg.remat`` rematerialises its stages.  The
+    multi-date models serve only (eval mode)."""
+    if cfg.model not in ("bidate",) + MULTI_DATE:
+        raise ValueError(f"unknown model: {cfg.model!r}")
+    if train and cfg.model in MULTI_DATE:
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet: the multi-date models "
-            "are ROADMAP.md queue 1 item 8")
+            f"training model {cfg.model!r} is not ported to fabric_tpu_torch "
+            "yet: ROADMAP.md queue 1 item 8b (multi-date training)")
     if train and fold_bn:
         raise ValueError("a model built for training keeps BatchNorm: pass "
                          "fold_bn=False")
-    base = cfg.model_base or 64
+    base = cfg.model_base or (32 if cfg.model == "unet3d" else 64)
     if variables is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         variables = weights.init_variables(cfg.n_channels, cfg.n_classes,
-                                           base, generator)
-    model = BiDateNet(cfg.n_channels, cfg.n_classes, base, fold_bn=fold_bn,
-                      dtype=compute_dtype(cfg),
-                      joint_date_batchnorm=not cfg.per_date_batchnorm,
-                      remat=cfg.remat)
+                                           base, generator, cfg.model)
+    dtype = compute_dtype(cfg)
+    if cfg.model == "bidate":
+        model = BiDateNet(cfg.n_channels, cfg.n_classes, base,
+                          fold_bn=fold_bn, dtype=dtype,
+                          joint_date_batchnorm=not cfg.per_date_batchnorm,
+                          remat=cfg.remat)
+    else:
+        net = UNetLSTM if cfg.model == "unet_lstm" else UNet3D
+        model = net(cfg.n_channels, cfg.n_classes, base, fold_bn=fold_bn,
+                    dtype=dtype)
     weights.load_variables(model, *variables)
     model.requires_grad_(train)
     model = model.to(device).train(train)

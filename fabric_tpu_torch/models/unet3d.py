@@ -1,0 +1,110 @@
+"""UNet3D: the spatiotemporal U-Net over multi-date stacks (counterpart of
+``fabric_tpu/models/unet3d.py``), eval only.
+
+Input (N, T, H, W, C) as an NDHWC volume (depth = T).  The encoder is
+five ``DoubleConv3D`` blocks (3x3x3 SAME convs, padding T too) with a
+spatial-only 2x2 max-pool between them, so T is kept through the pyramid;
+each skip collapses T by max, the bottleneck by mean; the decoder is
+BiDateNet's 2-D Up stack and head.
+
+The 3-D convs are ``F.conv3d`` in the compute dtype with the bias added in
+that dtype (flax's ``nn.Conv``): ``fabric_tpu`` computes them with XLA,
+outside any Pallas kernel.  With BatchNorm unfolded, each 3-D conv's bias,
+BatchNorm and ReLU run on the eval-BatchNorm kernel over the (N*T, H, W,
+C) view, as the 2-D blocks do.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fabric_tpu_torch.models.blocks import (BatchNorm, OutConv, Up, _weight,
+                                            max_pool2x2)
+
+
+def conv3d_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3x3 conv of an NDHWC tensor by a DHWIO kernel, in x's dtype,
+    without bias; the output is contiguous NDHWC."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3),
+                 kernel.to(x.dtype).permute(4, 3, 0, 1, 2), padding=1)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def spatial_pool(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool over H and W of an (N, T, H, W, C) tensor; T kept."""
+    n, t = x.shape[:2]
+    y = max_pool2x2(x.reshape((n * t,) + x.shape[2:]))
+    return y.reshape((n, t) + y.shape[1:])
+
+
+class Conv3D(nn.Module):
+    """Parameter holder laid out like flax ``nn.Conv`` with a (3, 3, 3)
+    window: a DHWIO kernel and a bias."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.kernel = _weight(3, 3, 3, cin, cout)
+        self.bias = _weight(cout)
+
+
+class DoubleConv3D(nn.Module):
+    """(3x3x3 conv -> BN -> ReLU) x 2 over NDHWC; BN folded or not."""
+
+    def __init__(self, cin: int, cout: int, fold_bn: bool = True):
+        super().__init__()
+        self.fold_bn = fold_bn
+        self.conv1 = Conv3D(cin, cout)
+        self.conv2 = Conv3D(cout, cout)
+        if not fold_bn:
+            self.bn1 = BatchNorm(cout)
+            self.bn2 = BatchNorm(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, c in enumerate((self.conv1, self.conv2), start=1):
+            y = conv3d_same(x, c.kernel)
+            if self.fold_bn:
+                x = torch.relu(y + c.bias.to(y.dtype))
+            else:
+                bn = getattr(self, f"bn{i}")
+                x = bn.relu_eval(y.reshape((-1,) + y.shape[2:]),
+                                 c.bias).reshape(y.shape)
+        return x
+
+
+class UNet3D(nn.Module):
+    multi_date = True
+
+    def __init__(self, n_channels: int = 13, n_classes: int = 2,
+                 base: int = 32, fold_bn: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.fold_bn = fold_bn
+        self.dtype = dtype
+        b = base
+        self.inc = DoubleConv3D(n_channels, b, fold_bn)
+        self.down1 = DoubleConv3D(b, 2 * b, fold_bn)
+        self.down2 = DoubleConv3D(2 * b, 4 * b, fold_bn)
+        self.down3 = DoubleConv3D(4 * b, 8 * b, fold_bn)
+        self.down4 = DoubleConv3D(8 * b, 8 * b, fold_bn)
+        self.up1 = Up(16 * b, 4 * b, fold_bn)
+        self.up2 = Up(8 * b, 2 * b, fold_bn)
+        self.up3 = Up(4 * b, b, fold_bn)
+        self.up4 = Up(2 * b, b, fold_bn)
+        self.outc = OutConv(b, n_classes)
+
+    def forward(self, seq: torch.Tensor) -> torch.Tensor:
+        """seq: (N, T, H, W, n_channels).  Returns float32 logits (N, H, W,
+        n_classes)."""
+        x1 = self.inc(seq.to(self.dtype))
+        x2 = self.down1(spatial_pool(x1))
+        x3 = self.down2(spatial_pool(x2))
+        x4 = self.down3(spatial_pool(x3))
+        x5 = self.down4(spatial_pool(x4))
+        s1, s2, s3, s4 = (v.amax(dim=1) for v in (x1, x2, x3, x4))
+        y = self.up1(x5.mean(dim=1), s4)
+        y = self.up2(y, s3)
+        y = self.up3(y, s2)
+        y = self.up4(y, s1)
+        return self.outc(y).float()

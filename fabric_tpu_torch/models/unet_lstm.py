@@ -1,0 +1,99 @@
+"""UNetLSTM: the multi-date U-Net with a ConvLSTM bottleneck (counterpart
+of ``fabric_tpu/models/unet_lstm.py``), eval only.
+
+Input (N, T, H, W, C).  The shared encoder (BiDateNet's: inc, down1-4)
+runs once at batch N*T; the bottleneck features go through a ConvLSTM
+scanned over the T dates from a zero state (one 3x3 conv over ``[x, h]``
+gives the four gates, in the order i, f, g, o, with ``f = sigmoid(f +
+1)``); each skip level fuses its T dates as ``relu(prod_t x_t)`` (for T =
+2 the bi-date fusion ``relu(d2 * d1)``); the decoder is BiDateNet's.
+
+The encoder and decoder blocks are the bi-date ones, on the conv kernels
+when BatchNorm is folded and on the eval-BatchNorm kernel when not.  The
+gate conv has no ReLU, so it is not the conv kernel's op: ``fabric_tpu``
+computes it with XLA outside any Pallas kernel, and here it is
+``F.conv2d`` in the compute dtype with the bias added in that dtype, as
+flax's ``nn.Conv`` does.  The T-date product and the gate nonlinearities
+are plain PyTorch, as they are XLA in ``fabric_tpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from fabric_tpu_torch.models.blocks import Conv, DoubleConv, Down, OutConv, Up
+
+
+def multi_date_fuse(feats: torch.Tensor) -> torch.Tensor:
+    """relu(prod over the date axis 1) of (N, T, H, W, C) features."""
+    return torch.relu(torch.prod(feats, dim=1))
+
+
+class ConvLSTMCell(nn.Module):
+    """One ConvLSTM step: the four gates from one 3x3 SAME conv over the
+    channel concat ``[x, h]``."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.gates = Conv(cin + features, 4 * features)
+
+    @staticmethod
+    def step(z: torch.Tensor, c: torch.Tensor):
+        """(h, c) from the gate pre-activations z (i, f, g, o along the
+        channels) and the cell state c, in z's dtype."""
+        i, f, g, o = torch.chunk(z, 4, dim=-1)
+        i = torch.sigmoid(i)
+        f = torch.sigmoid(f + 1.0)  # the forget-gate bias trick
+        g = torch.tanh(g)
+        o = torch.sigmoid(o)
+        c = f * c.to(f.dtype) + i * g
+        return o * torch.tanh(c), c
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+        return self.step(self.gates(torch.cat([x, h], dim=-1)), c)
+
+
+class UNetLSTM(nn.Module):
+    multi_date = True
+
+    def __init__(self, n_channels: int = 13, n_classes: int = 2,
+                 base: int = 64, fold_bn: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.fold_bn = fold_bn
+        self.dtype = dtype
+        b = base
+        self.inc = DoubleConv(n_channels, b, fold_bn)
+        self.down1 = Down(b, 2 * b, fold_bn)
+        self.down2 = Down(2 * b, 4 * b, fold_bn)
+        self.down3 = Down(4 * b, 8 * b, fold_bn)
+        self.down4 = Down(8 * b, 8 * b, fold_bn)
+        self.bottleneck_lstm = ConvLSTMCell(8 * b, 8 * b)
+        self.up1 = Up(16 * b, 4 * b, fold_bn)
+        self.up2 = Up(8 * b, 2 * b, fold_bn)
+        self.up3 = Up(4 * b, b, fold_bn)
+        self.up4 = Up(2 * b, b, fold_bn)
+        self.outc = OutConv(b, n_classes)
+
+    def forward(self, seq: torch.Tensor) -> torch.Tensor:
+        """seq: (N, T, H, W, n_channels).  Returns float32 logits (N, H, W,
+        n_classes)."""
+        n, t = seq.shape[:2]
+        x = seq.reshape((n * t,) + seq.shape[2:]).to(self.dtype)
+        x1 = self.inc(x)
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        x5 = self.down4(x4)
+        s1, s2, s3, s4, bott = (v.reshape((n, t) + v.shape[1:])
+                                for v in (x1, x2, x3, x4, x5))
+        h = bott.new_zeros(bott.shape[:1] + bott.shape[2:])
+        c = torch.zeros_like(h)
+        for step in range(t):
+            h, c = self.bottleneck_lstm(bott[:, step], h, c)
+        y = self.up1(h, multi_date_fuse(s4))
+        y = self.up2(y, multi_date_fuse(s3))
+        y = self.up3(y, multi_date_fuse(s2))
+        y = self.up4(y, multi_date_fuse(s1))
+        return self.outc(y).float()

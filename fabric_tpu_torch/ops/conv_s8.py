@@ -17,6 +17,13 @@ their plain versions: :func:`conv3x3_s8_reference`, an exact integer conv,
 and :func:`conv3x3_s8_q_reference`, that conv followed by the epilogue in
 PyTorch.  The weights are packed once (:func:`pack_weight`) when the int8
 forward is built.
+
+UNet3D's int8 3x3x3 sites (``conv_raw`` over the 3-D dimension numbers
+in ``fabric_tpu``) run on the same kernel: the T-neighbour dates stacked
+along the channels (:func:`t_neighbours`) by the DHWIO kernel folded to
+HWIO in the same tap order (:func:`fold_depth`).  The int32 sums are
+exact either way (at most 3 * 512 * 9 * 127^2 < 2^31), so this is
+bit-equal to the 3-D conv.
 """
 
 from __future__ import annotations
@@ -124,6 +131,27 @@ def pack_weight(wq: torch.Tensor) -> torch.Tensor:
                     dtype=torch.int8, device=wq.device)
     k[:, :cin, :cout] = wq.reshape(9, cin, cout)
     return conv_ops.pack_blocks(k, pn, KB)
+
+
+def fold_depth(wq: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, Cin, Cout) DHWIO kernel -> the (3, 3, 3 * Cin, Cout) HWIO
+    kernel whose input channel d * Cin + c is depth tap d of channel c:
+    a 3x3x3 SAME conv over T is this 3x3 conv of :func:`t_neighbours`'
+    stack.  Per-output-channel scales over the fan-in are unchanged."""
+    d, kh, kw, cin, cout = wq.shape
+    return wq.permute(1, 2, 0, 3, 4).reshape(kh, kw, d * cin,
+                                             cout).contiguous()
+
+
+def t_neighbours(x: torch.Tensor) -> torch.Tensor:
+    """(N, T, H, W, C) -> (N * T, H, W, 3C): each date's input of a SAME
+    conv over T, the dates t - 1, t and t + 1 stacked along the channels,
+    zeros beyond the first and the last date."""
+    n, t, h, w, c = x.shape
+    z = x.new_zeros((n, 1, h, w, c))
+    prev = torch.cat([z, x[:, :-1]], dim=1)
+    nxt = torch.cat([x[:, 1:], z], dim=1)
+    return torch.cat([prev, x, nxt], dim=-1).reshape(n * t, h, w, 3 * c)
 
 
 def _check(x: torch.Tensor, wq: torch.Tensor) -> None:

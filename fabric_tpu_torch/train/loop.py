@@ -71,6 +71,9 @@ _COUNT_KEYS = ("tp", "fp", "fn", "tn")
 def _check_ported(cfg) -> None:
     """Raise for a config option of fabric_tpu's loop that is not ported
     (the model checks its own)."""
+    if cfg.model != "bidate":
+        raise _not_ported(f"training model {cfg.model!r}",
+                          "8b (multi-date training)")
     items = {"lane_pack": "12", "lane_pack_bwd": "12",
              "local_upsample": "9"}
     for flag, item in items.items():

@@ -1,13 +1,17 @@
 """Weight bridge: ``fabric_tpu`` variable trees <-> the port's modules.
 
-A ``fabric_tpu`` BiDateNet is described by two nested dicts of numpy
-arrays, ``params`` and ``batch_stats`` (as a checkpoint stores them).  The
-tree is ``inc`` and ``down1-4/conv``, ``up1-4/conv`` (each with ``conv1`` /
-``conv2`` holding an HWIO ``kernel`` and a ``bias``, and ``bn1`` / ``bn2``
-holding ``scale`` / ``bias`` in params and ``mean`` / ``var`` in
-batch_stats), plus ``outc/conv``.  This is the layout
-``fabric_tpu/tools/import_torch.py`` builds from a torch state_dict; the
-map below runs the other way, onto the port's module names (which keep the
+A ``fabric_tpu`` model is described by two nested dicts of numpy arrays,
+``params`` and ``batch_stats`` (as a checkpoint stores them).  A
+BiDateNet's tree is ``inc`` and ``down1-4/conv``, ``up1-4/conv`` (each
+with ``conv1`` / ``conv2`` holding an HWIO ``kernel`` and a ``bias``, and
+``bn1`` / ``bn2`` holding ``scale`` / ``bias`` in params and ``mean`` /
+``var`` in batch_stats), plus ``outc/conv``.  This is the layout
+``fabric_tpu/tools/import_torch.py`` builds from a torch state_dict.  The
+multi-date families keep it and differ where their modules do: UNetLSTM
+adds ``bottleneck_lstm/gates`` (an HWIO (3, 3, 16b, 32b) kernel and its
+bias, no BatchNorm); UNet3D's encoder blocks sit at ``inc`` and
+``down1-4`` with no ``conv`` wrapper and DHWIO (3, 3, 3, cin, cout)
+kernels.  The map below runs onto the port's module names (which keep the
 flax names, joined with dots), either BatchNorm-folded or with
 BatchNorm; :func:`variables_of` reads a module back into such a tree
 (checkpoints, tests).
@@ -34,10 +38,14 @@ def block_channels(n_channels: int, base: int) -> dict[str, tuple[int, int]]:
 
 
 def init_variables(n_channels: int, n_classes: int, base: int,
-                   generator: torch.Generator) -> tuple[dict, dict]:
-    """Fresh (params, batch_stats) with ``fabric_tpu``'s initialisers:
-    lecun-normal conv kernels (truncated normal, variance 1/fan_in), zero
-    biases, BatchNorm scale 1 and bias 0, running mean 0 and var 1."""
+                   generator: torch.Generator,
+                   model: str = "bidate") -> tuple[dict, dict]:
+    """Fresh (params, batch_stats) of a ``model`` ("bidate", "unet_lstm"
+    or "unet3d") with ``fabric_tpu``'s initialisers: lecun-normal conv
+    kernels (truncated normal, variance 1/fan_in), zero biases, BatchNorm
+    scale 1 and bias 0, running mean 0 and var 1."""
+    if model not in ("bidate", "unet_lstm", "unet3d"):
+        raise ValueError(f"unknown model: {model!r}")
     def lecun(shape):
         fan_in = int(np.prod(shape[:-1]))
         std = (1.0 / fan_in) ** 0.5 / .87962566103423978
@@ -46,23 +54,30 @@ def init_variables(n_channels: int, n_classes: int, base: int,
                                     generator=generator)
         return t.numpy()
 
-    def conv(cin, cout, size=3):
-        return {"kernel": lecun((size, size, cin, cout)),
+    def conv(cin, cout, size=3, rank=2):
+        return {"kernel": lecun((size,) * rank + (cin, cout)),
                 "bias": np.zeros(cout, np.float32)}
 
     params: dict = {}
     stats: dict = {}
     for level, (cin, cout) in block_channels(n_channels, base).items():
-        p = {"conv1": conv(cin, cout), "conv2": conv(cout, cout)}
+        # UNet3D's encoder blocks are 3-D and not wrapped in "conv"
+        enc3d = model == "unet3d" and not level.startswith("up")
+        rank = 3 if enc3d else 2
+        p = {"conv1": conv(cin, cout, rank=rank),
+             "conv2": conv(cout, cout, rank=rank)}
         s = {}
         for bn in ("bn1", "bn2"):
             p[bn] = {"scale": np.ones(cout, np.float32),
                      "bias": np.zeros(cout, np.float32)}
             s[bn] = {"mean": np.zeros(cout, np.float32),
                      "var": np.ones(cout, np.float32)}
-        if level != "inc":  # Down/Up levels wrap their DoubleConv in "conv"
+        if level != "inc" and not enc3d:
+            # Down/Up levels wrap their DoubleConv in "conv"
             p, s = {"conv": p}, {"conv": s}
         params[level], stats[level] = p, s
+        if model == "unet_lstm" and level == "down4":
+            params["bottleneck_lstm"] = {"gates": conv(16 * base, 32 * base)}
     params["outc"] = {"conv": conv(base, n_classes, size=1)}
     return params, stats
 

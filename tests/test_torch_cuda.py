@@ -615,3 +615,120 @@ def test_int8_serving_equals_its_plain_forward_on_card(card):
     finally:
         conv_s8.conv3x3_s8_q, fuse_s8.siamese_fuse_s8 = kernel, fusion
     np.testing.assert_array_equal(mask, plain.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h,w,cin,cout", [(4, 5, 16, 16, 13, 32),
+                                              (2, 5, 8, 8, 96, 64),
+                                              (3, 3, 4, 4, 256, 256),
+                                              (1, 1, 7, 9, 8, 16)])
+def test_t_neighbour_int8_conv_matches_plain(card, n, t, h, w, cin, cout):
+    """UNet3D's int8 3x3x3 site: one conv3x3_s8_q launch over the
+    T-neighbour stack by the depth-folded kernel, against its plain
+    version (int8 out and raw int32): identical, and the raw sums equal
+    the float64 3-D conv."""
+    from fabric_tpu_torch.ops import conv_s8
+    rng = np.random.RandomState(n + t + cin)
+    x = _s8(rng, n, t, h, w, cin).to(card)
+    wq = conv_s8.fold_depth(_s8(rng, 3, 3, 3, cin, cout)).to(card)
+    xs = conv_s8.t_neighbours(x)
+    assert xs.shape == (n * t, h, w, 3 * cin)
+    k = torch.from_numpy(((rng.rand(cout) + 0.5) / (
+        np.sqrt(27 * cin) * 2700)).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(card)
+    got = conv_s8.conv3x3_s8_q(xs, wq, k, bias, 3.0 / 127)
+    assert torch.equal(got, conv_s8.conv3x3_s8_q_reference(
+        xs, wq, k, bias, 3.0 / 127))
+    raw = conv_s8.conv3x3_s8(xs, wq)
+    torch.cuda.synchronize()
+    w5 = wq.reshape(3, 3, 3, cin, cout).permute(2, 0, 1, 3, 4)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = torch.nn.functional.conv3d(
+            x.double().permute(0, 4, 1, 2, 3),
+            w5.double().permute(4, 3, 0, 1, 2), padding=1)
+    assert torch.equal(raw.reshape(n, t, h, w, cout),
+                       want.permute(0, 2, 3, 4, 1).to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,quant", [("bidate", None),
+                                         ("bidate", "int8"),
+                                         ("unet_lstm", None),
+                                         ("unet3d", "int8")])
+def test_packed_equals_per_scene_on_card(card, model, quant):
+    """Fleet packing on the card: each scene's mask equals its own
+    predict's, bit for bit, though the chunks mix the scenes' tiles (every
+    kernel computes each image on its own) and the last pack has a zero
+    scene; 4 tiles a scene in chunks of 12."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    cfg = Config(model=model, patch_size=32, eval_batch_size=12,
+                 model_base=16, num_dates=3)
+    pred = ScenePredictor(cfg, bucket=64, device=card, quant=quant)
+    rng = np.random.RandomState(7)
+    shape = (3,) if model != "bidate" else (2,)
+    scenes = [rng.randn(*shape, 64, 60, 13).astype(np.float32)
+              for _ in range(5)]
+    if model == "bidate":
+        seq = [pred.predict(*s) for s in scenes]
+        packed = pred.predict_many([tuple(s) for s in scenes], pack="auto")
+    else:
+        seq = [pred.predict_multidate(s) for s in scenes]
+        packed = pred.predict_many_multidate(scenes, pack="auto")
+    for a, b in zip(packed, seq, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("conv", (1280, 64, 64, 13, 64)),            # UNetLSTM inc.conv1
+    ("conv", (1280, 32, 32, 64, 128)),           # down1.conv1
+    ("double", (1280, 16, 16, 128, 256, 256)),   # down2
+    ("double", (1280, 4, 4, 512, 512, 512)),     # down4
+    ("s8", (1280, 64, 64, 39, 32)),              # UNet3D inc.conv1, stacked
+])
+def test_conv_kernels_at_the_multidate_encoder_batch(card, kind, shape):
+    """The multi-date encoders run at batch N*T: at 256 tiles and T = 5,
+    1280 images of 64^2 a launch (671 MB a bf16 activation at 64
+    channels), so the kernels' offsets and grids are held against their
+    plain versions at that batch."""
+    if kind == "conv":
+        test_conv_kernel_matches_plain(card, *shape)
+    elif kind == "double":
+        test_double_conv_kernel_matches_plain(card, shape)
+    else:
+        test_conv_s8_kernel_matches_plain_exactly(card, *shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["unet_lstm", "unet3d"])
+def test_unfolded_multidate_serving_agrees_with_folded(card, model):
+    """The multi-date eval forward with BatchNorm unfolded (cuDNN convs,
+    the eval-BN kernel after each, UNet3D's 3-D blocks over the (N*T, H,
+    W, C) view: 18 launches a forward in both families) against the
+    folded one (the conv kernels), by the bi-date test's rule above."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer import device_tiling as tdt
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    stack = np.random.RandomState(4).randn(3, 64, 96, 13).astype(np.float32)
+    cfg = Config(model=model, patch_size=32, eval_batch_size=8,
+                 model_base=16, num_dates=3)
+    folded = ScenePredictor(cfg, bucket=0, device=card).predict_multidate(
+        stack)
+    before = bn_relu.bn_relu_inference.launches
+    unfolded = ScenePredictor(cfg, bucket=0, fold_bn=False,
+                              device=card).predict_multidate(stack)
+    assert bn_relu.bn_relu_inference.launches == before + 18
+    fp32 = ScenePredictor(Config(model=model, patch_size=32, model_base=16,
+                                 num_dates=3, dtype="float32"), bucket=0,
+                          fold_bn=False, device=card)
+    ys, xs, k, _, _ = tdt._plan_grid(64, 96, 32, 32, 8)
+    tiles = tdt._multidate_tiles(torch.from_numpy(stack).to(card), ys, xs,
+                                 32)
+    with torch.inference_mode():
+        logits = fp32.model(tiles)
+    margin = tdt._stitch((logits[..., 1] - logits[..., 0]).abs(), ys, xs, k,
+                         64, 96, 32).cpu().numpy()
+    flips = folded != unfolded
+    assert flips.mean() <= 0.01
+    assert (margin[flips] <= logits.abs().max().item() / 16).all()

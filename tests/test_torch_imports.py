@@ -46,7 +46,10 @@ def test_port_imports_no_jax_or_fabric_tpu():
     assert {"fabric_tpu_torch.train.loop", "fabric_tpu_torch.evaluate",
             "fabric_tpu_torch.cli.evaluate", "fabric_tpu_torch.store",
             "fabric_tpu_torch.data.download",
-            "fabric_tpu_torch.data.loader"} <= set(modules)
+            "fabric_tpu_torch.data.loader",
+            "fabric_tpu_torch.models.unet_lstm",
+            "fabric_tpu_torch.models.unet3d",
+            "fabric_tpu_torch.infer.quant_multidate"} <= set(modules)
     assert _loaded_after(modules) == []
 
 
