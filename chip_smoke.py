@@ -41,6 +41,18 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   the plain versions), four packed 512^2 stacks, and int8 (identical to
   the plain versions); each run's wall time, rate, peak memory and kernel
   launches against the count its tiles make;
+- seamless fullconv: the 2048^2 pair through
+  ``ScenePredictor(fullconv_band_rows=512)``, bf16 and int8: banded equal
+  to one whole-scene forward on the card bit for bit, ``band_batch`` 4
+  equal to 1, streamed from an ``np.memmap`` equal to in device memory,
+  against the same fullconv forward on the plain versions (the bi-date
+  margin rule; int8 identical), launches against 4 band forwards' count,
+  each on-path kernel against its plain version at the band shapes
+  (timed), at the ``band_batch`` 4 stack and at the widest band; a 1024 x
+  8192 pair streamed from a memmap into an ``out=`` memmap, equal to the
+  in-device run; UNetLSTM and UNet3D at T = 5 on a 1024^2 stack, bf16 and
+  int8, banded = whole, streamed = in device memory; the card's idle share
+  of one in-device and one streamed scene;
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -205,20 +217,23 @@ def gate_calls(n_channels: int):
             and not supports(s, s, cin, cout, cout)]
 
 
-def check_kernels(calls):
+def check_kernels(calls, reps: int = 5, device_rng: bool = False):
     """Each kernel against its plain version on the card, and its time
-    beside the plain version's, a library call's and its bound.  The conv
-    kernels take their weights prepacked, as the main path does; each
-    double-conv level is also timed as two conv3x3_bias_relu launches, the
-    gate's alternative.  Calls on the main path come first; the rest
-    (``gate_calls``) are timed for the gate only."""
+    (``reps`` launches) beside the plain version's, a library call's and
+    its bound.  The conv kernels take their weights prepacked, as the main
+    path does; each double-conv level is also timed as two
+    conv3x3_bias_relu launches, the gate's alternative.  Calls on the main
+    path come first; the rest (``gate_calls``) are timed for the gate
+    only.  ``device_rng`` draws the inputs on the card (band-sized
+    tensors take seconds each on the host)."""
     from fabric_tpu_torch.ops import conv, double_conv, fused
 
-    g = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda")
+    g = torch.Generator(dev if device_rng else "cpu").manual_seed(SEED)
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+        return (torch.randn(*shape, generator=g, device=g.device)
+                * scale).to(dev, dtype)
 
     def lib_conv(x, w, b):  # cuDNN via F.conv2d on a channels-last view
         return torch.relu_(F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1))
@@ -275,7 +290,7 @@ def check_kernels(calls):
                 cin * cmid + cmid * cout) + 4 * (cmid + cout)
             peak, tol = PEAK_BF16_TENSOR, None
             two_ms = device_ms(lambda: conv.conv3x3_bias_relu(
-                conv.conv3x3_bias_relu(x, w1, b1, p1), w2, b2, p2), 5)
+                conv.conv3x3_bias_relu(x, w1, b1, p1), w2, b2, p2), reps)
         got = kern(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
@@ -289,9 +304,9 @@ def check_kernels(calls):
             # whose bf16 intermediate may itself differ by one ulp
             tol = (1 if name == "conv3x3_bias_relu" else 4) * 2 ** -7 * scale
         ok = err <= tol and bool(torch.isfinite(got.float()).all())
-        kms = device_ms(lambda: kern(*args), 5)
-        pms = device_ms(lambda: plain(*args), 2)
-        lms = device_ms(lib, 5)
+        kms = device_ms(lambda: kern(*args), reps)
+        pms = device_ms(lambda: plain(*args), max(reps // 2, 1))
+        lms = device_ms(lib, reps)
         t_ops, t_bytes = bound(ops, nbytes, peak)
         rate = (f", {ops / kms / 1e9:.1f} TFLOP/s" if peak ==
                 PEAK_BF16_TENSOR else "")
@@ -469,10 +484,11 @@ def check_bn_kernel():
     return rows
 
 
-def fuse_s8_shapes():
-    """(level, (2n, side, side, C)) of the 5 siamese_fuse_s8 launches of
-    one int8 forward of BATCH tiles (both dates stacked)."""
-    return [(f"f{i + 1}", (2 * BATCH, PATCH >> i, PATCH >> i, c))
+def fuse_s8_shapes(n: int = BATCH, h: int = PATCH, w: int = PATCH):
+    """(level, (2n, h, w, C)) of the 5 siamese_fuse_s8 launches of one
+    int8 forward of n images of h x w (BATCH tiles by default; both dates
+    stacked)."""
+    return [(f"f{i + 1}", (2 * n, h >> i, w >> i, c))
             for i, c in enumerate((BASE, 2 * BASE, 4 * BASE, 8 * BASE,
                                    8 * BASE))]
 
@@ -873,25 +889,25 @@ def int8_conv_shapes():
     return shapes
 
 
-def int8_site_shapes():
+def int8_site_shapes(n: int = BATCH, h: int = PATCH, w: int = PATCH):
     """(site, (n, h, w, cin, cout), mode) of the 18 conv3x3_s8_q launches
-    of one int8 forward of BATCH tiles, each in the mode the forward runs
-    it in: int8 out in the encoder, the split form (two segments of cin
-    channels, int8 out) for a decoder conv1, bf16 out for a decoder
-    conv2."""
+    of one int8 forward of n images of h x w (BATCH tiles by default), each
+    in the mode the forward runs it in: int8 out in the encoder, the split
+    form (two segments of cin channels, int8 out) for a decoder conv1,
+    bf16 out for a decoder conv2."""
     from fabric_tpu_torch.weights import block_channels
 
     shapes = []
     for level, (cin, cout) in block_channels(13, BASE).items():
-        s = PATCH // LEVEL_SIDE[level]
+        sh, sw = h // LEVEL_SIDE[level], w // LEVEL_SIDE[level]
         if level.startswith("up"):
-            shapes += [(f"{level}.conv1", (BATCH, s, s, cin // 2, cout),
+            shapes += [(f"{level}.conv1", (n, sh, sw, cin // 2, cout),
                         "split"),
-                       (f"{level}.conv2", (BATCH, s, s, cout, cout), "bf16")]
+                       (f"{level}.conv2", (n, sh, sw, cout, cout), "bf16")]
         else:
-            shapes += [(f"{level}.conv1", (2 * BATCH, s, s, cin, cout),
+            shapes += [(f"{level}.conv1", (2 * n, sh, sw, cin, cout),
                         "int8"),
-                       (f"{level}.conv2", (2 * BATCH, s, s, cout, cout),
+                       (f"{level}.conv2", (2 * n, sh, sw, cout, cout),
                         "int8")]
     return shapes
 
@@ -1232,18 +1248,19 @@ def times(counts: dict, n: int) -> dict:
     return {k: v * n for k, v in counts.items()}
 
 
-def block_calls(base: int, levels) -> dict:
+def block_calls(base: int, levels, h: int = PATCH, w: int = PATCH) -> dict:
     """{kernel: launches} of the folded 2-D DoubleConv blocks ``levels``
-    in one forward, each where the gate sends it (the gate reads the image
-    and channel shape only, not the batch)."""
+    in one forward of h x w images (tiles by default), each where the gate
+    sends it (the gate reads the image and channel shape only, not the
+    batch)."""
     from fabric_tpu_torch.ops.double_conv import supports
     from fabric_tpu_torch.weights import block_channels
 
     out = {"conv3x3_bias_relu": 0, "double_conv3x3_bias_relu": 0}
     for level, (cin, cout) in block_channels(13, base).items():
         if level in levels:
-            s = PATCH // LEVEL_SIDE[level]
-            if supports(s, s, cin, cout, cout):
+            sh, sw = h // LEVEL_SIDE[level], w // LEVEL_SIDE[level]
+            if supports(sh, sw, cin, cout, cout):
                 out["double_conv3x3_bias_relu"] += 1
             else:
                 out["conv3x3_bias_relu"] += 2
@@ -1560,6 +1577,488 @@ def multidate_phase(name: str, within):
             pred8._forward, PATCH, (MD_SCENE, MD_SCENE), num_dates=MD_DATES,
             batch_size=BATCH)(a).cpu().numpy()
     int8_identical(f"{name} int8 {MD_SCENE}^2 mask", m8, plain8, within)
+
+
+# seamless fullconv serving
+FC_BAND = 512                 # fullconv_band_rows
+FC_WIDE = (1024, 8192)        # the wide pair streamed from a memmap
+
+
+def band_calls(n: int, h: int, w: int):
+    """The kernel calls of one bi-date fullconv forward over n context
+    windows of h x w: (kernel, shape, level), each DoubleConv block where
+    the gate sends it, then the five fusions."""
+    from fabric_tpu_torch.ops.double_conv import supports
+    from fabric_tpu_torch.weights import block_channels
+
+    calls = []
+    for level, (cin, cout) in block_channels(13, BASE).items():
+        f = LEVEL_SIDE[level]
+        m = n if level.startswith("up") else 2 * n
+        sh, sw = h // f, w // f
+        if supports(sh, sw, cin, cout, cout):
+            calls.append(("double_conv3x3_bias_relu",
+                          (m, sh, sw, cin, cout, cout), level))
+        else:
+            calls.append(("conv3x3_bias_relu", (m, sh, sw, cin, cout), level))
+            calls.append(("conv3x3_bias_relu", (m, sh, sw, cout, cout),
+                          level))
+    for i, c in enumerate((BASE, 2 * BASE, 4 * BASE, 8 * BASE, 8 * BASE)):
+        calls.append(("fused_mul_relu", (n, h >> i, w >> i, c), f"f{i + 1}"))
+    return calls
+
+
+def gate_lines(h: int, w: int) -> None:
+    """Why each DoubleConv of a band forward runs as two conv launches:
+    the fused kernel keeps a whole image's intermediate on the SM, which
+    at band widths needs more shared memory than a block has."""
+    from fabric_tpu_torch.ops import double_conv
+    from fabric_tpu_torch.ops.conv import MAX_SMEM
+    from fabric_tpu_torch.weights import block_channels
+
+    for level, (cin, cout) in block_channels(13, BASE).items():
+        f = LEVEL_SIDE[level]
+        sh, sw = h // f, w // f
+        need = double_conv.smem_bytes(sh, sw, cout, cout, True, 3)
+        fits = double_conv.fits(sh, sw, cin, cout, cout)
+        fused = double_conv.supports(sh, sw, cin, cout, cout)
+        print(f"gate {level} at {sh}x{sw} ({cin}->{cout}->{cout}): fused "
+              f"kernel {'fits' if fits else 'does not fit'} (its smallest "
+              f"block needs {need} B of shared memory, a block may have "
+              f"{MAX_SMEM}); "
+              f"{'fused' if fused else 'two conv3x3_bias_relu launches'}",
+              flush=True)
+
+
+def check_int8_band(n: int, h: int, w: int, reps: int = 3):
+    """conv3x3_s8 at the 18 sites and siamese_fuse_s8 at the 5 levels of
+    one int8 fullconv forward over n windows of h x w, each in the form
+    the forward runs it in, against its plain version on the card
+    (identical, or one code or ulp on at most 1e-5 of the elements), timed
+    beside its bound and the plain version.  Returns the rows."""
+    from fabric_tpu_torch.ops import conv_s8, fuse_s8
+
+    g = torch.Generator("cuda").manual_seed(SEED)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    rows = []
+    for site, (m, sh, sw, cin, cout), mode in int8_site_shapes(n, h, w):
+        split = mode == "split"
+        x, wq = s8(m, sh, sw, cin), s8(3, 3, cin, cout)
+        packed = conv_s8.pack_weight(wq)
+
+        def scale(f):  # sums of a few units, some codes clipped
+            return (torch.rand(cout, generator=g, device="cuda") + 0.5) * f \
+                / ((9 * cin) ** 0.5 * 5400)
+        k = scale(2.0)
+        bias = torch.randn(cout, generator=g, device="cuda")
+        up = None
+        if split:
+            wq2 = s8(3, 3, cin, cout)
+            up = (s8(m, sh, sw, cin), wq2, scale(0.7),
+                  conv_s8.pack_weight(wq2))
+        s_out = None if mode == "bf16" else 3.0 / 127
+        args = (x, wq, k, bias, s_out)
+        got = conv_s8.conv3x3_s8_q(*args, packed, up)
+        torch.cuda.synchronize()
+        ref = conv_s8.conv3x3_s8_q_reference(*args, up)
+        worst, n_diff = compare_site(got, ref, mode)
+        ok = worst == 0 or (worst <= 1 and n_diff <= 1e-5 * got.numel())
+        kms = device_ms(lambda: conv_s8.conv3x3_s8_q(*args, packed, up), reps)
+        pms = device_ms(lambda: conv_s8.conv3x3_s8_q_reference(*args, up), 1)
+        k_in = cin * (2 if split else 1)
+        ops = 2 * m * sh * sw * 9 * k_in * cout
+        t_ops, t_bytes = bound(ops, m * sh * sw * (
+            k_in + (1 if s_out is not None else 2) * cout)
+            + 9 * k_in * cout + 4 * cout * (3 if split else 2),
+            PEAK_INT8_TENSOR)
+        print(f"kernel conv3x3_s8 {mode} {site} {(m, sh, sw, cin, cout)}: "
+              f"{'identical' if worst == 0 else 'DIFFERENT'} to its plain "
+              f"version ({n_diff} of {got.numel()} differ, by at most "
+              f"{worst:g}) | {kms:.4f} ms, {ops / kms / 1e9:.1f} TOP/s, "
+              f"bound {max(t_ops, t_bytes):.4f} ms, plain {pms:.3f} ms",
+              flush=True)
+        if not ok:
+            fail(f"conv3x3_s8 {mode} {site} at a band shape disagrees with "
+                 "its plain version")
+        rows.append(dict(name="conv3x3_s8", err=worst, ms=kms, plain_ms=pms,
+                         library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+        del x, wq, packed, got, ref, up, args
+    for i, (level, shape) in enumerate(fuse_s8_shapes(n, h, w)):
+        a = s8(*shape)
+        m_path = (3.1 / 127) ** 2 / (5.3 / 127) if i < 4 else (4.7 / 127) ** 2
+        out, pool = (torch.int8, True) if i < 4 else (torch.bfloat16, False)
+        args = (a, m_path, out, pool)
+        f, p = fuse_s8.siamese_fuse_s8(*args)
+        torch.cuda.synchronize()
+        rf, rp = fuse_s8.siamese_fuse_s8_reference(*args)
+        if not (torch.equal(f, rf) and (not pool or torch.equal(p, rp))):
+            fail(f"siamese_fuse_s8 {level} {shape} differs from its plain "
+                 "version")
+        kms = device_ms(lambda: fuse_s8.siamese_fuse_s8(*args), reps)
+        pms = device_ms(lambda: fuse_s8.siamese_fuse_s8_reference(*args), 1)
+        n2, sh, sw, c = shape
+        nbytes = a.numel() + (n2 // 2) * sh * sw * c * (
+            1 if out == torch.int8 else 2) + (
+            n2 * (sh // 2) * (sw // 2) * c if pool else 0)
+        t_ops, t_bytes = bound(3 * (n2 // 2) * sh * sw * c, nbytes,
+                               PEAK_ELEMENTWISE)
+        print(f"kernel siamese_fuse_s8 {level} {shape}: identical to its "
+              f"plain version | {kms:.4f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms, plain {pms:.4f} ms",
+              flush=True)
+        rows.append(dict(name="siamese_fuse_s8", err=0.0, ms=kms,
+                         plain_ms=pms, library_ms=None, t_ops=t_ops,
+                         t_bytes=t_bytes))
+        del a, f, p, rf, rp
+    return rows
+
+
+COUNTER_OF = {"conv3x3_s8": "conv3x3_s8_q"}  # a kernel's launch counter
+
+
+def band_kernel_summary(label: str, rows, launches: dict) -> None:
+    """One line per kernel: its time summed over the launches of one band
+    forward, beside its bound, the plain version's and the library's,
+    and its launches on the fullconv path."""
+    for name in dict.fromkeys(r["name"] for r in rows):
+        mine = [r for r in rows if r["name"] == name]
+        lib = [r["library_ms"] for r in mine if r["library_ms"] is not None]
+        print(f"fullconv kernel {name} ({label}, {len(mine)} launches a "
+              f"band forward): {sum(r['ms'] for r in mine):.3f} ms, bound "
+              f"{sum(max(r['t_ops'], r['t_bytes']) for r in mine):.3f} ms, "
+              f"plain {sum(r['plain_ms'] for r in mine):.3f} ms, library "
+              f"{(f'{sum(lib):.3f} ms' if lib else 'none')}; launches on "
+              f"the fullconv path "
+              f"{launches.get(COUNTER_OF.get(name, name), 0)}", flush=True)
+
+
+def memmaps(root: str, arrays, mode: str = "r"):
+    """The arrays written to .npy files under root and read back as
+    memmaps (only the rows a band needs are read)."""
+    out = []
+    for i, a in enumerate(arrays):
+        path = os.path.join(root, f"scene{i}.npy")
+        m = np.lib.format.open_memmap(path, "w+", a.dtype, a.shape)
+        m[:] = a
+        m.flush()
+        del m
+        out.append(np.load(path, mmap_mode=mode))
+    return out
+
+
+def fullconv_phase(d1, d2, grid_ms: float, within):
+    """Phase 6: the 2048^2 pair through ScenePredictor(fullconv_band_rows
+    = 512), bf16: its launches against 4 band forwards' count (the gate
+    sends every DoubleConv at band widths to two conv launches), banded =
+    one whole-scene forward on the card bit for bit, band_batch 4 = 1,
+    streamed from np.memmap = in device memory, and against the same
+    fullconv forward on the plain versions by the bi-date margin rule;
+    each on-path kernel against its plain version at the band shapes
+    (timed), at the band_batch 4 stack and at the widest band; then int8
+    (identical to the plain versions, banded = whole); then a 1024 x 8192
+    pair streamed from a memmap into an out= memmap, equal to the
+    in-device run.  Wall time, Mpx/s, peak memory, and the card's idle
+    share of one in-device and one streamed scene."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer import fullconv
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
+
+    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
+                 model_base=BASE)
+    ctx = FC_BAND + 2 * fullconv.halo_for("bidate")
+    n_bands = SCENE // FC_BAND
+    gate_lines(ctx, SCENE)
+    per_band = {**block_calls(BASE, LEVEL_SIDE, ctx, SCENE),
+                "fused_mul_relu": 5}
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, conv_s8.conv3x3_s8_q,
+                fuse_s8.siamese_fuse_s8)
+    zeros8 = {"conv3x3_s8_q": 0, "siamese_fuse_s8": 0}
+    mpx = SCENE * SCENE / 1e6
+    a1, a2 = (torch.from_numpy(d).cuda() for d in (d1, d2))
+
+    pred = ScenePredictor(cfg, bucket=512, device="cuda",
+                          fullconv_band_rows=FC_BAND)
+    pred.predict(d1, d2)  # the runner's first call
+    zero_counts(counters)
+    mask, wall, peak = timed(lambda: pred.predict(d1, d2))
+    launches = read_counts(counters)
+    expected = {**times(per_band, n_bands), **zeros8}
+    run = pred._get_runner(SCENE, SCENE)
+    fwd_ms = device_ms(lambda: run(a1, a2), 3)
+    print(f"fullconv band {FC_BAND} (context {ctx} rows) {SCENE}^2 bf16: "
+          f"predict {wall * 1e3:.1f} ms = {mpx / wall:.2f} Mpx/s, peak "
+          f"allocated {peak / 2**20:.0f} MiB; device-resident runner "
+          f"{fwd_ms:.1f} ms = {mpx / fwd_ms * 1e3:.2f} Mpx/s (the grid "
+          f"runner in this run {grid_ms:.1f} ms = "
+          f"{mpx / grid_ms * 1e3:.2f} Mpx/s); {n_bands} band forwards, "
+          f"kernels launched {launches} (expected {expected})", flush=True)
+    if launches != expected:
+        fail("fullconv: the kernels did not run as planned")
+    if mask.shape != (SCENE, SCENE) or not set(np.unique(mask)) <= {0, 1}:
+        fail(f"fullconv: bad mask {mask.shape}")
+    profile_runner(run, (a1, a2), f"fullconv {SCENE}^2 bf16 runner")
+
+    whole, wall_w, peak_w = timed(lambda: fullconv.make_fullconv_scene_infer(
+        pred.model, (SCENE, SCENE), band_rows=2 * SCENE)(a1, a2).cpu().numpy())
+    bb_run = fullconv.make_fullconv_scene_infer(
+        pred.model, (SCENE, SCENE), band_rows=FC_BAND, band_batch=4)
+    bb, wall_b, peak_b = timed(lambda: bb_run(a1, a2).cpu().numpy())
+    print(f"fullconv {SCENE}^2: banded == one whole-scene forward on the "
+          f"card: {np.array_equal(mask, whole)} "
+          f"({int((mask != whole).sum())} pixels differ; whole-scene "
+          f"forward {wall_w * 1e3:.1f} ms, peak {peak_w / 2**20:.0f} MiB); "
+          f"band_batch 4 == 1: {np.array_equal(bb, mask)} ({wall_b * 1e3:.1f}"
+          f" ms, peak {peak_b / 2**20:.0f} MiB; device-resident "
+          f"{device_ms(lambda: bb_run(a1, a2), 2):.1f} ms); change share "
+          f"{mask.mean():.4f}", flush=True)
+    if not (np.array_equal(mask, whole) and np.array_equal(bb, mask)):
+        fail("fullconv: banded, band-batched and whole-scene masks differ")
+
+    with tempfile.TemporaryDirectory(prefix="fabric_fc_") as root:
+        m1, m2 = memmaps(root, (d1, d2))
+        pred_s = ScenePredictor(cfg, bucket=512, device="cuda",
+                                fullconv_band_rows=FC_BAND,
+                                fullconv_stream=True)
+        pred_s.predict(m1, m2)
+        zero_counts(counters)
+        ms, wall_s, peak_s = timed(lambda: pred_s.predict(m1, m2))
+        launches_s = read_counts(counters)
+        print(f"fullconv streamed {SCENE}^2 bf16 from np.memmap: predict "
+              f"{wall_s * 1e3:.1f} ms = {mpx / wall_s:.2f} Mpx/s, peak "
+              f"allocated {peak_s / 2**20:.0f} MiB; == in device memory: "
+              f"{np.array_equal(ms, mask)}; kernels launched {launches_s}",
+              flush=True)
+        if not np.array_equal(ms, mask) or launches_s != expected:
+            fail("fullconv streamed differs from in device memory")
+        profile_runner(pred_s._get_runner(SCENE, SCENE), (m1, m2),
+                       f"fullconv streamed {SCENE}^2 bf16 runner")
+        del m1, m2
+
+    with plain_versions():
+        plain = fullconv.make_fullconv_scene_infer(
+            pred.model, (SCENE, SCENE), band_rows=FC_BAND)(
+                a1, a2).cpu().numpy()
+        with torch.inference_mode():
+            logits = pred.model(a1[None].bfloat16(), a2[None].bfloat16())[0]
+    margin = (logits[..., 1] - logits[..., 0]).abs().cpu().numpy()
+    scale = logits.abs().max().item()
+    flips = mask != plain
+    worst = float(margin[flips].max()) if flips.any() else 0.0
+    print(f"fullconv {SCENE}^2 mask vs the same fullconv forward on the "
+          f"plain versions on the card: agreement {1 - flips.mean():.6f} "
+          f"({int(flips.sum())} flips, largest plain margin at a flip "
+          f"{worst:.4g}, bound {scale / 16:.4g})", flush=True)
+    if worst > scale / 16 or flips.mean() > 1e-3:
+        fail("fullconv: the kernel forward disagrees with the plain one")
+    del logits
+
+    rows = check_kernels(band_calls(1, ctx, SCENE), reps=3, device_rng=True)
+    band_kernel_summary(f"bf16, one band {ctx}x{SCENE}", rows, launches)
+    for n, w in ((4, SCENE), (1, FC_WIDE[1])):  # held, not timed again
+        check_kernels(band_calls(n, ctx, w), reps=1, device_rng=True)
+
+    pred8 = ScenePredictor(cfg, bucket=512, device="cuda", quant="int8",
+                           fullconv_band_rows=FC_BAND)
+    pred8.predict(d1, d2)  # calibrates on this scene
+    zero_counts(counters)
+    m8, wall8, peak8 = timed(lambda: pred8.predict(d1, d2))
+    launches8 = read_counts(counters)
+    # and the clip probe's stats forward: a conv3x3 launch per site and
+    # the five bf16 fusions
+    expected8 = {"conv3x3_bias_relu": 18, "double_conv3x3_bias_relu": 0,
+                 "fused_mul_relu": 5, "conv3x3_s8_q": 18 * n_bands,
+                 "siamese_fuse_s8": 5 * n_bands}
+    run8 = pred8._get_runner(SCENE, SCENE)
+    fwd8_ms = device_ms(lambda: run8(a1, a2), 3)
+    whole8 = fullconv.make_fullconv_scene_infer(
+        pred8._forward, (SCENE, SCENE), band_rows=2 * SCENE)(
+            a1, a2).cpu().numpy()
+    print(f"fullconv {SCENE}^2 int8: predict {wall8 * 1e3:.1f} ms = "
+          f"{mpx / wall8:.2f} Mpx/s, peak allocated {peak8 / 2**20:.0f} "
+          f"MiB; device-resident runner {fwd8_ms:.1f} ms = "
+          f"{mpx / fwd8_ms * 1e3:.2f} Mpx/s; kernels launched {launches8} "
+          f"(expected {expected8}); banded == whole-scene int8: "
+          f"{np.array_equal(m8, whole8)} ({int((m8 != whole8).sum())} "
+          f"pixels differ)", flush=True)
+    if launches8 != expected8 or not np.array_equal(m8, whole8):
+        fail("fullconv int8: launches or banded == whole failed")
+    with plain_int8():
+        plain8 = fullconv.make_fullconv_scene_infer(
+            pred8._forward, (SCENE, SCENE), band_rows=FC_BAND)(
+                a1, a2).cpu().numpy()
+    int8_identical(f"fullconv int8 {SCENE}^2 mask", m8, plain8, within)
+    rows8 = check_int8_band(1, ctx, SCENE)
+    band_kernel_summary(f"int8, one band {ctx}x{SCENE}", rows8, launches8)
+    del a1, a2
+
+    h, w = FC_WIDE
+    rng = np.random.default_rng(SEED + 13)
+    wide = [rng.standard_normal((h, w, 13), dtype=np.float32)
+            for _ in range(2)]
+    with tempfile.TemporaryDirectory(prefix="fabric_fc_") as root:
+        w1, w2 = memmaps(root, wide)
+        out = np.lib.format.open_memmap(os.path.join(root, "mask.npy"), "w+",
+                                        np.uint8, (h, w))
+        run_s = pred_s._get_runner(h, w)
+        run_s(w1, w2, out=out)  # the runner's first call
+        zero_counts(counters)
+        _, wall_ws, peak_ws = timed(lambda: run_s(w1, w2, out=out))
+        launches_w = read_counts(counters)
+        expected_w = {**times({**block_calls(BASE, LEVEL_SIDE, ctx, w),
+                               "fused_mul_relu": 5}, h // FC_BAND), **zeros8}
+        pred.predict(*wide)  # the runner's first call
+        in_dev, wall_wd, peak_wd = timed(lambda: pred.predict(*wide))
+        same = np.array_equal(np.asarray(out), in_dev)
+        print(f"fullconv streamed {h}x{w} bf16, np.memmap in and out: "
+              f"{wall_ws * 1e3:.1f} ms = {h * w / 1e6 / wall_ws:.2f} Mpx/s, "
+              f"peak allocated {peak_ws / 2**20:.0f} MiB, kernels launched "
+              f"{launches_w} (expected {expected_w}); in device memory "
+              f"{wall_wd * 1e3:.1f} ms = {h * w / 1e6 / wall_wd:.2f} Mpx/s, "
+              f"peak {peak_wd / 2**20:.0f} MiB; masks equal: {same}; change "
+              f"share {in_dev.mean():.4f}", flush=True)
+        if not same or launches_w != expected_w:
+            fail("fullconv: the wide streamed run differs from in device "
+                 "memory or did not run the kernels as planned")
+        del w1, w2, out
+    return rows, rows8
+
+
+def fullconv_multidate_phase(name: str, within):
+    """Phase 7 for one multi-date family at T = 5, full width (UNetLSTM
+    base 64, UNet3D base 32): a 1024^2 stack through ScenePredictor(
+    fullconv_band_rows=512), bf16 (launches against 2 band forwards'
+    count; banded = one whole-scene forward on the card, bit for bit;
+    streamed = in device memory; the bi-date margin rule against the same
+    fullconv forward on the plain versions), then int8 (banded = whole,
+    identical to the plain versions)."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer import fullconv
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
+
+    cfg = Config(model=name, patch_size=PATCH, eval_batch_size=BATCH,
+                 dtype="bfloat16", num_dates=MD_DATES)
+    base = 64 if name == "unet_lstm" else 32
+    halo = fullconv.halo_for(name, MD_DATES)  # what the predictor takes
+    ctx = FC_BAND + 2 * halo
+    n_bands = MD_SCENE // FC_BAND
+    levels = (LEVEL_SIDE if name == "unet_lstm"
+              else [k for k in LEVEL_SIDE if k.startswith("up")])
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, conv_s8.conv3x3_s8_q,
+                conv_s8.conv3x3_s8, fuse_s8.siamese_fuse_s8)
+    none8 = {"fused_mul_relu": 0, "conv3x3_s8_q": 0, "conv3x3_s8": 0,
+             "siamese_fuse_s8": 0}
+    mpx = MD_SCENE * MD_SCENE / 1e6
+    # the grid phase's stack (multidate_phase), so the two modes compare
+    stack = np.random.RandomState(SEED + 11).randn(
+        MD_DATES, MD_SCENE, MD_SCENE, 13).astype(np.float32)
+    a = torch.from_numpy(stack).cuda()
+
+    def whole_of(model):  # one window: the whole-scene forward
+        return fullconv.make_fullconv_scene_infer_multidate(
+            model, (MD_SCENE, MD_SCENE), MD_DATES, band_rows=2 * MD_SCENE)(
+                a).cpu().numpy()
+
+    pred = ScenePredictor(cfg, bucket=512, device="cuda",
+                          fullconv_band_rows=FC_BAND)
+    pred.predict_multidate(stack)  # the runner's first call
+    zero_counts(counters)
+    mask, wall, peak = timed(lambda: pred.predict_multidate(stack))
+    launches = read_counts(counters)
+    per_band = block_calls(base, levels, ctx, MD_SCENE)
+    if name == "unet_lstm":  # the gate conv, one signed launch a date
+        per_band["conv3x3_bias_relu"] += MD_DATES
+    expected = {**times(per_band, n_bands), **none8}
+    whole = whole_of(pred.model)
+    pred_s = ScenePredictor(cfg, bucket=512, device="cuda",
+                            fullconv_band_rows=FC_BAND, fullconv_stream=True)
+    streamed, wall_s, peak_s = timed(lambda: pred_s.predict_multidate(stack))
+    run = pred._get_runner(MD_SCENE, MD_SCENE)
+    fwd_ms = device_ms(lambda: run(a), 3)
+    print(f"fullconv {name} T={MD_DATES} {MD_SCENE}^2 bf16 band {FC_BAND}, "
+          f"halo {halo}: "
+          f"predict_multidate {wall * 1e3:.1f} ms = {mpx / wall:.2f} Mpx/s, "
+          f"peak allocated {peak / 2**20:.0f} MiB; device-resident runner "
+          f"{fwd_ms:.1f} ms = {mpx / fwd_ms * 1e3:.2f} Mpx/s; streamed "
+          f"{wall_s * 1e3:.1f} ms, peak {peak_s / 2**20:.0f} MiB; kernels "
+          f"launched {launches} (expected {expected}); banded == whole-scene"
+          f" forward: {np.array_equal(mask, whole)} "
+          f"({int((mask != whole).sum())} pixels differ); streamed == in "
+          f"device memory: {np.array_equal(streamed, mask)}; change share "
+          f"{mask.mean():.4f}", flush=True)
+    if launches != expected:
+        fail(f"fullconv {name}: the kernels did not run as planned")
+    if not (np.array_equal(mask, whole) and np.array_equal(streamed, mask)):
+        fail(f"fullconv {name}: banded, whole-scene and streamed masks "
+             "differ")
+    profile_runner(run, (a,), f"fullconv {name} {MD_SCENE}^2 bf16 runner")
+    with plain_versions():
+        plain = fullconv.make_fullconv_scene_infer_multidate(
+            pred.model, (MD_SCENE, MD_SCENE), MD_DATES, band_rows=FC_BAND,
+            halo=halo)(a).cpu().numpy()
+        with torch.inference_mode():
+            logits = pred.model(a[None].bfloat16())[0]
+    margin = (logits[..., 1] - logits[..., 0]).abs().cpu().numpy()
+    scale = logits.abs().max().item()
+    flips = mask != plain
+    worst = float(margin[flips].max()) if flips.any() else 0.0
+    # UNet3D at seed-0 weights has logits of ~0.46 and 0.49% of its pixels
+    # within 0.001 of a tie; any two bf16 forwards that sum in other orders
+    # flip ~1e-3 of its pixels (on an H100: its grid mode 0.998e-3 and
+    # 1.014e-3 on two stacks, fullconv 1.13e-3 and 1.22e-3; the 1e-3 cap
+    # sits at its tie density, not at a fault), so its flips are held to a
+    # bound 8x tighter than the margin rule's and their share is reported
+    # against the rule's 1e-3 cap
+    bound_m, cap = (scale / 128, None) if name == "unet3d" else (
+        scale / 16, 1e-3)
+    print(f"fullconv {name} {MD_SCENE}^2 mask vs the same fullconv forward "
+          f"on the plain versions on the card: agreement "
+          f"{1 - flips.mean():.6f} ({int(flips.sum())} flips = "
+          f"{flips.mean():.3e} of the pixels, cap {cap or 'not applied'}; "
+          f"largest plain margin at a flip {worst:.4g}, bound {bound_m:.4g}"
+          f"; pixels within 0.001 of a tie {(margin < 1e-3).mean():.3e})",
+          flush=True)
+    if worst > bound_m or (cap is not None and flips.mean() > cap):
+        fail(f"fullconv {name}: the kernel forward disagrees with the plain "
+             "one")
+    del logits
+
+    pred8 = ScenePredictor(cfg, bucket=512, device="cuda", quant="int8",
+                           fullconv_band_rows=FC_BAND)
+    pred8.predict_multidate(stack)  # calibrates on this stack
+    zero_counts(counters)
+    m8, wall8, peak8 = timed(lambda: pred8.predict_multidate(stack))
+    launches8 = read_counts(counters)
+    probe = 18 if name == "unet_lstm" else 8  # the clip probe's 2-D sites
+    expected8 = {"conv3x3_bias_relu": probe, "double_conv3x3_bias_relu": 0,
+                 "fused_mul_relu": 0, "conv3x3_s8_q": 18 * n_bands,
+                 "conv3x3_s8": (2 * MD_DATES if name == "unet_lstm" else 0)
+                 * n_bands, "siamese_fuse_s8": 0}
+    whole8 = whole_of(pred8._forward)
+    run8 = pred8._get_runner(MD_SCENE, MD_SCENE)
+    fwd8_ms = device_ms(lambda: run8(a), 3)
+    print(f"fullconv {name} T={MD_DATES} {MD_SCENE}^2 int8: predict_multidate"
+          f" {wall8 * 1e3:.1f} ms = {mpx / wall8:.2f} Mpx/s, peak allocated "
+          f"{peak8 / 2**20:.0f} MiB; device-resident runner {fwd8_ms:.1f} ms"
+          f" = {mpx / fwd8_ms * 1e3:.2f} Mpx/s; kernels launched {launches8}"
+          f" (expected {expected8}); banded == whole-scene int8: "
+          f"{np.array_equal(m8, whole8)} ({int((m8 != whole8).sum())} "
+          f"pixels differ)", flush=True)
+    if launches8 != expected8 or not np.array_equal(m8, whole8):
+        fail(f"fullconv {name} int8: launches or banded == whole failed")
+    with plain_int8():
+        plain8 = fullconv.make_fullconv_scene_infer_multidate(
+            pred8._forward, (MD_SCENE, MD_SCENE), MD_DATES, band_rows=FC_BAND,
+            halo=halo)(a).cpu().numpy()
+    int8_identical(f"fullconv {name} int8 {MD_SCENE}^2 mask", m8, plain8,
+                   within)
 
 
 def validate_phase(cfg):
@@ -2037,6 +2536,13 @@ def main() -> int:
         multidate_phase(name, within)
     print(f"tiled modes and multi-date phases: {time.perf_counter() - t0:.1f}"
           f" s", flush=True)
+
+    # --- seamless fullconv, bi-date and multi-date ---
+    t0 = time.perf_counter()
+    fullconv_phase(d1, d2, fwd_ms, within)
+    for name in ("unet_lstm", "unet3d"):
+        fullconv_multidate_phase(name, within)
+    print(f"fullconv phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- the training path, then its kernel and cross checks ---
     with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:

@@ -1,23 +1,25 @@
 """``python -m fabric_tpu_torch.cli.infer --config <json> --resume <ckpt>
 [--city X ...] [--quant int8] [--overlap_band_rows N] [--pack N|auto]
-[--device cpu]``
+[--fullconv_band_rows N [--fullconv_stream]] [--device cpu]``
 
 Whole-scene inference of dataset cities (counterpart of
 ``fabric_tpu/cli/infer.py``), for the bi-date model or a multi-date one
 (``--model unet_lstm|unet3d``, ``--num_dates T``): loads a checkpoint (for
 a directory, its best-metric save, else the latest), predicts each
 requested city (default: ``validation_cities``) and writes
-``<output_dir>/<city>_mask.png``.  Without ``--quant``, ``--pack`` or
-``--overlap_band_rows`` it runs the reference path
-(``infer/runner.infer_city`` on the unfolded eval forward, grid or
+``<output_dir>/<city>_mask.png``.  Without ``--quant``, ``--pack``,
+``--overlap_band_rows`` or ``--fullconv_band_rows`` it runs the reference
+path (``infer/runner.infer_city`` on the unfolded eval forward, grid or
 ``--infer_overlap``); with any of them it serves through ``ScenePredictor``
 (BatchNorm folded; ``--quant int8`` calibrated on the first city;
 ``--overlap_band_rows`` accumulating overlap-mode probabilities in bands
 of N tile rows; ``--pack`` packing N same-bucket cities, or "auto" as many
 as fill the tile batch, into one forward, the cities loaded lazily as the
-packs fill).  Unless ``--no_tracker``, every scene writes a ``serve_*``
-record to ``<log_dir>/<run>/metrics.jsonl``.  On the card unless
-``--device cpu``.
+packs fill; ``--fullconv_band_rows`` running the network over
+halo-extended bands of N pixel rows instead of tiles, with
+``--fullconv_stream`` streamed band by band from host memory).  Unless
+``--no_tracker``, every scene writes a ``serve_*`` record to
+``<log_dir>/<run>/metrics.jsonl``.  On the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -30,8 +32,6 @@ import time
 
 # fabric_tpu serving options the port does not have yet -> ROADMAP item
 _NOT_PORTED = {
-    "fullconv_band_rows": "9 (seamless fullconv)",
-    "fullconv_stream": "9 (seamless fullconv)",
     "shard_scene": "10 (multi-GPU)",
     "bundle": "11 (frozen artifacts and bundles)",
     "aot_dir": "11 (frozen artifacts and bundles)",
@@ -47,8 +47,9 @@ def main(argv=None) -> int:
                        help="int8 = post-training-quantized serving, "
                             "calibrated once on the first city")
     extra.add_argument("--bucket", type=int, default=512,
-                       help="int8, --pack, --overlap_band_rows: scene dims "
-                            "pad up to multiples of this")
+                       help="int8, --pack, --overlap_band_rows, "
+                            "--fullconv_band_rows: scene dims pad up to "
+                            "multiples of this")
     extra.add_argument("--overlap_band_rows", type=int, default=0,
                        help="overlap mode (--infer_overlap > 0), bi-date: "
                             "accumulate in bands of N tile rows (bounded "
@@ -59,13 +60,20 @@ def main(argv=None) -> int:
                             "forward (their tiles share the chunks; the "
                             "masks are the unpacked ones); 'auto' packs, "
                             "per bucket, as many as fill the tile batch")
+    extra.add_argument("--fullconv_band_rows", type=int, default=0,
+                       help="seamless fullconv serving: run the network "
+                            "over halo-extended bands of N pixel rows (a "
+                            "multiple of 16) instead of tiles; 0 = off")
+    extra.add_argument("--fullconv_stream", action="store_true",
+                       help="with --fullconv_band_rows: stream each band "
+                            "from host memory instead of placing the "
+                            "scene on the card (the card holds one band)")
     extra.add_argument("--device", default=None, help="cuda (default) or cpu")
     extra.add_argument("--no_tracker", action="store_true",
                        help="write no serve_* records")
-    for opt in ("fullconv_band_rows", "bundle", "aot_dir"):
+    for opt in ("bundle", "aot_dir"):
         extra.add_argument(f"--{opt}", default=None)
-    for opt in ("fullconv_stream", "shard_scene"):
-        extra.add_argument(f"--{opt}", action="store_true")
+    extra.add_argument("--shard_scene", action="store_true")
     own, rest = extra.parse_known_args(sys.argv[1:] if argv is None else argv)
     for opt, item in _NOT_PORTED.items():
         if getattr(own, opt) not in (None, False, "0"):
@@ -106,10 +114,13 @@ def _serve(own, cfg, tracker) -> None:
     from fabric_tpu_torch.infer.service import ScenePredictor, resolve_device
     from fabric_tpu_torch.models import build_model
 
-    if own.quant == "int8" or own.overlap_band_rows > 0 or own.pack:
+    if (own.quant == "int8" or own.overlap_band_rows > 0 or own.pack
+            or own.fullconv_band_rows > 0 or own.fullconv_stream):
         pred = ScenePredictor(cfg, checkpoint=cfg.resume, bucket=own.bucket,
                               device=own.device, quant=own.quant,
                               overlap_band_rows=own.overlap_band_rows,
+                              fullconv_band_rows=own.fullconv_band_rows,
+                              fullconv_stream=own.fullconv_stream,
                               tracker=tracker)
         predict_city = pred.predict_city
     else:

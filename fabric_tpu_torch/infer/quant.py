@@ -48,7 +48,9 @@ from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import conv_s8, fuse_s8
 from fabric_tpu_torch.ops import fused as fused_ops
 from fabric_tpu_torch.ops.conv_s8 import quantize as q
-from fabric_tpu_torch.ops.resize import pad_to_match, upsample2x_align_corners
+from fabric_tpu_torch.ops.resize import (pad_to_match,
+                                         upsample2x_align_corners,
+                                         upsample2x_local)
 
 # bi-date conv sites in forward order (fabric_tpu's table): each entry is
 # the params-tree path of the conv whose input gets an activation scale
@@ -74,17 +76,15 @@ _SITES = (
 )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to fabric_tpu_torch "
-                               f"yet: ROADMAP.md queue 1 item {item}")
-
-
-def _check_family(model: str, local_upsample: bool) -> None:
+def _check_family(model: str) -> None:
     if model not in ("bidate",) + MULTI_DATE:
         raise ValueError(f"no int8 forward for model {model!r}")
-    if local_upsample:
-        raise _not_ported("int8 with local_upsample (fullconv)",
-                          "9 (seamless fullconv)")
+
+
+def _upsample(local_upsample: bool):
+    """The decoder's 2x upsample: the shift-invariant local one (fullconv
+    serving) or the align-corners one."""
+    return upsample2x_local if local_upsample else upsample2x_align_corners
 
 
 def _get(tree, path):
@@ -176,10 +176,12 @@ class StatsBlocks:
     """The exact folded forward's 2-D blocks with their calibration taps,
     shared by every family: :meth:`dc` runs a folded DoubleConv as two
     conv3x3_bias_relu launches (the site's input absmax tapped first, on
-    weights packed once), :meth:`decode` the Up stack and the head."""
+    weights packed once), :meth:`decode` the Up stack and the head, its
+    upsample the local one with ``local_upsample``."""
 
-    def __init__(self, folded):
+    def __init__(self, folded, local_upsample: bool = False):
         self.folded = folded
+        self.upsample = _upsample(local_upsample)
         self.sites = dict(derive_conv_sites(folded))
         on_card = _device(folded).type == "cuda"
         self.packed = {}
@@ -202,7 +204,7 @@ class StatsBlocks:
         """The decoder from the bottleneck ``y`` over the fused skips
         (f4, f3, f2, f1), then the head: float32 logits."""
         for k, skip in zip(range(1, 5), skips):
-            u = pad_to_match(upsample2x_align_corners(y), skip.shape[1],
+            u = pad_to_match(self.upsample(y), skip.shape[1],
                              skip.shape[2])
             y = self.dc(torch.cat([skip, u], dim=-1), f"up{k}", stats)
         return _outc(self.folded, y)
@@ -215,12 +217,14 @@ def make_stats_forward(folded, dtype=torch.bfloat16, local_upsample=False,
     the fused skips ``f1..f4`` (UNetLSTM: ``lstm.h`` too).  The inputs are
     (d1, d2) for the bi-date model, one (N, T, H, W, C) stack for a
     multi-date one.  The absmaxes are 0-dim tensors on the device (nothing
-    waits for them here)."""
-    _check_family(model, local_upsample)
+    waits for them here).  ``local_upsample``: the decoder upsamples with
+    the shift-invariant local op (the fullconv model's forward)."""
+    _check_family(model)
     if model in MULTI_DATE:
         from fabric_tpu_torch.infer import quant_multidate
-        return quant_multidate.make_stats_forward(folded, dtype, model)
-    blocks = StatsBlocks(folded)
+        return quant_multidate.make_stats_forward(folded, dtype, model,
+                                                  local_upsample)
+    blocks = StatsBlocks(folded, local_upsample)
 
     @torch.inference_mode()
     def forward(x_d1, x_d2):
@@ -311,11 +315,13 @@ class Int8Blocks:
     gate conv's halves ``enc.x5`` and ``lstm.h``; a conv that runs as its
     two halves keeps only its bias.  UNet3D's DHWIO kernels are folded to
     (3, 3, 3 * Cin, Cout) (:func:`conv_s8.fold_depth`), the kernel of the
-    conv over T-neighbour stacks."""
+    conv over T-neighbour stacks.  The decoder upsamples with the local op
+    where ``local_upsample``."""
 
     def __init__(self, folded, act_scales: dict, skip_scales: dict,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, local_upsample: bool = False):
         self.folded = folded
+        self.upsample = _upsample(local_upsample)
         self.s = s = dict(act_scales)
         self.dtype = dtype
         device = _device(folded)
@@ -368,7 +374,7 @@ class Int8Blocks:
         its own scale (the concat range's for u), in one launch, then
         conv2 to the compute dtype."""
         s, w = self.s, self.w
-        u = pad_to_match(upsample2x_align_corners(y), skip_q.shape[1],
+        u = pad_to_match(self.upsample(y), skip_q.shape[1],
                          skip_q.shape[2])
         qu = w[f"{block}.conv1.up"]
         h = self.site(skip_q, f"{block}.conv1.skip", s[f"{block}.conv2"],
@@ -389,15 +395,22 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
     """The int8 forward of ``fabric_tpu``'s ``_make_forward`` (or, for a
     multi-date ``model``, of ``quant_multidate``'s) in int8 mode, with the
     serving model's call signature: ``(d1, d2)`` or ``(stack)`` -> float32
-    logits (it drops into the scene runners unchanged)."""
-    _check_family(model, local_upsample)
+    logits (it drops into the scene runners unchanged).  With
+    ``local_upsample`` the decoder upsamples with the local op and the
+    forward composes with fullconv banding (its ``local_upsample``
+    attribute says which, for the fullconv runners' check)."""
+    _check_family(model)
     if model in MULTI_DATE:
         from fabric_tpu_torch.infer import quant_multidate
-        return quant_multidate.make_int8_forward(folded, act_scales, dtype,
-                                                 model)
+        forward = quant_multidate.make_int8_forward(folded, act_scales,
+                                                    dtype, model,
+                                                    local_upsample)
+        forward.local_upsample = local_upsample
+        return forward
     s = dict(act_scales)
     blocks = Int8Blocks(folded, s, {f"up{k}": s[f"f{5 - k}"]
-                                    for k in range(1, 5)}, dtype)
+                                    for k in range(1, 5)}, dtype,
+                        local_upsample)
 
     @torch.inference_mode()
     def forward(x_d1, x_d2):
@@ -417,4 +430,5 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
         y, _ = fuse_s8.siamese_fuse_s8(x, enc[5] * enc[5], dtype, pool=False)
         return blocks.decode(y, (f[3], f[2], f[1], f[0]))
 
+    forward.local_upsample = local_upsample
     return forward

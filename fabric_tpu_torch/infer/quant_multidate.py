@@ -53,10 +53,12 @@ def _gate_conv(folded, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1) + p["bias"].to(x.dtype)
 
 
-def make_stats_forward(folded, dtype=torch.bfloat16, model: str = "unet_lstm"):
+def make_stats_forward(folded, dtype=torch.bfloat16, model: str = "unet_lstm",
+                       local_upsample: bool = False):
     """The exact folded forward ``(seq) -> (logits, {site: absmax})`` of a
-    multi-date ``model`` over an (N, T, H, W, C) stack."""
-    blocks = StatsBlocks(folded)
+    multi-date ``model`` over an (N, T, H, W, C) stack (its decoder on the
+    local upsample where ``local_upsample``)."""
+    blocks = StatsBlocks(folded, local_upsample)
 
     def dc3(x, block, stats):
         for conv in ("conv1", "conv2"):
@@ -118,10 +120,11 @@ def _fuse_q(aq: torch.Tensor, sk: float, sf: float) -> torch.Tensor:
 
 
 def make_int8_forward(folded, act_scales: dict, dtype=torch.bfloat16,
-                      model: str = "unet_lstm"):
+                      model: str = "unet_lstm", local_upsample: bool = False):
     """The int8 forward ``(seq) -> float32 logits`` of a multi-date
     ``model`` (``fabric_tpu``'s ``_make_forward_lstm`` /
-    ``_make_forward_3d`` in int8 mode), on the int8 conv kernel."""
+    ``_make_forward_3d`` in int8 mode), on the int8 conv kernel, its
+    decoder on the local upsample where ``local_upsample``."""
     s = dict(act_scales)
     enc = [s[k] for k in ("inc.conv1", "down1.conv1", "down2.conv1",
                           "down3.conv1", "down4.conv1", "enc.x5")]
@@ -129,7 +132,7 @@ def make_int8_forward(folded, act_scales: dict, dtype=torch.bfloat16,
         skip = {f"up{k}": s[f"f{5 - k}"] for k in range(1, 5)}
     else:  # the collapsed skips keep their encoder level's scale
         skip = {f"up{k}": enc[5 - k] for k in range(1, 5)}
-    blocks = Int8Blocks(folded, s, skip, dtype)
+    blocks = Int8Blocks(folded, s, skip, dtype, local_upsample)
 
     def site3(xq, name, s_out):
         """A 3x3x3 site on int8 (N, T, H, W, C): one conv3x3_s8_q launch

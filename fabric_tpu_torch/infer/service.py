@@ -1,6 +1,6 @@
 """ScenePredictor: whole-scene change-map serving (counterpart of
-``fabric_tpu/infer/service.py``: the tiled modes, exact or int8, for the
-bi-date model and the multi-date ones).
+``fabric_tpu/infer/service.py``: the tiled modes and seamless fullconv,
+exact or int8, for the bi-date model and the multi-date ones).
 
 Loads a checkpoint once (or initialises weights from a seed), folds
 BatchNorm on the host, and serves scenes of any size: each scene is
@@ -10,7 +10,10 @@ One runner is built per bucket and reused.  The tiled modes are grid
 (``cfg.infer_overlap`` 0), overlap (overlap-averaged probabilities) and
 banded overlap (``overlap_band_rows``: the same in bands of tile rows, for
 bounded memory); in grid mode ``predict_many(pack=...)`` packs several
-same-bucket scenes into one chunked forward.  The folded forward runs on
+same-bucket scenes into one chunked forward.  ``fullconv_band_rows``
+replaces tiling: the network runs over halo-extended bands of the scene
+(``infer/fullconv.py``), in device memory or, with ``fullconv_stream``,
+streamed band by band from host arrays.  The folded forward runs on
 the port's hand-written kernels; with ``fold_bn=False`` the eval-BN
 forward runs, on the eval-BatchNorm kernel; with ``quant="int8"`` the
 post-training-quantized forward of ``infer/quant.py`` runs, on the int8
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch import checkpoint as ckpt
+from fabric_tpu_torch.infer import fullconv
 from fabric_tpu_torch.infer import quant as q
 from fabric_tpu_torch.infer.device_tiling import (make_banded_overlap_infer,
                                                   make_packed_scene_infer,
@@ -91,13 +95,27 @@ class ScenePredictor:
         that one band's tiles are live at a time instead of the scene's
         (``make_banded_overlap_infer``); the masks are the unbanded ones.
         0 = unbanded.
+      fullconv_band_rows: seamless fullconv serving instead of tiling: the
+        network runs over halo-extended bands of this many pixel rows (a
+        multiple of 16), every pixel predicted once with its full
+        receptive field and no seams (``infer/fullconv.py``; the halo
+        covers the model's receptive field, ``fullconv.halo_for``).  The
+        model is built with the shift-invariant local upsample (masks differ
+        slightly from the tiled modes unless the checkpoint was trained
+        with ``cfg.local_upsample``).  Needs ``fold_bn``, no overlap and no
+        ``overlap_band_rows``; exact and int8, bi-date and multi-date.
+        0 = off.
+      fullconv_stream: with ``fullconv_band_rows``: stream each band from
+        the host arrays (ndarray or ``np.memmap``) instead of placing the
+        scene on the card, whose footprint is then one band whatever the
+        scene's size; the mask is the in-device-memory runner's on the
+        bucket-padded scene.
       tracker: a ``fabric_tpu_torch.track.Tracker``: every served scene
         writes a ``serve_``-prefixed record (dims, bucket, new runner or
         cached, wall ms, Mpx/s, serving mode, quant, the pack size of a
         packed scene and, for int8, the worst clip site and ratio).
-      mesh, shard_scene, fullconv_band_rows, fullconv_stream, aot_dir,
-      bundle: ``fabric_tpu`` serving modes that are not ported yet;
-        anything but their default raises.
+      mesh, shard_scene, aot_dir, bundle: ``fabric_tpu`` serving modes
+        that are not ported yet; anything but their default raises.
     """
 
     def __init__(self, cfg, checkpoint: str | None = None, bucket: int = 512,
@@ -110,8 +128,6 @@ class ScenePredictor:
             raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
         if mesh is not None or shard_scene:
             raise _not_ported("mesh / shard_scene serving", "10 (multi-GPU)")
-        if fullconv_band_rows or fullconv_stream:
-            raise _not_ported("fullconv serving", "9 (seamless fullconv)")
         if aot_dir is not None or bundle is not None:
             raise _not_ported("aot_dir / bundle serving",
                               "11 (frozen artifacts and bundles)")
@@ -124,7 +140,19 @@ class ScenePredictor:
             if self.multi_date:
                 raise ValueError("overlap_band_rows supports the bi-date "
                                  "model only")
+        if fullconv_stream and not fullconv_band_rows:
+            raise ValueError("fullconv_stream streams the fullconv bands "
+                             "from host memory: set fullconv_band_rows too")
+        if fullconv_band_rows and (overlap_band_rows or cfg.infer_overlap
+                                   or not fold_bn):
+            raise ValueError("fullconv_band_rows serves BatchNorm-folded "
+                             "models with grid and overlap tiling off (it "
+                             "replaces tiling); exact and int8 both "
+                             "compose with it, and the multi-date models "
+                             "serve through it")
         self.overlap_band_rows = overlap_band_rows
+        self.fullconv_band_rows = fullconv_band_rows
+        self.fullconv_stream = fullconv_stream
         self.quant = quant or "none"
         if self.quant == "int8" and not fold_bn:
             raise ValueError("quant='int8' requires fold_bn=True (the "
@@ -144,8 +172,10 @@ class ScenePredictor:
         variables = None
         if checkpoint:
             variables = ckpt.load_variables(ckpt.resolve(checkpoint))
-        self.model = build_model(cfg, self.device, fold_bn=fold_bn,
-                                 variables=variables)
+        # folded serving upsamples align-corners, except in fullconv
+        self.model = build_model(
+            cfg, self.device, fold_bn=fold_bn, variables=variables,
+            local_upsample=bool(fullconv_band_rows) if fold_bn else None)
         # what the runners call: the model, or the int8 forward once the
         # scales exist
         self._forward = self.model
@@ -160,7 +190,9 @@ class ScenePredictor:
     def _stats_forward(self):
         if self._stats_fwd is None:
             self._stats_fwd = q.make_stats_forward(
-                q.folded_params(self.model), self.dtype, model=self.cfg.model)
+                q.folded_params(self.model), self.dtype,
+                local_upsample=self.model.local_upsample,
+                model=self.cfg.model)
         return self._stats_fwd
 
     def calibrate(self, batches) -> None:
@@ -172,8 +204,9 @@ class ScenePredictor:
         scales = q.calibrate(folded, batches, self.dtype,
                              stats_forward=self._stats_forward(),
                              model=self.cfg.model)
-        self._forward = q.make_int8_apply(folded, scales, self.dtype,
-                                          model=self.cfg.model)
+        self._forward = q.make_int8_apply(
+            folded, scales, self.dtype,
+            local_upsample=self.model.local_upsample, model=self.cfg.model)
         self._scales = dict(scales)
         self._runners.clear()
         # a scene served right after a calibration ran no probe: the last
@@ -268,8 +301,10 @@ class ScenePredictor:
     # --- serving ---
 
     def serving_mode(self) -> str:
-        """The configured serving mode: "banded_overlap", "overlap" or
-        "grid"."""
+        """The configured serving mode: "fullconv_stream", "fullconv",
+        "banded_overlap", "overlap" or "grid"."""
+        if self.fullconv_band_rows:
+            return "fullconv_stream" if self.fullconv_stream else "fullconv"
         if self.overlap_band_rows:
             return "banded_overlap"
         if self.cfg.infer_overlap:
@@ -318,6 +353,13 @@ class ScenePredictor:
         self.tracker.log_metrics(rec, step=self._scenes_predicted,
                                  prefix="serve_")
 
+    def _runner_key(self, h: int, w: int) -> tuple[int, int]:
+        """The runner key of an (h, w) scene: its bucket dims, or in
+        streamed fullconv its own dims (the runner pads virtually)."""
+        if self.fullconv_stream:
+            return h, w
+        return self._bucket_dims(h, w)
+
     def _bucket_dims(self, h: int, w: int) -> tuple[int, int]:
         """Padded (H, W) for this scene under the bucket policy."""
         patch = self.cfg.patch_size
@@ -331,7 +373,25 @@ class ScenePredictor:
         if key not in self._runners:
             cfg = self.cfg
             common = dict(batch_size=cfg.eval_batch_size, dtype=self.dtype)
-            if self.multi_date:
+            band = dict(band_rows=self.fullconv_band_rows, dtype=self.dtype,
+                        halo=fullconv.halo_for(cfg.model, cfg.num_dates))
+            if self.fullconv_stream:
+                # bands sliced from the host scene, padded virtually to
+                # the bucket: the mask of the in-device-memory runner
+                stream = dict(band, padded_shape=self._bucket_dims(h, w),
+                              device=self.device)
+                run = (fullconv.make_fullconv_scene_infer_multidate_streamed(
+                    self._forward, key, cfg.num_dates, **stream)
+                    if self.multi_date else
+                    fullconv.make_fullconv_scene_infer_streamed(
+                        self._forward, key, **stream))
+            elif self.fullconv_band_rows:
+                run = (fullconv.make_fullconv_scene_infer_multidate(
+                    self._forward, key, cfg.num_dates, **band)
+                    if self.multi_date else
+                    fullconv.make_fullconv_scene_infer(self._forward, key,
+                                                       **band))
+            elif self.multi_date:
                 run = make_scene_infer_multidate(
                     self._forward, cfg.patch_size, key,
                     num_dates=cfg.num_dates, overlap=cfg.infer_overlap,
@@ -378,6 +438,9 @@ class ScenePredictor:
         returns ``(mask, h, w, host_buffers)`` with ``mask`` the
         (bucket-sized) device tensor, possibly still being computed."""
         h, w = d1.shape[:2]
+        if self.fullconv_stream:  # the runner slices the host arrays
+            return (torch.from_numpy(self._get_runner(h, w)(d1, d2)), h, w,
+                    None)
         ph, pw = self._bucket_dims(h, w)
         run = self._get_runner(ph, pw)
         (a1, h1), (a2, h2) = (self._upload([self._pad(d, ph, pw)])
@@ -388,6 +451,9 @@ class ScenePredictor:
         """The multi-date form of :meth:`_dispatch`, for a (T, H, W, C)
         date stack."""
         h, w = scenes.shape[1:3]
+        if self.fullconv_stream:
+            return torch.from_numpy(self._get_runner(h, w)(scenes)), h, w, \
+                None
         ph, pw = self._bucket_dims(h, w)
         run = self._get_runner(ph, pw)
         a, host = self._upload([self._pad(scenes, ph, pw)])
@@ -413,7 +479,7 @@ class ScenePredictor:
             probe = self._int8_scene_prologue(crops())
             self._int8_probe_check(probe, self._scenes_predicted)
         self._scenes_predicted += 1
-        key = self._bucket_dims(*dims)
+        key = self._runner_key(*dims)
         new_runner = key not in self._runners
         mask, h, w, _ = dispatch()
         out = mask.cpu().numpy()[:h, :w]
@@ -467,7 +533,7 @@ class ScenePredictor:
                 probe = self._int8_scene_prologue(crops_of(item))
             idx = self._scenes_predicted
             self._scenes_predicted += 1
-            key = self._bucket_dims(*dims_of(item))
+            key = self._runner_key(*dims_of(item))
             new_runner = key not in self._runners
             dispatched = dispatch(item)
             report = self._int8_probe_check(probe, idx)
@@ -511,8 +577,8 @@ class ScenePredictor:
         if self.serving_mode() != "grid":
             raise ValueError(
                 f"pack= serves the grid tiling mode only (this predictor "
-                f"is configured for {self.serving_mode()!r}); overlap "
-                f"scenes do not tile into packable batches")
+                f"is configured for {self.serving_mode()!r}); fullconv "
+                f"and overlap scenes do not tile into packable batches")
         if pack != "auto" and (not isinstance(pack, int) or pack < 1):
             raise ValueError(f"pack must be >= 1 or 'auto', got {pack!r}")
         results: dict[int, np.ndarray] = {}

@@ -20,7 +20,8 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def build_model(cfg, device, generator: torch.Generator | None = None,
                 fold_bn: bool = True, variables: tuple | None = None,
-                train: bool = False) -> torch.nn.Module:
+                train: bool = False,
+                local_upsample: bool | None = None) -> torch.nn.Module:
     """The ``cfg.model`` network (BiDateNet, base 64 by default; UNetLSTM,
     base 64; UNet3D, base 32) on ``device``.
 
@@ -33,7 +34,9 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     keeps BatchNorm (``fold_bn`` must be False), its parameters take
     gradients, ``cfg.per_date_batchnorm`` selects per-date batch
     statistics and ``cfg.remat`` rematerialises its stages.  The
-    multi-date models serve only (eval mode)."""
+    multi-date models serve only (eval mode).  ``local_upsample`` (None:
+    ``cfg.local_upsample``) gives the decoder the shift-invariant
+    upsample that fullconv serving needs; it adds no parameter."""
     if cfg.model not in ("bidate",) + MULTI_DATE:
         raise ValueError(f"unknown model: {cfg.model!r}")
     if train and cfg.model in MULTI_DATE:
@@ -50,15 +53,17 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
         variables = weights.init_variables(cfg.n_channels, cfg.n_classes,
                                            base, generator, cfg.model)
     dtype = compute_dtype(cfg)
+    if local_upsample is None:
+        local_upsample = cfg.local_upsample
     if cfg.model == "bidate":
         model = BiDateNet(cfg.n_channels, cfg.n_classes, base,
                           fold_bn=fold_bn, dtype=dtype,
                           joint_date_batchnorm=not cfg.per_date_batchnorm,
-                          remat=cfg.remat)
+                          remat=cfg.remat, local_upsample=local_upsample)
     else:
         net = UNetLSTM if cfg.model == "unet_lstm" else UNet3D
         model = net(cfg.n_channels, cfg.n_classes, base, fold_bn=fold_bn,
-                    dtype=dtype)
+                    dtype=dtype, local_upsample=local_upsample)
     weights.load_variables(model, *variables)
     model.requires_grad_(train)
     model = model.to(device).train(train)

@@ -4,6 +4,9 @@
 Shared encoder (inc 13->64, down x4: 64->128->256->512->512), per-level
 fusion ``relu(d2 * d1)``, and a skip-connected decoder (up 1024->256,
 512->128, 256->64, 128->64) with a 1x1 head.  Returns float32 logits.
+The decoder upsamples align-corners, or with ``local_upsample`` by the
+shift-invariant local upsample that fullconv serving needs
+(``ops/resize.upsample2x_local``); the weights are the same either way.
 
 The encoder runs once on both dates stacked on the batch axis, so
 train-mode BatchNorm takes joint two-date batch statistics; with
@@ -56,8 +59,10 @@ class BiDateNet(nn.Module):
     def __init__(self, n_channels: int = 13, n_classes: int = 2,
                  base: int = 64, fold_bn: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
-                 joint_date_batchnorm: bool = True, remat: bool = False):
+                 joint_date_batchnorm: bool = True, remat: bool = False,
+                 local_upsample: bool = False):
         super().__init__()
+        self.local_upsample = local_upsample
         self.fold_bn = fold_bn
         self.dtype = dtype
         self.joint_date_batchnorm = joint_date_batchnorm
@@ -68,10 +73,10 @@ class BiDateNet(nn.Module):
         self.down2 = Down(2 * b, 4 * b, fold_bn)
         self.down3 = Down(4 * b, 8 * b, fold_bn)
         self.down4 = Down(8 * b, 8 * b, fold_bn)
-        self.up1 = Up(16 * b, 4 * b, fold_bn)
-        self.up2 = Up(8 * b, 2 * b, fold_bn)
-        self.up3 = Up(4 * b, b, fold_bn)
-        self.up4 = Up(2 * b, b, fold_bn)
+        self.up1 = Up(16 * b, 4 * b, fold_bn, local_upsample)
+        self.up2 = Up(8 * b, 2 * b, fold_bn, local_upsample)
+        self.up3 = Up(4 * b, b, fold_bn, local_upsample)
+        self.up4 = Up(2 * b, b, fold_bn, local_upsample)
         self.outc = OutConv(b, n_classes)
 
     def _stage(self, stage: nn.Module, train: bool, *xs: torch.Tensor):

@@ -31,7 +31,9 @@ from torch import nn
 from fabric_tpu_torch.ops import bn_relu as bn_relu_ops
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import double_conv as double_conv_ops
-from fabric_tpu_torch.ops.resize import pad_to_match, upsample2x_align_corners
+from fabric_tpu_torch.ops.resize import (pad_to_match,
+                                        upsample2x_align_corners,
+                                        upsample2x_local)
 
 
 def _weight(*shape: int) -> nn.Parameter:
@@ -181,17 +183,22 @@ class Down(nn.Module):
 
 
 class Up(nn.Module):
-    """Align-corners 2x upsample, pad to the skip, concat ``[skip, up]``
-    (the reference's ``torch.cat([x2, x1], dim=1)``), DoubleConv."""
+    """2x upsample (align-corners, or with ``local_upsample`` the
+    shift-invariant local one that fullconv serving needs; parameter-free
+    either way), pad to the skip, concat ``[skip, up]`` (the reference's
+    ``torch.cat([x2, x1], dim=1)``), DoubleConv."""
 
-    def __init__(self, cin: int, cout: int, fold_bn: bool = True):
+    def __init__(self, cin: int, cout: int, fold_bn: bool = True,
+                 local_upsample: bool = False):
         super().__init__()
+        self.local_upsample = local_upsample
         self.conv = DoubleConv(cin, cout, fold_bn)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        x1 = pad_to_match(upsample2x_align_corners(x1), x2.shape[1],
-                          x2.shape[2])
+        up = upsample2x_local if self.local_upsample \
+            else upsample2x_align_corners
+        x1 = pad_to_match(up(x1), x2.shape[1], x2.shape[2])
         return self.conv(torch.cat([x2, x1], dim=-1), train)
 
 

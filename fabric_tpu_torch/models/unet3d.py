@@ -78,8 +78,10 @@ class UNet3D(nn.Module):
 
     def __init__(self, n_channels: int = 13, n_classes: int = 2,
                  base: int = 32, fold_bn: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 local_upsample: bool = False):
         super().__init__()
+        self.local_upsample = local_upsample
         self.fold_bn = fold_bn
         self.dtype = dtype
         b = base
@@ -88,10 +90,10 @@ class UNet3D(nn.Module):
         self.down2 = DoubleConv3D(2 * b, 4 * b, fold_bn)
         self.down3 = DoubleConv3D(4 * b, 8 * b, fold_bn)
         self.down4 = DoubleConv3D(8 * b, 8 * b, fold_bn)
-        self.up1 = Up(16 * b, 4 * b, fold_bn)
-        self.up2 = Up(8 * b, 2 * b, fold_bn)
-        self.up3 = Up(4 * b, b, fold_bn)
-        self.up4 = Up(2 * b, b, fold_bn)
+        self.up1 = Up(16 * b, 4 * b, fold_bn, local_upsample)
+        self.up2 = Up(8 * b, 2 * b, fold_bn, local_upsample)
+        self.up3 = Up(4 * b, b, fold_bn, local_upsample)
+        self.up4 = Up(2 * b, b, fold_bn, local_upsample)
         self.outc = OutConv(b, n_classes)
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:

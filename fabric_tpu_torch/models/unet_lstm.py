@@ -15,6 +15,17 @@ computes it with XLA outside any Pallas kernel, and here it is
 ``F.conv2d`` in the compute dtype with the bias added in that dtype, as
 flax's ``nn.Conv`` does.  The T-date product and the gate nonlinearities
 are plain PyTorch, as they are XLA in ``fabric_tpu``.
+
+Fullconv serving (``infer/fullconv.py``) needs a band of a scene to compute
+each pixel as the whole scene does, and cuDNN picks its algorithm by
+shape: on the H100, at base 64, a band's gate conv rounded otherwise than
+the whole scene's.  So a model built with ``local_upsample`` (the fullconv
+model) runs its gate conv on the conv kernel, whose per-pixel sums do not
+depend on the image's size: one launch computes relu(z) and relu(-z) from
+the kernel concatenated with its negation, and z is their difference,
+exact in bf16 (:func:`signed_conv`).  Each date's gate conv widens the
+receptive field by one 3x3 conv at stride 16: 109 + 16 T px, which is
+what the fullconv halo must cover (``fullconv.halo_for``).
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import torch
 from torch import nn
 
 from fabric_tpu_torch.models.blocks import Conv, DoubleConv, Down, OutConv, Up
+from fabric_tpu_torch.ops import conv as conv_ops
 
 
 def multi_date_fuse(feats: torch.Tensor) -> torch.Tensor:
@@ -30,13 +42,40 @@ def multi_date_fuse(feats: torch.Tensor) -> torch.Tensor:
     return torch.relu(torch.prod(feats, dim=1))
 
 
+def signed_conv(x: torch.Tensor, signed_kernel: torch.Tensor,
+                signed_bias: torch.Tensor,
+                packed: torch.Tensor | None = None) -> torch.Tensor:
+    """conv3x3_SAME(x, K) + b, rounded once to x's dtype, on the conv
+    kernel: ``signed_kernel`` is [K, -K] along the output channels and
+    ``signed_bias`` [b, -b], so the launch gives [relu(z), relu(-z)], the
+    second the exact negation of the first's sums, and z is their
+    difference (one of the two is 0)."""
+    y = conv_ops.conv3x3_bias_relu(x, signed_kernel, signed_bias, packed)
+    c = y.shape[-1] // 2
+    return y[..., :c] - y[..., c:]
+
+
 class ConvLSTMCell(nn.Module):
     """One ConvLSTM step: the four gates from one 3x3 SAME conv over the
     channel concat ``[x, h]``."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, exact_crops: bool = False):
         super().__init__()
+        self.exact_crops = exact_crops
         self.gates = Conv(cin + features, 4 * features)
+
+    def signed_gates(self) -> tuple:
+        """([K, -K], [b, -b], their packed form on the card) for
+        :func:`signed_conv`, made once and again when the weights change."""
+        k, b = self.gates.kernel, self.gates.bias
+        key = (k.data_ptr(), k._version, b.data_ptr(), b._version)
+        if getattr(self, "_signed_key", None) != key:
+            with torch.no_grad():
+                kk, bb = torch.cat([k, -k], -1), torch.cat([b, -b])
+                self._signed = (kk, bb, None if k.device.type == "cpu"
+                                else conv_ops.pack_weight(kk))
+            self._signed_key = key
+        return self._signed
 
     @staticmethod
     def step(z: torch.Tensor, c: torch.Tensor):
@@ -51,7 +90,10 @@ class ConvLSTMCell(nn.Module):
         return o * torch.tanh(c), c
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-        return self.step(self.gates(torch.cat([x, h], dim=-1)), c)
+        xh = torch.cat([x, h], dim=-1)
+        z = (signed_conv(xh, *self.signed_gates()) if self.exact_crops
+             else self.gates(xh))
+        return self.step(z, c)
 
 
 class UNetLSTM(nn.Module):
@@ -59,8 +101,10 @@ class UNetLSTM(nn.Module):
 
     def __init__(self, n_channels: int = 13, n_classes: int = 2,
                  base: int = 64, fold_bn: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 local_upsample: bool = False):
         super().__init__()
+        self.local_upsample = local_upsample
         self.fold_bn = fold_bn
         self.dtype = dtype
         b = base
@@ -69,11 +113,11 @@ class UNetLSTM(nn.Module):
         self.down2 = Down(2 * b, 4 * b, fold_bn)
         self.down3 = Down(4 * b, 8 * b, fold_bn)
         self.down4 = Down(8 * b, 8 * b, fold_bn)
-        self.bottleneck_lstm = ConvLSTMCell(8 * b, 8 * b)
-        self.up1 = Up(16 * b, 4 * b, fold_bn)
-        self.up2 = Up(8 * b, 2 * b, fold_bn)
-        self.up3 = Up(4 * b, b, fold_bn)
-        self.up4 = Up(2 * b, b, fold_bn)
+        self.bottleneck_lstm = ConvLSTMCell(8 * b, 8 * b, local_upsample)
+        self.up1 = Up(16 * b, 4 * b, fold_bn, local_upsample)
+        self.up2 = Up(8 * b, 2 * b, fold_bn, local_upsample)
+        self.up3 = Up(4 * b, b, fold_bn, local_upsample)
+        self.up4 = Up(2 * b, b, fold_bn, local_upsample)
         self.outc = OutConv(b, n_classes)
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:

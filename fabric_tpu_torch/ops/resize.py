@@ -1,11 +1,13 @@
-"""Align-corners bilinear 2x upsample and ``pad_to_match`` for NHWC tensors.
+"""The decoder's 2x upsamples and ``pad_to_match`` for NHWC tensors.
 
-Counterpart of ``fabric_tpu/ops/resize.py``.  The resize is two matmuls
-with (out, in) interpolation matrices, as there, with the same rounding in
-a bf16 forward: each matrix is cast to the activation's dtype, and each
-matmul's output is rounded to that dtype (``resize.py:49-57``).  These are
-plain PyTorch ops; ``fabric_tpu`` left them to XLA, outside any Pallas
-kernel.
+Counterpart of ``fabric_tpu/ops/resize.py``.  The align-corners resize is
+two matmuls with (out, in) interpolation matrices, as there, with the same
+rounding in a bf16 forward: each matrix is cast to the activation's dtype,
+and each matmul's output is rounded to that dtype (``resize.py:49-57``).
+The shift-invariant local upsample (:func:`upsample2x_local`), which the
+fullconv serving mode needs, interleaves each input with the midpoint of
+its next neighbour.  These are plain PyTorch ops; ``fabric_tpu`` left them
+to XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -64,6 +66,30 @@ def resize_align_corners(x: torch.Tensor, out_h: int,
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear align-corners upsample (the reference decoder's op)."""
     return resize_align_corners(x, 2 * x.shape[1], 2 * x.shape[2])
+
+
+def _up1d_local(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Shift-invariant 2x upsample along ``axis``: even outputs copy the
+    inputs, odd outputs are the midpoints ``(x[i] + x[i+1]) * 0.5`` taken
+    in float32 and rounded once to x's dtype (the last one clamps to the
+    edge: x[-1] twice)."""
+    n = x.shape[axis]
+    nxt = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)],
+                    dim=axis)
+    mid = ((x.float() + nxt.float()) * 0.5).to(x.dtype)
+    shape = list(x.shape)
+    shape[axis] *= 2
+    return torch.stack([x, mid], dim=axis + 1).reshape(shape)
+
+
+def upsample2x_local(x: torch.Tensor) -> torch.Tensor:
+    """Shift-invariant bilinear 2x upsample of an (N, H, W, C) or (H, W, C)
+    tensor: ``out[2i] = x[i]``, ``out[2i+1] = (x[i] + x[i+1]) / 2`` along
+    each spatial axis, edge-clamped at the far end.  Unlike the
+    align-corners grid it commutes with crops at even offsets, which lets
+    ``infer/fullconv.py`` run the network over halo-extended scene bands
+    and reproduce a whole-scene forward exactly.  Differentiable."""
+    return _up1d_local(_up1d_local(x, x.dim() - 3), x.dim() - 2)
 
 
 def pad_to_match(x: torch.Tensor, target_h: int,

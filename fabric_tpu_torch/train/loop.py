@@ -74,11 +74,9 @@ def _check_ported(cfg) -> None:
     if cfg.model != "bidate":
         raise _not_ported(f"training model {cfg.model!r}",
                           "8b (multi-date training)")
-    items = {"lane_pack": "12", "lane_pack_bwd": "12",
-             "local_upsample": "9"}
-    for flag, item in items.items():
+    for flag in ("lane_pack", "lane_pack_bwd"):
         if getattr(cfg, flag):
-            raise _not_ported(flag, item)
+            raise _not_ported(flag, "12")
     if cfg.profile_dir:
         raise _not_ported("profile_dir", "12 (profiling)")
     if max(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_model) > 1:

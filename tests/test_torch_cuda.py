@@ -732,3 +732,137 @@ def test_unfolded_multidate_serving_agrees_with_folded(card, model):
     flips = folded != unfolded
     assert flips.mean() <= 0.01
     assert (margin[flips] <= logits.abs().max().item() / 16).all()
+
+
+# --- seamless fullconv: the kernels at band shapes, banding on the card ---
+
+# (N, H, W, Cin, Cout) of conv3x3_bias_relu in a bi-date band forward
+# (band 512 + 2 x 128 halo = 768 context rows of a 2048-wide scene): inc,
+# down4 and up4 convs, the band_batch 4 stack's inc, the widest band's
+BAND_CONV_SHAPES = [(2, 768, 2048, 13, 64), (2, 768, 2048, 64, 64),
+                    (2, 48, 128, 512, 512), (1, 768, 2048, 128, 64),
+                    (8, 768, 2048, 13, 64), (2, 768, 8192, 64, 64)]
+BAND_FUSED_SHAPES = [(1, 768, 2048, 64), (4, 768, 2048, 64),
+                     (1, 768, 8192, 64), (1, 48, 128, 512)]
+# conv3x3_s8_q at the int8 band forward's sites in their modes
+BAND_S8Q_SHAPES = [(2, 768, 2048, 13, 64, "int8"),
+                   (1, 768, 2048, 64, 64, "split"),
+                   (1, 768, 2048, 64, 64, "bf16"),
+                   (2, 48, 128, 512, 512, "int8"),
+                   (8, 768, 2048, 13, 64, "int8")]
+BAND_FUSE_SHAPES = [(2, 768, 2048, 64), (8, 768, 2048, 64),
+                    (2, 48, 128, 512)]
+
+
+def _randn(card, *shape, scale=1.0):
+    g = torch.Generator(card).manual_seed(sum(shape))
+    return torch.randn(*shape, generator=g, device=card) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", BAND_CONV_SHAPES)
+def test_conv_kernel_at_band_shapes(card, n, h, w, cin, cout):
+    """Whole-scene-wide images, batch 1-8 (TW 128, TR 1: up to 98304 M
+    chunks a launch): one ulp of the largest output, as at tile shapes."""
+    x = _randn(card, n, h, w, cin).to(torch.bfloat16)
+    k = _randn(card, 3, 3, cin, cout, scale=(9 * cin) ** -.5)
+    b = _randn(card, cout, scale=0.1)
+    got = conv.conv3x3_bias_relu(x, k, b)
+    torch.cuda.synchronize()
+    ref = conv.conv3x3_bias_relu_reference(x, k, b)
+    assert (got.float() - ref.float()).abs().max().item() <= _ulp_bound(ref, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BAND_FUSED_SHAPES)
+def test_fused_kernel_at_band_shapes(card, shape):
+    a, b = (_randn(card, *shape).to(torch.bfloat16) for _ in range(2))
+    got = fused.fused_mul_relu(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused.fused_mul_relu_reference(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,mode", BAND_S8Q_SHAPES)
+def test_conv_s8_q_kernel_at_band_shapes(card, n, h, w, cin, cout, mode):
+    test_conv_s8_q_kernel_matches_plain(card, n, h, w, cin, cout, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2,h,w,c", BAND_FUSE_SHAPES)
+def test_siamese_fuse_s8_kernel_at_band_shapes(card, n2, h, w, c):
+    from fabric_tpu_torch.ops import fuse_s8
+    g = torch.Generator(card).manual_seed(n2 + h)
+    a = torch.randint(-127, 128, (n2, h, w, c), generator=g, device=card,
+                      dtype=torch.int8)
+    for out, pool in ((torch.int8, True), (torch.bfloat16, False)):
+        f, p = fuse_s8.siamese_fuse_s8(a, (3.1 / 127) ** 2 / (5.3 / 127),
+                                       out, pool)
+        torch.cuda.synchronize()
+        rf, rp = fuse_s8.siamese_fuse_s8_reference(
+            a, (3.1 / 127) ** 2 / (5.3 / 127), out, pool)
+        assert torch.equal(f, rf)
+        assert (p is None) == (not pool) and (not pool or torch.equal(p, rp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,quant", [("bidate", "none"),
+                                         ("bidate", "int8"),
+                                         ("unet_lstm", "none"),
+                                         ("unet_lstm", "int8"),
+                                         ("unet3d", "none")])
+def test_fullconv_banded_equals_whole_on_card(card, model, quant):
+    """On the card (kernels, cuBLAS and the fixed-order multi-date
+    reductions), the banded mask equals one whole-scene forward's, bit for
+    bit, band_batch 3 equals 1 (bi-date), and the streamed predictor from
+    host arrays equals the in-device one; base 16, a 600 x 200 scene in
+    the 608 x 208 bucket, band 160 (3 bands and a tail)."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer import fullconv
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    cfg = Config(model=model, model_base=16, num_dates=3)
+    kw = dict(bucket=16, device=card, quant=quant, fullconv_band_rows=160)
+    pred = ScenePredictor(cfg, **kw)
+    pred_s = ScenePredictor(cfg, fullconv_stream=True, **kw)
+    rng = np.random.RandomState(9)
+    scenes = rng.randn(2 if model == "bidate" else 3, 600, 200,
+                       13).astype(np.float32)
+    x = torch.from_numpy(np.pad(scenes, [(0, 0), (0, 8), (0, 8), (0, 0)],
+                                mode="edge")).to(card)
+    if model == "bidate":
+        mask = pred.predict(*scenes)
+        streamed = pred_s.predict(*scenes)
+        whole = fullconv.make_fullconv_scene_infer(
+            pred._forward, (608, 208), band_rows=1024)(*x)
+        batched = fullconv.make_fullconv_scene_infer(
+            pred._forward, (608, 208), band_rows=160, band_batch=3)(*x)
+        np.testing.assert_array_equal(batched.cpu().numpy()[:600, :200],
+                                      mask)
+    else:
+        mask = pred.predict_multidate(scenes)
+        streamed = pred_s.predict_multidate(scenes)
+        whole = fullconv.make_fullconv_scene_infer_multidate(
+            pred._forward, (608, 208), 3, band_rows=1024)(x)
+    np.testing.assert_array_equal(whole.cpu().numpy()[:600, :200], mask)
+    np.testing.assert_array_equal(streamed, mask)
+
+
+@pytest.mark.cuda
+def test_signed_gate_conv_is_crop_exact(card):
+    """The fullconv UNetLSTM's gate conv (bf16, 512 + 512 -> 2048
+    channels, base 64): the signed launch of the conv kernel gives a
+    crop's interior exactly the whole image's values (cuDNN's conv does
+    not at these shapes), and equals cuDNN's within one bf16 rounding."""
+    from fabric_tpu_torch.models.blocks import Conv
+    from fabric_tpu_torch.models.unet_lstm import signed_conv
+    x = _randn(card, 1, 64, 128, 1024).to(torch.bfloat16)
+    k = _randn(card, 3, 3, 1024, 2048, scale=96 ** -1)
+    b = _randn(card, 2048)
+    kk, bb = torch.cat([k, -k], -1), torch.cat([b, -b])
+    whole = signed_conv(x, kk, bb)
+    crop = signed_conv(x[:, 8:48].contiguous(), kk, bb)
+    assert torch.equal(whole[:, 9:47], crop[:, 1:39])
+    cudnn = Conv(1024, 2048).to(card)
+    cudnn.kernel.data, cudnn.bias.data = k, b
+    assert (whole.float() - cudnn(x).float()).abs().max().item() \
+        <= _ulp_bound(whole, 2)

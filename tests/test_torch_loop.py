@@ -290,7 +290,7 @@ def test_prune_keeps_the_newest_and_what_pointers_name(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(lane_pack=True), dict(local_upsample=True),
+    dict(lane_pack=True),
     dict(profile_dir="/nonexistent"), dict(model="unet3d"),
     dict(mesh_data=2),
 ])
@@ -312,8 +312,7 @@ def test_gs_resume_is_gated(tmp_path, monkeypatch):
         loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("lane_pack", "12"), ("local_upsample", "9")])
+@pytest.mark.parametrize("flag,item", [("lane_pack", "12")])
 def test_unported_flag_names_its_roadmap_item(flag, item, tmp_path):
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
                  **{flag: True})

@@ -468,9 +468,7 @@ def test_cli_infer_writes_masks_and_records(dataset, tmp_path, quant):
 
 
 @pytest.mark.parametrize("flag", [["--bundle", "b.npz"],
-                                  ["--aot_dir", "a"],
-                                  ["--fullconv_band_rows", "256"],
-                                  ["--fullconv_stream"], ["--shard_scene"]])
+                                  ["--aot_dir", "a"], ["--shard_scene"]])
 def test_cli_infer_unported_options_raise(flag):
     from fabric_tpu_torch.cli.infer import main
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -478,14 +476,12 @@ def test_cli_infer_unported_options_raise(flag):
 
 
 def test_unported_int8_families_raise(folded):
-    """int8 with local_upsample (fullconv) waits for item 9; an unknown
-    family has no int8 forward (the multi-date ones are ported:
-    tests/test_torch_quant_multidate.py)."""
+    """An unknown family has no int8 forward (the multi-date ones are
+    ported: tests/test_torch_quant_multidate.py; int8 with local_upsample
+    is held to fabric_tpu's in tests/test_torch_fullconv.py)."""
     tree = tq.folded_params(folded[1])
     with pytest.raises(ValueError, match="no int8 forward"):
         tq.make_int8_apply(tree, {}, model="fullconv_net")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tq.make_stats_forward(tree, local_upsample=True)
 
 
 def test_microbench_int8_matmul_on_cpu():

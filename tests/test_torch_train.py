@@ -371,6 +371,7 @@ RUNS = {
     "adam": dict(optimizer="adam", learning_rate=0.003, lr_schedule="cosine",
                  lr_decay_steps=6, lr_warmup_steps=1),
     "bf16": dict(dtype="bfloat16"),
+    "local_upsample": dict(local_upsample=True),
 }
 
 
@@ -406,10 +407,10 @@ def assert_trajectory_close(name, jparams, pflat, atol, n_steps):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["sgd", "per_date"])
+@pytest.mark.parametrize("name", ["sgd", "per_date", "local_upsample"])
 def test_one_train_step_matches_fabric_tpu(runs, name):
-    """tversky + SGD, fp32, joint and per-date BatchNorm, from identical
-    variables.  Tolerances: loss 1e-6 relative, params 1e-5, BatchNorm
+    """tversky + SGD, fp32, joint and per-date BatchNorm, and with the
+    decoder's shift-invariant local upsample, from identical variables.  Tolerances: loss 1e-6 relative, params 1e-5, BatchNorm
     running stats 1e-6 (sums and convolutions in another order),
     confusion counts equal."""
     (jstate, jstats, pflat, pstats) = runs(name)[0][0]
