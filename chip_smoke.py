@@ -76,7 +76,22 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   short run mirrored to a ``file://`` ``output_store`` and resumed from
   the store URI bit-exactly; and ``cli.evaluate`` on the training run's
   best checkpoint, its dataset given as a ``.tar.gz``, which must
-  reproduce the loop's validation metrics for that checkpoint.
+  reproduce the loop's validation metrics for that checkpoint;
+- multi-date training: writes a 5-date synthetic dataset of the same
+  cities and runs ``train.loop.train`` for UNetLSTM (base 64, with
+  ``local_upsample``, so that its eval gate conv is the signed conv-kernel
+  launch) and UNet3D (base 32) at T = 5 (tversky + SGD, bf16, patch 96,
+  batch 128 unless the memory reckoning it prints says otherwise, 2
+  epochs of 10 steps, validation, scene inference of the validation city,
+  a checkpoint, worker loaders sized to ``/dev/shm`` by a printed
+  reckoning, and a ``profile_dir`` trace of the first 3 steps, whose top
+  device kernels it prints); the launch counters must show the
+  eval-BatchNorm kernel in every validation and scene forward (and
+  UNetLSTM's signed gate conv); it prints the steady-epoch rate, the
+  loop's step percentiles, the device-resident step and the peak memory,
+  checks that the loss falls, holds one fp32 step of each family on the
+  card against the CPU's (base 16, T = 3) and runs ``cli.evaluate`` on
+  each best checkpoint, which must reproduce the loop's metrics.
 
 Prints the card, each check, per-kernel times beside their bound and a
 library yardstick, the serving rate and the training rate, a JSON
@@ -332,10 +347,10 @@ def check_kernels(calls, reps: int = 5, device_rng: bool = False):
 def plain_versions():
     """Run the model on the kernels' plain PyTorch versions (the blocks
     look the ops up on their modules at call time)."""
-    from fabric_tpu_torch.ops import conv, double_conv, fused
+    from fabric_tpu_torch.ops import bn_relu, conv, double_conv, fused
 
     saved = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
-             fused.fused_mul_relu)
+             fused.fused_mul_relu, bn_relu.bn_relu_inference)
     # the blocks pass prepacked weights, which the plain versions ignore
     conv.conv3x3_bias_relu = lambda x, k, b, packed=None: \
         conv.conv3x3_bias_relu_reference(x, k, b)
@@ -343,11 +358,12 @@ def plain_versions():
         lambda x, w1, b1, w2, b2, packed=None: \
         double_conv.double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2)
     fused.fused_mul_relu = fused.fused_mul_relu_reference
+    bn_relu.bn_relu_inference = bn_relu.bn_relu_inference_reference
     try:
         yield
     finally:
         (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
-         fused.fused_mul_relu) = saved
+         fused.fused_mul_relu, bn_relu.bn_relu_inference) = saved
 
 
 def plain_mask_and_margin(model, d1, d2):
@@ -2391,6 +2407,378 @@ def evaluate_phase(cfg, root, smi):
     return launches
 
 
+# multi-date training phase: dates, steps an epoch, the families' widths
+MD_T, MD_STEPS = 5, 10
+MD_BASE = {"unet_lstm": 64, "unet3d": 32}
+# activations of BiDateNet's train step at batch 128, patch 96, base 64,
+# bf16 (256 encoder images; the remat phase's measure on the H100)
+BIDATE_ACT_MIB = 12023
+
+
+def md_memory_reckoning(name: str, smi: str) -> int:
+    """The largest power-of-two batch, up to T_BATCH, whose train step
+    the card holds: activations scaled from BiDateNet's by encoder images
+    (N T against 2 N) and width, against 90% of the free memory."""
+    free_mib = torch.cuda.mem_get_info()[0] / 2 ** 20
+    per_128 = (BIDATE_ACT_MIB * (T_BATCH * MD_T) / (2 * T_BATCH)
+               * MD_BASE[name] / BASE)
+    batch = T_BATCH
+    while batch > 1 and per_128 * batch / T_BATCH > 0.9 * free_mib:
+        batch //= 2
+    print(f"multi-date {name} memory ({smi}): the step at batch {T_BATCH} "
+          f"encodes {T_BATCH * MD_T} images at base {MD_BASE[name]}; "
+          f"reckoned activations {per_128:.0f} MiB (BiDateNet's "
+          f"{BIDATE_ACT_MIB} MiB at 256 encoder images x "
+          f"{T_BATCH * MD_T / (2 * T_BATCH):.2f} x {MD_BASE[name]}/{BASE}) "
+          f"against {free_mib:.0f} MiB free: batch {batch}"
+          f"{'' if batch == T_BATCH else ' (batch 128 does not fit)'}",
+          flush=True)
+    return batch
+
+
+def md_loader_reckoning(data_bytes: int, batch: int) -> tuple[int, int]:
+    """(workers, prefetch) for the multi-date loaders: the most workers
+    (up to os.cpu_count() - 1), then the deepest prefetch (2, else 1),
+    whose train and validation rings fit /dev/shm beside the shared
+    dataset with a 10% margin; fails if none does (the prefetch thread
+    would be another loader under the same label)."""
+    from fabric_tpu_torch.data import loader
+
+    free = shutil.disk_usage(loader.SHM).free
+    slot = loader.ring_bytes(1, 1, batch, T_PATCH, MD_T, 13,
+                             True) / loader.ring_slots(1, 1)
+    for workers in range(max(1, (os.cpu_count() or 2) - 1), 0, -1):
+        for prefetch in (2, 1):
+            rings = 2 * loader.ring_bytes(workers, prefetch, batch, T_PATCH,
+                                          MD_T, 13, True)
+            if data_bytes + rings <= 0.9 * free:
+                print(f"multi-date loader: /dev/shm {free / 1e9:.2f} GB "
+                      f"free; the shared dataset {data_bytes / 1e9:.2f} GB + "
+                      f"train and validation rings of {workers} workers x "
+                      f"prefetch {prefetch} + 2 slots ({slot / 1e6:.0f} "
+                      f"MB a slot) {rings / 1e9:.2f} GB fit: {workers} "
+                      f"workers, prefetch {prefetch}", flush=True)
+                return workers, prefetch
+    fail(f"multi-date loader: /dev/shm's {free} free bytes hold no worker "
+         f"ring beside the {data_bytes}-byte dataset (one worker, prefetch "
+         f"1: {2 * loader.ring_bytes(1, 1, batch, T_PATCH, MD_T, 13, True)}"
+         f" bytes of rings)")
+
+
+KERNEL_CLASSES = (  # (class, substrings of a kernel's name), first match
+    ("fabric", ("fabric::",)),
+    ("conv (cuDNN)", ("xmma", "cudnn", "conv", "implicit_gemm", "wgrad",
+                      "dgrad", "fprop")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "cublas")),
+    ("reduction", ("reduce_kernel",)),
+    ("copy / cast", ("copy", "CatArray")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def trace_top_ops(logdir: str, steps: int, top: int = 8) -> str:
+    """What the device did in a loop's profile_dir trace, per traced step:
+    kernel time by class (KERNEL_CLASSES, by name) and the ``top``
+    PyTorch operations by the kernel time they launched (a kernel's
+    "External id" names its launching op); fails if there is no
+    non-empty trace or no kernel in it."""
+    import glob
+
+    paths = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(paths) != 1 or os.path.getsize(paths[0]) == 0:
+        fail(f"profile_dir {logdir} holds no trace: {paths}")
+    with open(paths[0]) as fin:
+        events = json.load(fin)["traceEvents"]
+    op_of = {e["args"]["External id"]: e["name"] for e in events
+             if e.get("cat") == "cpu_op"
+             and "External id" in e.get("args", {})}
+    by_class: dict = {}
+    by_op: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in e["name"] for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + e["dur"]
+        op = op_of.get(e.get("args", {}).get("External id"), "?")
+        by_op[op] = by_op.get(op, 0.0) + e["dur"]
+    if not by_class:
+        fail(f"the trace {paths[0]} holds no device kernel")
+    total = sum(by_class.values())
+
+    def ranked(d, n):
+        return "; ".join(f"{k} {v / 1e3 / steps:.2f} ms ({v / total:.1%})"
+                         for k, v in sorted(d.items(),
+                                            key=lambda kv: -kv[1])[:n])
+    return (f"trace {os.path.basename(paths[0])} "
+            f"({os.path.getsize(paths[0]) / 1e6:.1f} MB): device kernels "
+            f"{total / 1e3 / steps:.1f} ms a step over {steps} traced "
+            f"steps; by class: {ranked(by_class, len(by_class))}; top "
+            f"operations by the kernel time they launched: "
+            f"{ranked(by_op, top)}")
+
+
+def md_eval_vs_plain(cfg, model) -> None:
+    """The trained model's eval forward (BatchNorm unfolded: row 4 after
+    every conv over the (N T, H, W, C) views, and with local_upsample
+    UNetLSTM's gate conv as row 1's signed launch) on the validation
+    city's first batch of patches, once on the kernels and once on their
+    plain versions: the kernels' launches for one forward, finite logits,
+    and the argmax held to the plain forward's by the margin rule (a
+    flip only where the plain logit margin is within 1/16 of the logit
+    scale, at most 1e-3 of the pixels).  These launches are not the main
+    path's: the phase reads its counts before."""
+    from fabric_tpu_torch.data.oscd import load_city, patch_grid
+    from fabric_tpu_torch.ops import bn_relu, conv, double_conv, fused
+
+    city = load_city(cfg.dataset_dir, "val", cfg, num_dates=MD_T)
+    grid = patch_grid(T_CITIES["val"], T_PATCH, cfg.stride)[:cfg.batch_size]
+    imgs = torch.from_numpy(np.stack(
+        [city[:, i:i + T_PATCH, j:j + T_PATCH] for i, j in grid])).cuda()
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, bn_relu.bn_relu_inference)
+    zero_counts(counters)
+    with torch.inference_mode():
+        got = model(imgs)
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    with plain_versions(), torch.inference_mode():
+        ref = model(imgs)
+    expected = {"conv3x3_bias_relu": MD_T if cfg.local_upsample else 0,
+                "double_conv3x3_bias_relu": 0, "fused_mul_relu": 0,
+                "bn_relu_inference": 18}
+    margin = (ref[..., 1] - ref[..., 0]).abs()
+    flips = got.argmax(-1) != ref.argmax(-1)
+    worst = margin[flips].max().item() if flips.any() else 0.0
+    scale = ref.abs().max().item()
+    share = flips.float().mean().item()
+    finite = bool(torch.isfinite(got).all())
+    print(f"multi-date {cfg.model} eval forward of the trained model on the "
+          f"validation city's first {len(grid)} patches ({tuple(imgs.shape)}"
+          f", bf16, BatchNorm unfolded), kernels vs their plain versions: "
+          f"kernels launched {launches} (expected {expected}); logits max "
+          f"abs diff {(got - ref).abs().max().item():.4g} (scale "
+          f"{scale:.4g}); argmax agreement {1 - share:.6f} "
+          f"({int(flips.sum())} flips, largest plain margin at a flip "
+          f"{worst:.4g}, bound {scale / 16:.4g})", flush=True)
+    if launches != expected or not finite or worst > scale / 16 \
+            or share > 1e-3:
+        fail(f"{cfg.model}'s trained eval forward on the kernels disagrees "
+             "with the plain versions")
+
+
+def md_card_vs_cpu_step(name: str) -> None:
+    """One fp32 train step (TF32 off) of ``name`` at base 16, T = 3, batch
+    4, patch 32, on the card and on the CPU from the same weights and
+    batch: card_vs_cpu_step's bounds."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.train.state import create_state
+    from fabric_tpu_torch.train.steps import make_train_step
+    from fabric_tpu_torch.weights import flatten_tree, init_variables
+
+    cfg = Config(model=name, model_base=16, num_dates=3, patch_size=32,
+                 batch_size=4, dtype="float32", learning_rate=0.05)
+    variables = init_variables(13, 2, 16,
+                               torch.Generator().manual_seed(SEED + 4), name)
+    rng = np.random.RandomState(SEED + 4)
+    imgs = rng.randn(4, 3, 32, 32, 13).astype(np.float32)
+    label = (rng.rand(4, 32, 32) < 0.3).astype(np.int32)
+    imgs[:, -1][label == 1] += 1.5
+    batch = {"imgs": imgs, "label": label, "weight": np.ones(4, np.float32)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev, fold_bn=False, variables=variables,
+                            train=True)
+        state = create_state(cfg, model)
+        _, stats = make_train_step(model, get_loss_fn(cfg))(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[dev] = (stats["loss"].item(),) + tuple(
+            flatten_tree(t) for t in state.variables())
+    (l_gpu, pg, sg), (l_cpu, pc, sc) = out["cuda"], out["cpu"]
+    p0 = flatten_tree(variables[0])
+    step_max = max(np.abs(pc[k] - p0[k]).max() for k in pc)
+    p_err, p_worst = max((np.abs(pg[k] - pc[k]).max(), k) for k in pc)
+    s_err = max((np.abs(sg[k] - sc[k]) / (np.abs(sc[k]) + 1e-3)).max()
+                for k in sc)
+    l_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    ok = l_err <= 1e-5 and p_err <= 1e-2 * step_max and s_err <= 1e-3
+    print(f"multi-date {name} fp32 train step, card vs CPU (base 16, T = 3, "
+          f"batch 4, patch 32): loss {l_gpu:.7f} vs {l_cpu:.7f} (rel "
+          f"{l_err:.3g}, bound 1e-5); params max diff {p_err:.3g} at "
+          f"{p_worst} (bound 1e-2 x largest update {step_max:.4g}); BN "
+          f"stats rel diff {s_err:.3g} (bound 1e-3): "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"the {name} train step on the card disagrees with the CPU's")
+
+
+def md_evaluate(cfg, root: str, smi: str) -> None:
+    """cli.evaluate's main on the run's best checkpoint over the
+    validation city: its patch metrics and scene F1 equal what the loop
+    recorded with that checkpoint."""
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.cli.evaluate import main as evaluate_main
+
+    path = ckpt.read_pointer(cfg.weight_dir, "best")
+    epoch = int(path.rsplit("_", 1)[1].split(".")[0])
+    with open(os.path.join(cfg.weight_dir,
+                           f"metadata_epoch_{epoch}.json")) as fin:
+        recorded = json.load(fin)["validation_metrics"]
+    cfg_path = os.path.join(root, f"eval_{cfg.model}.json")
+    with open(cfg_path, "w") as fout:
+        json.dump(cfg.to_dict(), fout)
+    out = os.path.join(root, f"eval_{cfg.model}_out.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        rc = evaluate_main(["--config", cfg_path, "--resume", cfg.weight_dir,
+                            "--city", "val", "--output", out])
+    wall = time.perf_counter() - t0
+    with open(out) as fin:
+        result = json.load(fin)
+    keys = ("cd_losses", "cd_corrects", "cd_precisions", "cd_recalls",
+            "cd_f1scores", "global_precision", "global_recall", "global_f1",
+            "global_accuracy")
+    diff = {k: abs(result["patch"][k] - recorded[k]) for k in keys}
+    same = all(v == 0 for v in diff.values()) and \
+        result["scenes"]["val"]["f1"] == recorded["val_scene_f1"]
+    print(f"multi-date {cfg.model} evaluate ({smi}): cli.evaluate on "
+          f"{os.path.basename(path)}: rc {rc}, {wall:.1f} s wall; patch and "
+          f"scene metrics vs the loop's for that checkpoint: "
+          f"{'equal' if same else 'DIFFERENT ' + json.dumps(diff)} "
+          f"(cd_f1scores {result['patch']['cd_f1scores']:.6f}, scene F1 "
+          f"{result['scenes']['val']['f1']:.6f})", flush=True)
+    if rc != 0 or not same:
+        fail(f"cli.evaluate of {cfg.model} disagrees with the loop")
+
+
+def multidate_train_phase(root: str, smi: str) -> dict:
+    """UNetLSTM (base 64, with local_upsample: its eval gate conv is the
+    signed row-1 launch) and UNet3D (base 32) at T = 5 through
+    train.loop.train on a 5-date synthetic dataset (four ~1024^2 cities,
+    one for validation): tversky + SGD, bf16, patch 96, 2 epochs of
+    MD_STEPS steps with validation, scene inference of the validation
+    city, a checkpoint and a profile_dir trace of the first 3 steps;
+    then the trained eval forward on the kernels against their plain
+    versions (md_eval_vs_plain).  Returns {family: launches}."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.data.oscd import patch_grid
+    from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.ops import bn_relu, conv, double_conv, fused
+    from fabric_tpu_torch.train.loop import train
+    from fabric_tpu_torch.train.steps import make_train_step
+
+    data_dir = os.path.join(root, "md_data")
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(data_dir, Config(), cities=list(T_CITIES),
+                               sizes=list(T_CITIES.values()), seed=SEED + 5,
+                               num_dates=MD_T)
+    data_bytes = sum(MD_T * h * w * 13 * 4 + h * w
+                     for h, w in T_CITIES.values())
+    print(f"multi-date synthetic dataset, {MD_T} dates, {T_CITIES}, written "
+          f"in {time.perf_counter() - t0:.1f} s ({data_bytes / 1e9:.2f} GB "
+          f"in memory)", flush=True)
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, bn_relu.bn_relu_inference)
+    n_val = len(patch_grid(T_CITIES["val"], T_PATCH, 32))
+    tiles = 1
+    for side in T_CITIES["val"]:
+        tiles *= -(-side // T_PATCH)
+    all_launches = {}
+    for name in ("unet_lstm", "unet3d"):
+        torch.cuda.empty_cache()
+        batch = md_memory_reckoning(name, smi)
+        workers, prefetch = md_loader_reckoning(data_bytes, batch)
+        prof_dir = os.path.join(root, f"profile_{name}")
+        cfg = Config(model=name, num_dates=MD_T, model_base=MD_BASE[name],
+                     dataset_dir=data_dir,
+                     weight_dir=os.path.join(root, f"weights_{name}"),
+                     log_dir=os.path.join(root, f"logs_{name}"),
+                     patch_size=T_PATCH, stride=32, batch_size=batch,
+                     epochs=T_EPOCHS, steps_per_epoch=MD_STEPS,
+                     learning_rate=0.05, loss_function="tversky",
+                     optimizer="sgd", dtype="bfloat16",
+                     validation_cities=["val"], num_workers=workers,
+                     prefetch=prefetch, seed=SEED,
+                     local_upsample=name == "unet_lstm",
+                     profile_dir=prof_dir, profile_steps=3)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, history = train(cfg)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        evals = T_EPOCHS * (min(MD_STEPS, -(-n_val // batch))
+                            + -(-tiles // batch))
+        expected = {"conv3x3_bias_relu":
+                    MD_T * evals if cfg.local_upsample else 0,
+                    "double_conv3x3_bias_relu": 0, "fused_mul_relu": 0,
+                    "bn_relu_inference": 18 * evals}
+        print(f"multi-date {name} train.loop.train: {wall:.1f} s wall; "
+              f"kernels launched {launches} (expected {expected}: "
+              f"{evals} eval forwards, the validation batches and the "
+              f"scene's tiles, 18 eval-BatchNorm launches each"
+              f"{f' and {MD_T} signed gate convs' if cfg.local_upsample else ''})",
+              flush=True)
+        if launches != expected:
+            fail(f"{name}'s validation and scene passes did not go through "
+                 "the kernels as planned")
+        all_launches[name] = launches
+        md_eval_vs_plain(cfg, state.model)
+        print(f"multi-date {name} profile_dir ({smi}): "
+              f"{trace_top_ops(prof_dir, cfg.profile_steps)}", flush=True)
+
+        run_dir = os.path.join(cfg.log_dir, os.listdir(cfg.log_dir)[0])
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fin:
+            records = [json.loads(line) for line in fin]
+        epochs = {r["_step"]: r for r in records
+                  if "train_examples_per_sec" in r}
+        last = epochs[T_EPOCHS - 1]
+        g = torch.Generator().manual_seed(SEED)
+        imgs = torch.randn(batch, MD_T, T_PATCH, T_PATCH, 13,
+                           generator=g).cuda()
+        step_batch = {"imgs": imgs,
+                      "label": (imgs[:, -1, ..., 0] > imgs[:, 0, ..., 0]).to(
+                          torch.int32),
+                      "weight": torch.ones(batch, device="cuda")}
+        step = make_train_step(state.model, get_loss_fn(cfg))
+        step(state, step_batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2 ** 20
+        step_ms = device_ms(lambda: step(state, step_batch), 5)
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = [h["cd_losses"] for h in history["train"]]
+        print(f"multi-date {name} training ({smi}): "
+              f"{last['train_examples_per_sec']:.1f} train examples/s in "
+              f"epoch {T_EPOCHS - 1} (steady state; "
+              f"{epochs[0]['train_examples_per_sec']:.1f} in epoch 0), T = "
+              f"{MD_T}, patch {T_PATCH}, batch {batch}, base "
+              f"{MD_BASE[name]}, bf16, tversky + SGD, {workers} loader "
+              f"workers; the loop's step p50 "
+              f"{1e3 * last['train_p50_step_s']:.1f} ms, p95 "
+              f"{1e3 * last['train_p95_step_s']:.1f} ms (host clock, "
+              f"StepTimer); {step_ms:.1f} ms a step with the batch resident "
+              f"on the card (CUDA events); peak memory {peak_mib:.0f} MiB "
+              f"(model, optimizer and batch {base_mib:.0f} MiB; activations "
+              f"{peak_mib - base_mib:.0f} MiB); train cd_losses per epoch "
+              f"{[round(v, 4) for v in losses]}; validation cd_f1scores "
+              f"{[round(v['cd_f1scores'], 4) for v in history['val']]}; "
+              f"scene F1 "
+              f"{[round(v.get('val_scene_f1', -1), 4) for v in history['val']]}",
+              flush=True)
+        if history["status"] != "complete" or not np.isfinite(losses).all() \
+                or not losses[-1] < losses[0]:
+            fail(f"{name} training did not complete with a falling, finite "
+                 "loss")
+        del state, step, step_batch, imgs
+        md_card_vs_cpu_step(name)
+        md_evaluate(cfg, root, smi)
+    return all_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2558,6 +2946,10 @@ def main() -> int:
         remat_accum_phase(smi)
         store_phase(cfg_t, root)
         evaluate_phase(cfg_t, root, smi)
+        t0 = time.perf_counter()
+        multidate_train_phase(root, smi)
+        print(f"multi-date training phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     rows += bn_rows
     launches["bn_relu_inference"] = t_launches["bn_relu_inference"]
 

@@ -1,9 +1,10 @@
 """``python -m fabric_tpu_torch.cli.train --config <json> [--key value ...]
 [--device cuda|cpu]``
 
-Trains a BiDateNet with the port (counterpart of
-``fabric_tpu/cli/train.py``): the same JSON config and per-key overrides
-as ``fabric_tpu``, on the card unless ``--device cpu`` is given.
+Trains ``cfg.model`` (BiDateNet, UNetLSTM or UNet3D) with the port
+(counterpart of ``fabric_tpu/cli/train.py``): the same JSON config and
+per-key overrides as ``fabric_tpu``, on the card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations

@@ -38,6 +38,16 @@ workers on the 8 cores of an H100 host delivered 184 ms a batch of 128 x
 - An exception in a worker reaches the caller as the DataLoader re-raises
   it; nothing falls back to the single thread.
 
+Both blocks live in ``/dev/shm``, and a process that writes past a full
+``/dev/shm`` dies of SIGBUS rather than raising.  So each block is
+reckoned against the free space there before it is allocated, and one
+that does not fit raises a ``RuntimeError`` naming the byte counts
+(:func:`check_shm`); nothing shrinks the ring or falls back to the
+thread.  At batch 128, patch 96 and 5 dates, one slot is 307 MB.
+
+A multi-date loader (``multi_date``) fills an ``imgs`` slot of (B, T, ps,
+ps, C) instead of ``img1`` / ``img2``, T being the dataset's dates.
+
 A ``compat_aug_stream`` is one sequential random stream, which workers
 cannot share: ``compat_reference`` training keeps the thread of
 ``data/pipeline.py``.
@@ -47,13 +57,39 @@ from __future__ import annotations
 
 import gc
 import multiprocessing
+import shutil
 from typing import Iterator
 
 import numpy as np
 import torch
 
-from fabric_tpu_torch.data.pipeline import (PatchSampler, make_batch,
-                                            plan_epoch)
+from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_shapes,
+                                            make_batch, plan_epoch)
+
+SHM = "/dev/shm"
+
+
+def check_shm(need: int, what: str) -> None:
+    """Raise a RuntimeError unless ``need`` bytes fit the free space of
+    ``/dev/shm`` (``what`` names the block)."""
+    free = shutil.disk_usage(SHM).free
+    if need > free:
+        raise RuntimeError(
+            f"{what} needs {need} bytes of shared memory, and {SHM} has "
+            f"{free} bytes free: writing past it would kill the process "
+            f"with SIGBUS.  Use fewer workers, a smaller prefetch or batch, "
+            f"or num_workers=0 (the prefetch thread)")
+
+
+def _layout(specs: dict) -> tuple[list, int]:
+    """([(name, dtype, shape, offset)], bytes) of named arrays packed in
+    one block, each at a 64-byte boundary."""
+    layout, size = [], 0
+    for name, (dtype, shape) in specs.items():
+        size = -(-size // 64) * 64
+        layout.append((name, np.dtype(dtype).str, tuple(shape), size))
+        size += int(np.prod(shape)) * np.dtype(dtype).itemsize
+    return layout, size
 
 
 class SharedArrays:
@@ -61,15 +97,17 @@ class SharedArrays:
     block's handle and the layout, so a worker process maps the block
     instead of receiving a copy."""
 
-    def __init__(self, specs: dict):
-        """``specs``: {name: (dtype, shape)}; the arrays start empty."""
-        self.layout, size = [], 0
-        for name, (dtype, shape) in specs.items():
-            size = -(-size // 64) * 64
-            self.layout.append((name, np.dtype(dtype).str, tuple(shape),
-                                size))
-            size += int(np.prod(shape)) * np.dtype(dtype).itemsize
+    def __init__(self, specs: dict, what: str = "a shared block"):
+        """``specs``: {name: (dtype, shape)}; the arrays start empty.
+        Raises (:func:`check_shm`, ``what`` naming the block) if the block
+        does not fit ``/dev/shm``."""
+        self.layout, size = _layout(specs)
+        check_shm(size, what)
         self.block = torch.empty(size, dtype=torch.uint8).share_memory_()
+
+    @property
+    def nbytes(self) -> int:
+        return self.block.numel()
 
     def arrays(self) -> dict:
         """{name: numpy view of the block}."""
@@ -86,22 +124,33 @@ def share_dataset(dataset: dict) -> SharedArrays:
     memory, under (city, key) names."""
     shared = SharedArrays({(city, k): (a.dtype, a.shape)
                            for city, entry in dataset.items()
-                           for k, a in entry.items()})
+                           for k, a in entry.items()}, "the shared dataset")
     for (city, k), a in shared.arrays().items():
         a[...] = dataset[city][k]
     return shared
 
 
 def _batch_specs(slots: int, batch_size: int, patch_size: int,
-                 channels: int) -> dict:
-    shapes = {"img1": (np.float32, (batch_size, patch_size, patch_size,
-                                    channels)),
-              "img2": (np.float32, (batch_size, patch_size, patch_size,
-                                    channels)),
-              "label": (np.int32, (batch_size, patch_size, patch_size)),
-              "weight": (np.float32, (batch_size,))}
+                 dates: int, channels: int, multi_date: bool) -> dict:
+    shapes = batch_shapes(batch_size, patch_size, dates, channels,
+                          multi_date)
     return {(slot, k): spec for slot in range(slots)
             for k, spec in shapes.items()}
+
+
+def ring_slots(num_workers: int, prefetch: int) -> int:
+    """Slots of a loader's ring: ``num_workers x prefetch + 2``."""
+    return num_workers * max(prefetch, 1) + 2
+
+
+def ring_bytes(num_workers: int, prefetch: int, batch_size: int,
+               patch_size: int, dates: int, channels: int,
+               multi_date: bool) -> int:
+    """Shared-memory bytes of a loader's ring (what :class:`BatchLoader`
+    reckons against ``/dev/shm`` before it allocates)."""
+    return _layout(_batch_specs(ring_slots(num_workers, prefetch),
+                                batch_size, patch_size, dates, channels,
+                                multi_date))[1]
 
 
 class _EpochKeys(torch.utils.data.Sampler):
@@ -124,7 +173,8 @@ class _Batches(torch.utils.data.Dataset):
 
     def __init__(self, dataset: SharedArrays, ring: SharedArrays,
                  metadata: list, patch_size: int, augment: bool,
-                 batch_size: int, shuffle: bool, pad_mode: str):
+                 batch_size: int, shuffle: bool, pad_mode: str,
+                 multi_date: bool):
         self.dataset, self.ring = dataset, ring
         self.metadata = list(metadata)
         self.patch_size = patch_size
@@ -132,6 +182,7 @@ class _Batches(torch.utils.data.Dataset):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.pad_mode = pad_mode
+        self.multi_date = multi_date
         self._sampler = self._slots = self._plan = None
 
     def __getitem__(self, key: tuple[int, int, int]) -> int:
@@ -141,14 +192,15 @@ class _Batches(torch.utils.data.Dataset):
             for (city, k), a in self.dataset.arrays().items():
                 data.setdefault(city, {})[k] = a
             self._sampler = PatchSampler(data, self.metadata,
-                                         self.patch_size, self.augment)
-            self._slots = self.ring.arrays()
+                                         self.patch_size, self.augment,
+                                         multi_date=self.multi_date)
+            self._slots = {}
+            for (i, k), a in self.ring.arrays().items():
+                self._slots.setdefault(i, {})[k] = a
         if self._plan is None or self._plan.seed != seed:
             self._plan = plan_epoch(len(self.metadata), self.batch_size,
                                     self.shuffle, self.pad_mode, seed)
-        make_batch(self._sampler, self._plan, b,
-                   out={k: self._slots[slot, k]
-                        for k in ("img1", "img2", "label", "weight")})
+        make_batch(self._sampler, self._plan, b, out=self._slots[slot])
         return slot
 
 
@@ -182,28 +234,35 @@ class BatchLoader:
     worker processes and delivered as tensors on ``device``.
 
     ``dataset`` is :func:`share_dataset`'s block; each worker keeps
-    ``prefetch`` batches in flight.  Use as a context manager, or call
-    :meth:`close`, to stop the workers and release the ring."""
+    ``prefetch`` batches in flight; ``multi_date`` batches carry every
+    date of the dataset as ``imgs``.  The ring (:func:`ring_bytes`) must
+    fit ``/dev/shm`` beside the dataset, or the constructor raises a
+    RuntimeError before it allocates anything.  Use as a context manager,
+    or call :meth:`close`, to stop the workers and release the ring."""
 
     def __init__(self, dataset: SharedArrays, metadata: list,
                  patch_size: int, augment: bool, batch_size: int, *,
                  shuffle: bool, pad_mode: str = "wrap", num_workers: int,
-                 device, prefetch: int = 2):
+                 device, prefetch: int = 2, multi_date: bool = False):
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         self.device = torch.device(device)
         self.batch_size = batch_size
         self._n = len(metadata)
         prefetch = max(prefetch, 1)
-        self._k = num_workers * prefetch + 2
-        channels = next((shape[-1] for (_, key), _, shape, _ in
-                         dataset.layout if key == "images"), 0)
-        ring = SharedArrays(_batch_specs(self._k, batch_size, patch_size,
-                                         channels))
+        self._k = ring_slots(num_workers, prefetch)
+        dates, channels = next(((shape[0], shape[-1]) for (_, key), _, shape,
+                                _ in dataset.layout if key == "images"),
+                               (0, 0))
+        specs = _batch_specs(self._k, batch_size, patch_size, dates,
+                             channels, multi_date)
+        ring = SharedArrays(specs, (
+            f"the batch ring of {self._k} slots ({num_workers} workers x "
+            f"prefetch {prefetch} + 2), beside the shared "
+            f"dataset's {dataset.nbytes} bytes,"))
         arrays = {key: torch.from_numpy(a) for key, a in
                   ring.arrays().items()}
-        self._slots = [{k: arrays[slot, k] for k in
-                        ("img1", "img2", "label", "weight")}
+        self._slots = [{k: arrays[slot, k] for s, k in specs if s == slot}
                        for slot in range(self._k)]
         self._ring = ring
         self._events = [None] * self._k
@@ -217,7 +276,7 @@ class BatchLoader:
         self._keys = _EpochKeys()
         self._loader = torch.utils.data.DataLoader(
             _Batches(dataset, ring, metadata, patch_size, augment,
-                     batch_size, shuffle, pad_mode),
+                     batch_size, shuffle, pad_mode, multi_date),
             batch_size=None, sampler=self._keys, num_workers=num_workers,
             multiprocessing_context=_worker_context(),
             persistent_workers=True, prefetch_factor=prefetch)

@@ -104,13 +104,14 @@ def load_city(data_dir: str, city: str, cfg,
 
 
 def full_load(data_dir: str, cfg, max_workers: int | None = None) -> dict:
-    """{city: {'images': (2, H, W, 13) float32, 'labels': (H, W) uint8}},
-    the whole dataset in host memory."""
+    """{city: {'images': (T, H, W, 13) float32, 'labels': (H, W) uint8}},
+    the whole dataset in host memory, T = ``cfg.num_dates``."""
     cities = list_cities(data_dir)
     workers = max_workers or max(2, (os.cpu_count() or 1) * 2)
     with ThreadPoolExecutor(max_workers=workers) as pool:
         labels = list(pool.map(lambda c: load_label(data_dir, c), cities))
-        images = list(pool.map(lambda c: load_city(data_dir, c, cfg),
-                               cities))
+        images = list(pool.map(
+            lambda c: load_city(data_dir, c, cfg, num_dates=cfg.num_dates),
+            cities))
     return {c: {"images": img, "labels": lab}
             for c, img, lab in zip(cities, images, labels)}

@@ -1,13 +1,17 @@
 """Patch sampling, augmentation, batching and device prefetch
 (counterpart of ``fabric_tpu/data/pipeline.py``, single process).
 
-- ``PatchSampler`` crops (2, ps, ps, 13) windows from the in-memory
-  dataset and augments them (rot90 by k in 0..3, independent H/V flips).
+- ``PatchSampler`` crops (T, ps, ps, 13) windows from the in-memory
+  dataset and augments them (rot90 by k in 0..3, independent H/V flips,
+  on the spatial axes of every date alike); a bi-date sampler hands out
+  the first two dates, a ``multi_date`` one the whole stack.
   With ``compat_aug_stream`` (a ``random.Random``) the augmentation draws
   come from that one sequential stream in the reference's order
   (``randint(0, 3)``, then two ``random() > 0.5``), as
   ``compat_reference`` training takes them.
-- ``batch_iterator`` yields fixed-shape numpy batches: the shuffled order
+- ``batch_iterator`` yields fixed-shape numpy batches ({'img1', 'img2',
+  'label', 'weight'}, or with ``multi_date`` {'imgs', 'label', 'weight'}
+  with ``imgs`` (B, T, ps, ps, C)): the shuffled order
   is wrap-padded to whole batches (train) or padded with weight-0 rows
   (eval, ``pad_mode="mask"``); with ``ragged_tail`` the last batch is
   short instead (the reference's ``drop_last=False``).  Each row's
@@ -36,12 +40,14 @@ class PatchSampler:
     """Crops + augments patches from the full in-memory dataset dict."""
 
     def __init__(self, dataset: dict, metadata: list, patch_size: int,
-                 augment: bool, compat_aug_stream=None):
+                 augment: bool, compat_aug_stream=None,
+                 multi_date: bool = False):
         self.dataset = dataset
         self.metadata = list(metadata)
         self.patch_size = patch_size
         self.augment = augment
         self.compat_aug_stream = compat_aug_stream
+        self.multi_date = multi_date
 
     def __len__(self) -> int:
         return len(self.metadata)
@@ -55,8 +61,9 @@ class PatchSampler:
         return rng.randint(0, 4), rng.rand() > 0.5, rng.rand() > 0.5
 
     def sample(self, index: int, rng: np.random.RandomState):
-        """(img_d1, img_d2, label) of one patch, augmented with draws from
-        ``rng`` (or the compat stream)."""
+        """(img_d1, img_d2, label) of one patch, or with ``multi_date``
+        (imgs (T, ps, ps, C), label), augmented with draws from ``rng`` (or
+        the compat stream)."""
         city, x, y = self.metadata[index]
         s = self.patch_size
         entry = self.dataset[city]
@@ -71,6 +78,8 @@ class PatchSampler:
                 img, lbl = np.flip(img, axis=1), np.flip(lbl, axis=0)
             if flip_w:
                 img, lbl = np.flip(img, axis=2), np.flip(lbl, axis=1)
+        if self.multi_date:
+            return img, lbl
         return img[0], img[1], lbl
 
 
@@ -109,35 +118,53 @@ def plan_epoch(n: int, batch_size: int, shuffle: bool,
 def make_batch(sampler: PatchSampler, plan: EpochPlan, b: int,
                out: dict | None = None) -> dict:
     """Batch ``b`` of ``plan`` as {'img1', 'img2', 'label', 'weight'}
-    numpy arrays, written into ``out``'s arrays when given (a full
-    batch's shapes); row r draws its augmentation from an RNG keyed by
-    (seed, lo + r), so the batch does not depend on the ones before."""
+    numpy arrays ({'imgs', 'label', 'weight'} for a ``multi_date``
+    sampler), written into ``out``'s arrays when given (a full batch's
+    shapes); row r draws its augmentation from an RNG keyed by (seed, lo +
+    r), so the batch does not depend on the ones before."""
     lo = b * plan.batch_size
     rows = plan.order[lo:lo + plan.batch_size]
     if out is None:
-        ps = sampler.patch_size
-        c = sampler.dataset[sampler.metadata[0][0]]["images"].shape[-1]
-        img = np.empty((len(rows), ps, ps, c), np.float32)
-        out = {"img1": img, "img2": np.empty_like(img),
-               "label": np.empty((len(rows), ps, ps), np.int32),
-               "weight": np.empty(len(rows), np.float32)}
-    img1, img2, label = out["img1"], out["img2"], out["label"]
+        shape = sampler.dataset[sampler.metadata[0][0]]["images"].shape
+        out = {k: np.empty(s, dtype) for k, (dtype, s) in batch_shapes(
+            len(rows), sampler.patch_size, shape[0], shape[-1],
+            sampler.multi_date).items()}
+    keys = ("imgs",) if sampler.multi_date else ("img1", "img2")
     for row, i in enumerate(rows):
         rng = np.random.RandomState(
             (plan.seed * 1_000_003 + lo + row) % (2 ** 31))
-        img1[row], img2[row], label[row] = sampler.sample(int(i), rng)
+        *imgs, label = sampler.sample(int(i), rng)
+        for k, img in zip(keys, imgs):
+            out[k][row] = img
+        out["label"][row] = label
     out["weight"][:] = plan.weights[lo:lo + len(rows)]
     return out
+
+
+def batch_shapes(n: int, patch_size: int, dates: int, channels: int,
+                 multi_date: bool) -> dict:
+    """{key: (dtype, shape)} of an ``n``-row batch of patches cut from
+    (dates, H, W, channels) images: ``imgs`` (n, dates, ps, ps, C) for a
+    multi-date model, else ``img1`` / ``img2`` (n, ps, ps, C)."""
+    ps = patch_size
+    if multi_date:
+        images = {"imgs": (n, dates, ps, ps, channels)}
+    else:
+        images = {k: (n, ps, ps, channels) for k in ("img1", "img2")}
+    return {**{k: (np.float32, s) for k, s in images.items()},
+            "label": (np.int32, (n, ps, ps)),
+            "weight": (np.float32, (n,))}
 
 
 def batch_iterator(sampler: PatchSampler, batch_size: int, shuffle: bool,
                    pad_mode: str = "wrap", seed: int = 0,
                    max_batches: int = 0, skip_batches: int = 0,
                    ragged_tail: bool = False) -> Iterator[dict]:
-    """Yield {'img1', 'img2', 'label', 'weight'} numpy batches of fixed
-    shape (the last one short with ``ragged_tail``); ``max_batches`` caps
-    the epoch, ``skip_batches`` starts at that batch without materialising
-    the ones before."""
+    """Yield {'img1', 'img2', 'label', 'weight'} (or with a
+    ``multi_date`` sampler {'imgs', 'label', 'weight'}) numpy batches of
+    fixed shape (the last one short with ``ragged_tail``);
+    ``max_batches`` caps the epoch, ``skip_batches`` starts at that batch
+    without materialising the ones before."""
     n = len(sampler)
     if n == 0:
         return

@@ -4,8 +4,10 @@ and whole-scene F1 (counterpart of ``fabric_tpu/evaluate.py``).
     python -m fabric_tpu_torch.cli.evaluate --config metadata.json \
         --resume <dir>
 
-It runs what the training loop's validation runs, on the same model (with
-eval BatchNorm, unfolded, the ``bn_relu_inference`` kernel on the card):
+It runs what the training loop's validation runs, on the same model
+(``cfg.model``: BiDateNet, or UNetLSTM / UNet3D over ``cfg.num_dates``
+dates; eval BatchNorm, unfolded, the ``bn_relu_inference`` kernel on the
+card):
 the mask-padded fixed-shape eval batches through the loop's own
 ``_epoch``, the reference's mean of per-batch figures beside the global
 confusion-matrix ones, and each city's scene through
@@ -47,7 +49,7 @@ def evaluate(cfg, dataset: dict | None = None,
                                             load_label,
                                             metadata_from_dataset)
     from fabric_tpu_torch.infer.runner import infer_city
-    from fabric_tpu_torch.infer.service import _not_ported, resolve_device
+    from fabric_tpu_torch.infer.service import resolve_device
     from fabric_tpu_torch.losses import get_loss_fn
     from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
     from fabric_tpu_torch.models import build_model
@@ -55,9 +57,6 @@ def evaluate(cfg, dataset: dict | None = None,
     from fabric_tpu_torch.train.state import create_state
     from fabric_tpu_torch.train.steps import make_eval_step
 
-    if cfg.model != "bidate":
-        raise _not_ported(f"evaluating model {cfg.model!r}",
-                          "8b (multi-date training)")
     device = resolve_device(device)
     cities = list(cities or cfg.validation_cities)
     if dataset is None:

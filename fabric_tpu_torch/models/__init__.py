@@ -31,18 +31,15 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     ``torch.Generator``; a new one seeded 0 when None).  For serving
     (``train=False``) the model is in eval mode without gradients, with
     BatchNorm folded into the convs when ``fold_bn``.  With ``train`` it
-    keeps BatchNorm (``fold_bn`` must be False), its parameters take
-    gradients, ``cfg.per_date_batchnorm`` selects per-date batch
-    statistics and ``cfg.remat`` rematerialises its stages.  The
-    multi-date models serve only (eval mode).  ``local_upsample`` (None:
+    keeps BatchNorm (``fold_bn`` must be False) and its parameters take
+    gradients.  ``cfg.per_date_batchnorm`` (per-date batch statistics)
+    and ``cfg.remat`` (rematerialised stages) reach BiDateNet only: a
+    multi-date model trains without them, as in ``fabric_tpu``
+    (``fabric_tpu/models/__init__.py:21-46``).  ``local_upsample`` (None:
     ``cfg.local_upsample``) gives the decoder the shift-invariant
     upsample that fullconv serving needs; it adds no parameter."""
     if cfg.model not in ("bidate",) + MULTI_DATE:
         raise ValueError(f"unknown model: {cfg.model!r}")
-    if train and cfg.model in MULTI_DATE:
-        raise NotImplementedError(
-            f"training model {cfg.model!r} is not ported to fabric_tpu_torch "
-            "yet: ROADMAP.md queue 1 item 8b (multi-date training)")
     if train and fold_bn:
         raise ValueError("a model built for training keeps BatchNorm: pass "
                          "fold_bn=False")

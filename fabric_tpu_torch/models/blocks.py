@@ -63,10 +63,12 @@ class Conv(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax ``TorchBatchNorm`` (``fabric_tpu/models/blocks.py:32-88``):
-    statistics in float32; train mode normalises with the biased batch
-    variance max(E[x^2] - E[x]^2, 0) and moves the running averages by
-    momentum 0.9 on the old value, the variance's by the unbiased
-    n/(n-1) estimate; eval mode uses the running averages.
+    statistics in float32 over every axis but the last (channels), so n
+    is N*H*W for an (N, H, W, C) input and N*T*H*W for UNet3D's (N, T, H,
+    W, C); train mode normalises with the biased batch variance
+    max(E[x^2] - E[x]^2, 0) and moves the running averages by momentum
+    0.9 on the old value, the variance's by the unbiased n/(n-1)
+    estimate; eval mode uses the running averages.
 
     ``update_stats`` False normalises the same way but leaves the running
     averages where they are: the rematerialised forward of a checkpointed
@@ -86,8 +88,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Train-mode BatchNorm; float32 output."""
         xf = x.float()
-        mean = xf.mean((0, 1, 2))
-        var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
+        axes = tuple(range(x.dim() - 1))
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
         n = x.numel() // x.shape[-1]
         if self.update_stats:
             self._move_averages(mean, var, n)

@@ -1,5 +1,5 @@
 """UNet3D: the spatiotemporal U-Net over multi-date stacks (counterpart of
-``fabric_tpu/models/unet3d.py``), eval only.
+``fabric_tpu/models/unet3d.py``).
 
 Input (N, T, H, W, C) as an NDHWC volume (depth = T).  The encoder is
 five ``DoubleConv3D`` blocks (3x3x3 SAME convs, padding T too) with a
@@ -11,7 +11,11 @@ The 3-D convs are ``F.conv3d`` in the compute dtype with the bias added in
 that dtype (flax's ``nn.Conv``): ``fabric_tpu`` computes them with XLA,
 outside any Pallas kernel.  With BatchNorm unfolded, each 3-D conv's bias,
 BatchNorm and ReLU run on the eval-BatchNorm kernel over the (N*T, H, W,
-C) view, as the 2-D blocks do.
+C) view, as the 2-D blocks do.  In train mode (``forward(seq,
+train=True)``) each 3-D conv adds its bias in the compute dtype, then
+BatchNorm takes its batch statistics in float32 over N*T*H*W and ReLU
+casts back to the compute dtype (``fabric_tpu/models/unet3d.py:38-52``),
+all under autograd.
 """
 
 from __future__ import annotations
@@ -61,13 +65,18 @@ class DoubleConv3D(nn.Module):
             self.bn1 = BatchNorm(cout)
             self.bn2 = BatchNorm(cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train and self.fold_bn:
+            raise ValueError("fold_bn is an inference-only transform")
         for i, c in enumerate((self.conv1, self.conv2), start=1):
             y = conv3d_same(x, c.kernel)
             if self.fold_bn:
                 x = torch.relu(y + c.bias.to(y.dtype))
+                continue
+            bn = getattr(self, f"bn{i}")
+            if train:
+                x = torch.relu(bn(y + c.bias.to(y.dtype))).to(y.dtype)
             else:
-                bn = getattr(self, f"bn{i}")
                 x = bn.relu_eval(y.reshape((-1,) + y.shape[2:]),
                                  c.bias).reshape(y.shape)
         return x
@@ -96,17 +105,18 @@ class UNet3D(nn.Module):
         self.up4 = Up(2 * b, b, fold_bn, local_upsample)
         self.outc = OutConv(b, n_classes)
 
-    def forward(self, seq: torch.Tensor) -> torch.Tensor:
+    def forward(self, seq: torch.Tensor, train: bool = False
+                ) -> torch.Tensor:
         """seq: (N, T, H, W, n_channels).  Returns float32 logits (N, H, W,
-        n_classes)."""
-        x1 = self.inc(seq.to(self.dtype))
-        x2 = self.down1(spatial_pool(x1))
-        x3 = self.down2(spatial_pool(x2))
-        x4 = self.down3(spatial_pool(x3))
-        x5 = self.down4(spatial_pool(x4))
+        n_classes); ``train`` uses (and moves) batch statistics."""
+        x1 = self.inc(seq.to(self.dtype), train)
+        x2 = self.down1(spatial_pool(x1), train)
+        x3 = self.down2(spatial_pool(x2), train)
+        x4 = self.down3(spatial_pool(x3), train)
+        x5 = self.down4(spatial_pool(x4), train)
         s1, s2, s3, s4 = (v.amax(dim=1) for v in (x1, x2, x3, x4))
-        y = self.up1(x5.mean(dim=1), s4)
-        y = self.up2(y, s3)
-        y = self.up3(y, s2)
-        y = self.up4(y, s1)
+        y = self.up1(x5.mean(dim=1), s4, train)
+        y = self.up2(y, s3, train)
+        y = self.up3(y, s2, train)
+        y = self.up4(y, s1, train)
         return self.outc(y).float()

@@ -1,5 +1,5 @@
 """UNetLSTM: the multi-date U-Net with a ConvLSTM bottleneck (counterpart
-of ``fabric_tpu/models/unet_lstm.py``), eval only.
+of ``fabric_tpu/models/unet_lstm.py``).
 
 Input (N, T, H, W, C).  The shared encoder (BiDateNet's: inc, down1-4)
 runs once at batch N*T; the bottleneck features go through a ConvLSTM
@@ -26,6 +26,19 @@ the kernel concatenated with its negation, and z is their difference,
 exact in bf16 (:func:`signed_conv`).  Each date's gate conv widens the
 receptive field by one 3x3 conv at stride 16: 109 + 16 T px, which is
 what the fullconv halo must cover (``fullconv.halo_for``).
+
+In train mode (``forward(seq, train=True)``) the shared encoder takes its
+BatchNorm batch statistics over all N*T images, as ``fabric_tpu``'s does,
+and the ConvLSTM is a Python loop over T through the one ``gates`` conv,
+so autograd sums its gradients over the steps (``nn.scan``'s broadcast
+params).  The gate conv is then always ``self.gates`` (``F.conv2d``): the
+signed route runs on the conv kernel, which has no backward, and
+``fabric_tpu`` computes that conv with XLA outside any Pallas kernel.  An
+eval forward after an optimizer step takes the signed weights anew
+(:meth:`ConvLSTMCell.signed_gates` keys on the gate tensors' versions).
+The conv kernel takes bf16 only, so the signed route is a bf16 eval
+forward's, on the card and (on its plain version) on the CPU alike: an
+fp32 or fp64 eval forward computes the gate conv with ``self.gates``.
 """
 
 from __future__ import annotations
@@ -89,10 +102,14 @@ class ConvLSTMCell(nn.Module):
         c = f * c.to(f.dtype) + i * g
         return o * torch.tanh(c), c
 
-    def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                train: bool = False):
         xh = torch.cat([x, h], dim=-1)
-        z = (signed_conv(xh, *self.signed_gates()) if self.exact_crops
-             else self.gates(xh))
+        # the signed route where the conv kernel takes xh: bf16 eval, on
+        # the card and (its plain version) on the CPU alike
+        signed = (self.exact_crops and not train
+                  and xh.dtype == torch.bfloat16)
+        z = signed_conv(xh, *self.signed_gates()) if signed else self.gates(xh)
         return self.step(z, c)
 
 
@@ -120,24 +137,25 @@ class UNetLSTM(nn.Module):
         self.up4 = Up(2 * b, b, fold_bn, local_upsample)
         self.outc = OutConv(b, n_classes)
 
-    def forward(self, seq: torch.Tensor) -> torch.Tensor:
+    def forward(self, seq: torch.Tensor, train: bool = False
+                ) -> torch.Tensor:
         """seq: (N, T, H, W, n_channels).  Returns float32 logits (N, H, W,
-        n_classes)."""
+        n_classes); ``train`` uses (and moves) batch statistics."""
         n, t = seq.shape[:2]
         x = seq.reshape((n * t,) + seq.shape[2:]).to(self.dtype)
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
+        x1 = self.inc(x, train)
+        x2 = self.down1(x1, train)
+        x3 = self.down2(x2, train)
+        x4 = self.down3(x3, train)
+        x5 = self.down4(x4, train)
         s1, s2, s3, s4, bott = (v.reshape((n, t) + v.shape[1:])
                                 for v in (x1, x2, x3, x4, x5))
         h = bott.new_zeros(bott.shape[:1] + bott.shape[2:])
         c = torch.zeros_like(h)
         for step in range(t):
-            h, c = self.bottleneck_lstm(bott[:, step], h, c)
-        y = self.up1(h, multi_date_fuse(s4))
-        y = self.up2(y, multi_date_fuse(s3))
-        y = self.up3(y, multi_date_fuse(s2))
-        y = self.up4(y, multi_date_fuse(s1))
+            h, c = self.bottleneck_lstm(bott[:, step], h, c, train)
+        y = self.up1(h, multi_date_fuse(s4), train)
+        y = self.up2(y, multi_date_fuse(s3), train)
+        y = self.up3(y, multi_date_fuse(s2), train)
+        y = self.up4(y, multi_date_fuse(s1), train)
         return self.outc(y).float()

@@ -1,7 +1,8 @@
 """The training loop: epochs of train and validation, whole-scene
 inference of the validation cities, best-metric and periodic checkpoints
 with exact resume (counterpart of ``fabric_tpu/train/loop.py``, one
-process on one device).
+process on one device), for BiDateNet and the multi-date models
+(UNetLSTM, UNet3D: batches of ``cfg.num_dates`` dates as ``imgs``).
 
 Per epoch: train steps over shuffled, augmented, wrap-padded batches; a
 validation pass over mask-padded batches (running-average BatchNorm, on
@@ -14,7 +15,11 @@ stat rows so far, so a resumed run finishes the epoch bit-identically; a
 SIGTERM (or ``guard.request()``) forces that save at the next step and
 unwinds with ``history["status"] == "preempted"``; a non-finite loss
 halts the run at the next host sync, before it can overwrite a finite
-periodic checkpoint.
+periodic checkpoint.  Each train step is timed on the host clock
+(``utils/profiling.StepTimer``: the epoch record's ``steps``,
+``p50_step_s`` and ``p95_step_s``), and with ``cfg.profile_dir`` the first
+``cfg.profile_steps`` train steps are traced there (``torch.profiler``,
+the card's kernels included).
 
 The batches come from ``cfg.num_workers`` worker processes
 (``data/loader.py``), or with 0 from one prefetch thread; both give the
@@ -32,6 +37,7 @@ Options of ``fabric_tpu``'s loop that the port does not have yet raise
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import random
@@ -54,13 +60,14 @@ from fabric_tpu_torch.infer.runner import infer_city
 from fabric_tpu_torch.infer.service import _not_ported, resolve_device
 from fabric_tpu_torch.losses import get_loss_fn
 from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
-from fabric_tpu_torch.models import build_model
+from fabric_tpu_torch.models import MULTI_DATE, build_model
 from fabric_tpu_torch.store import open_store
 from fabric_tpu_torch.track import Tracker
 from fabric_tpu_torch.train.preemption import (PreemptionGuard,
                                                TrainingPreempted)
 from fabric_tpu_torch.train.state import create_state
 from fabric_tpu_torch.train.steps import make_eval_step, make_train_step
+from fabric_tpu_torch.utils import profiling
 
 log = logging.getLogger("fabric_tpu_torch")
 
@@ -71,16 +78,39 @@ _COUNT_KEYS = ("tp", "fp", "fn", "tn")
 def _check_ported(cfg) -> None:
     """Raise for a config option of fabric_tpu's loop that is not ported
     (the model checks its own)."""
-    if cfg.model != "bidate":
-        raise _not_ported(f"training model {cfg.model!r}",
-                          "8b (multi-date training)")
     for flag in ("lane_pack", "lane_pack_bwd"):
         if getattr(cfg, flag):
             raise _not_ported(flag, "12")
-    if cfg.profile_dir:
-        raise _not_ported("profile_dir", "12 (profiling)")
     if max(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_model) > 1:
         raise _not_ported("a multi-device mesh", "10 (multi-GPU)")
+
+
+class _ProfileCapture:
+    """Trace the first ``nsteps`` train steps into ``logdir``; the trace
+    stops once the card has finished them, or at the end of a shorter
+    first epoch (:meth:`stop`)."""
+
+    def __init__(self, logdir: str, nsteps: int, cuda: bool):
+        self._prof = profiling.start_trace(logdir, cuda)
+        self._left = max(nsteps, 1)
+        log.info("profiler trace started -> %s (%d steps)", logdir, nsteps)
+
+    def on_step(self, state, stats=None) -> None:
+        if self._prof is None:
+            return
+        self._left -= 1
+        if self._left <= 0:
+            self.stop(state)
+
+    def stop(self, state=None) -> None:
+        """Wait for the steps' device work (``state``'s), then stop and
+        write the trace."""
+        if self._prof is None:
+            return
+        if state is not None:
+            profiling.sync(state.model)
+        self._prof.stop()
+        self._prof = None
 
 
 def improved(mean_val: dict, best: dict) -> bool:
@@ -106,18 +136,20 @@ def _check_finite(losses: np.ndarray, tracker, where: str) -> None:
 
 def _epoch(step_fn, state, batches, accumulator, train: bool,
            on_first_batch=None, on_step=None, tracker=None,
-           log_every: int = 0, prefix: str = "") -> int:
+           log_every: int = 0, prefix: str = "", timer=None) -> int:
     """One pass over ``batches``; returns the number of steps.  Per-step
     stats stay on the device and are read once at the end, except with
-    ``log_every`` > 0, which reads every step to stream running means."""
+    ``log_every`` > 0, which reads every step to stream running means.
+    ``timer`` (a ``StepTimer``) times each step call."""
     stream = tracker is not None and log_every > 0
     rows: list[dict] = []
     n = 0
     for i, batch in enumerate(batches):
-        if train:
-            state, stats = step_fn(state, batch)
-        else:
-            stats = step_fn(state, batch)
+        with timer or contextlib.nullcontext():
+            if train:
+                state, stats = step_fn(state, batch)
+            else:
+                stats = step_fn(state, batch)
         n += 1
         if i == 0 and on_first_batch is not None:
             on_first_batch(batch, stats)
@@ -150,9 +182,14 @@ def _denorm_rgb(img: np.ndarray) -> np.ndarray:
 
 
 def _log_val_patches(tracker, epoch: int, batch, stats) -> None:
-    """Comparison figures of every 10th sample of the first val batch."""
+    """Comparison figures of every 10th sample of the first val batch (a
+    multi-date batch shows its first and last dates as the pair)."""
+    if "imgs" in batch:
+        first, last = batch["imgs"][:, 0], batch["imgs"][:, -1]
+    else:
+        first, last = batch["img1"], batch["img2"]
     imgs1, imgs2, labels, preds = (t.cpu().numpy() for t in (
-        batch["img1"], batch["img2"], batch["label"], stats["preds"]))
+        first, last, batch["label"], stats["preds"]))
     for sample in range(0, imgs1.shape[0], 10):
         tracker.log_figure(f"epoch_{epoch}_cd_sample_{sample}",
                            _denorm_rgb(imgs1[sample]),
@@ -190,12 +227,14 @@ class EpochBatches:
     Under ``compat_reference`` the training batches draw their
     augmentation from one ``random.Random(cfg.seed)`` stream, fast-forwarded
     past ``start_epoch`` finished epochs, and the epoch's last batch is
-    short when the samples do not fill it."""
+    short when the samples do not fill it.  A multi-date model's batches
+    carry all of the dataset's dates as ``imgs``."""
 
     def __init__(self, cfg, data: dict, train_md: list, val_md: list,
                  device, start_epoch: int = 0):
         self.cfg, self.train_md, self.val_md = cfg, train_md, val_md
         self.device = device
+        self.multi_date = cfg.model in MULTI_DATE
         self.compat_aug = None
         if cfg.compat_reference and cfg.augmentation:
             self.compat_aug = random.Random(cfg.seed)
@@ -217,7 +256,7 @@ class EpochBatches:
                 self.data, md, self.cfg.patch_size, augment, batch_size,
                 shuffle=shuffle, pad_mode=pad_mode,
                 num_workers=self.workers, device=self.device,
-                prefetch=self.cfg.prefetch)
+                prefetch=self.cfg.prefetch, multi_date=self.multi_date)
         return self._loaders[name]
 
     def train(self, epoch: int, skip: int = 0):
@@ -232,7 +271,8 @@ class EpochBatches:
                 skip_batches=skip)
         sampler = PatchSampler(self.data, self.train_md, cfg.patch_size,
                                augment=cfg.augmentation,
-                               compat_aug_stream=self.compat_aug)
+                               compat_aug_stream=self.compat_aug,
+                               multi_date=self.multi_date)
         return prefetch_to_device(
             batch_iterator(sampler, cfg.batch_size, shuffle=cfg.shuffle_train,
                            pad_mode="wrap", seed=cfg.seed + epoch,
@@ -250,7 +290,8 @@ class EpochBatches:
                 max_batches=cfg.steps_per_epoch)
         return prefetch_to_device(
             batch_iterator(PatchSampler(self.data, self.val_md,
-                                        cfg.patch_size, augment=False),
+                                        cfg.patch_size, augment=False,
+                                        multi_date=self.multi_date),
                            cfg.eval_batch_size, shuffle=False,
                            pad_mode="mask", max_batches=cfg.steps_per_epoch),
             self.device, size=cfg.prefetch)
@@ -348,12 +389,16 @@ def _train(cfg, dataset, tracker, run_scene_inference, metadata,
         owned_guard = guard.install()
     batches = EpochBatches(cfg, data, train_md, val_md, device, start_epoch)
     del data  # with workers, the shared copy is the one kept
+    profiler = None
+    if cfg.profile_dir:
+        profiler = _ProfileCapture(cfg.profile_dir, cfg.profile_steps,
+                                   device.type == "cuda")
     try:
         _run_epochs(cfg, state, batches, tracker, device,
                     make_train_step(model, loss_fn),
                     make_eval_step(model, loss_fn), best, history,
                     start_epoch, resume_skip, resume_rows, guard,
-                    run_scene_inference, store)
+                    run_scene_inference, store, profiler)
     except TrainingPreempted:
         tracker.set_status("preempted")
         history["status"] = "preempted"
@@ -362,6 +407,8 @@ def _train(cfg, dataset, tracker, run_scene_inference, metadata,
         _store_epilogue(store, tracker)
         return state, history
     finally:
+        if profiler is not None:  # a run that ended before its last step
+            profiler.stop()
         batches.close()
         if owned_guard:
             guard.uninstall()
@@ -418,7 +465,8 @@ def _periodic_saver(cfg, tracker, guard, best, epoch, rows, store):
 
 def _run_epochs(cfg, state, batches, tracker, device, train_step,
                 eval_step, best, history, start_epoch, resume_skip,
-                resume_rows, guard, run_scene_inference, store):
+                resume_rows, guard, run_scene_inference, store,
+                profiler=None):
     for epoch in range(start_epoch, cfg.epochs):
         if guard is not None and guard.requested:
             # the request landed between epochs: save the epoch boundary
@@ -437,21 +485,37 @@ def _run_epochs(cfg, state, batches, tracker, device, train_step,
         for row in replay:
             train_acc.update(row[0], dict(zip(_COUNT_KEYS, row[1:])))
 
-        on_step = None
+        callbacks = []
         if cfg.checkpoint_every > 0 or guard is not None:
-            on_step = _periodic_saver(cfg, tracker, guard, best, epoch,
-                                      list(replay), store)
+            callbacks.append(_periodic_saver(cfg, tracker, guard, best,
+                                             epoch, list(replay), store))
+        if profiler is not None:
+            callbacks.append(profiler.on_step)
+
+        def on_step(s, stats):
+            for callback in callbacks:
+                callback(s, stats)
+        timer = profiling.StepTimer()
         steps = _epoch(train_step, state, batches.train(epoch, skip),
                        train_acc, train=True,
-                       on_step=on_step, tracker=tracker,
-                       log_every=cfg.log_every, prefix="batch_train_")
+                       on_step=on_step if callbacks else None,
+                       tracker=tracker, log_every=cfg.log_every,
+                       prefix="batch_train_", timer=timer)
+        if profiler is not None:  # stops even on a short first epoch
+            profiler.stop(state)
+            profiler = None
         train_seconds = time.time() - t0
         mean_train = train_acc.means()
         if steps:
-            tracker.log_metrics(
-                {"examples_per_sec": steps * cfg.batch_size / train_seconds,
-                 "steps": steps, "seconds": train_seconds},
-                step=epoch, prefix="train_")
+            # the epoch's wall clock ends with the stats' host transfer,
+            # a sync; the StepTimer's percentiles are each step's host
+            # time (the card may still run it)
+            perf = {"examples_per_sec": steps * cfg.batch_size
+                    / train_seconds, "seconds": train_seconds}
+            perf.update({k: v for k, v in
+                         timer.summary(cfg.batch_size).items()
+                         if k in ("steps", "p50_step_s", "p95_step_s")})
+            tracker.log_metrics(perf, step=epoch, prefix="train_")
         tracker.log_metrics(mean_train, step=epoch, prefix="train_")
         log.info("epoch %d train %s", epoch,
                  {k: round(v, 4) for k, v in mean_train.items()})

@@ -4,7 +4,8 @@
 A step runs on the batch's device: forward, loss, backward and update
 (train), argmax and confusion counts.  It returns the counts and the loss
 as device scalars and never waits for the device, so a loop of steps
-syncs only where the caller reads them.
+syncs only where the caller reads them.  A multi-date batch carries its
+(N, T, H, W, C) stack as ``imgs``, a bi-date one ``img1`` and ``img2``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,12 @@ import torch
 from fabric_tpu_torch.metrics import confusion_counts
 
 
+def _logits(model, batch: dict, train: bool = False) -> torch.Tensor:
+    if "imgs" in batch:
+        return model(batch["imgs"], train=train)
+    return model(batch["img1"], batch["img2"], train=train)
+
+
 def make_train_step(model, loss_fn: Callable):
     """``train_step(state, batch) -> (state, stats)``: one optimizer
     update of ``state`` in place (batch-statistics BatchNorm, whose
@@ -24,7 +31,7 @@ def make_train_step(model, loss_fn: Callable):
     def train_step(state, batch):
         for p in state.tx.params.values():
             p.grad = None
-        logits = state.model(batch["img1"], batch["img2"], train=True)
+        logits = _logits(state.model, batch, train=True)
         loss = loss_fn(logits, batch["label"], weights=batch.get("weight"))
         loss.backward()
         state.apply_gradients()
@@ -42,7 +49,7 @@ def make_eval_step(model, loss_fn: Callable):
 
     @torch.no_grad()
     def eval_step(state, batch):
-        logits = state.model(batch["img1"], batch["img2"])
+        logits = _logits(state.model, batch)
         loss = loss_fn(logits, batch["label"], weights=batch.get("weight"))
         preds = logits.argmax(-1)
         stats = confusion_counts(preds, batch["label"],
@@ -55,10 +62,12 @@ def make_eval_step(model, loss_fn: Callable):
 
 
 def make_infer_step(model):
-    """``infer_step(state, img1, img2) -> (N, H, W) uint8`` argmax map."""
+    """``infer_step(state, *imgs) -> (N, H, W) uint8`` argmax map:
+    ``infer_step(state, img1, img2)``, or for a multi-date model
+    ``infer_step(state, imgs)`` with imgs (N, T, H, W, C)."""
 
     @torch.no_grad()
-    def infer_step(state, img1, img2):
-        return state.model(img1, img2).argmax(-1).to(torch.uint8)
+    def infer_step(state, *imgs):
+        return state.model(*imgs).argmax(-1).to(torch.uint8)
 
     return infer_step

@@ -866,3 +866,134 @@ def test_signed_gate_conv_is_crop_exact(card):
     cudnn.kernel.data, cudnn.bias.data = k, b
     assert (whole.float() - cudnn(x).float()).abs().max().item() \
         <= _ulp_bound(whole, 2)
+
+
+# --- multi-date training on the card ---
+
+def _multidate_step(model_name, dev, variables, batch, local_upsample=False,
+                    dtype="float32"):
+    """One tversky + SGD step of a multi-date model at base 8 on ``dev``;
+    returns (loss, (params, batch_stats), state)."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.train.state import create_state
+    from fabric_tpu_torch.train.steps import make_train_step
+    cfg = Config(model=model_name, model_base=8, num_dates=3, batch_size=4,
+                 patch_size=32, dtype=dtype, learning_rate=0.05,
+                 local_upsample=local_upsample)
+    model = build_model(cfg, dev, fold_bn=False, variables=variables,
+                        train=True)
+    state = create_state(cfg, model)
+    _, stats = make_train_step(model, get_loss_fn(cfg))(
+        state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    return stats["loss"].item(), state.variables(), state
+
+
+def _multidate_case(model_name, seed=0):
+    from fabric_tpu_torch.weights import init_variables
+    variables = init_variables(13, 2, 8, torch.Generator().manual_seed(seed),
+                               model_name)
+    rng = np.random.RandomState(seed)
+    imgs = rng.randn(4, 3, 32, 32, 13).astype(np.float32)
+    label = (rng.rand(4, 32, 32) < 0.3).astype(np.int32)
+    imgs[:, -1][label == 1] += 1.5
+    return variables, {"imgs": imgs, "label": label,
+                       "weight": np.ones(4, np.float32)}
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_name", ["unet_lstm", "unet3d"])
+def test_multidate_train_step_card_matches_cpu(card, model_name):
+    """One fp32 train step (TF32 off) on the card and on the CPU from the
+    same weights and batch (base 8, T = 3, batch 4, patch 32).  cuDNN sums
+    the convolutions, forward and backward, in another order than the
+    CPU, and train-mode BatchNorm's E[x^2] - E[x]^2 keeps fewer bits than
+    the loss: the loss within 1e-5 relative, every parameter within 1e-2
+    of the largest update, the running statistics within 1e-3 relative
+    (1e-3 floor), as chip_smoke.py holds BiDateNet's step."""
+    variables, batch = _multidate_case(model_name)
+    l_gpu, (p_gpu, s_gpu), _ = _multidate_step(model_name, card, variables,
+                                               batch)
+    l_cpu, (p_cpu, s_cpu), _ = _multidate_step(model_name, "cpu", variables,
+                                               batch)
+    p0 = dict(_leaves(variables[0]))
+    pc, pg = dict(_leaves(p_cpu)), dict(_leaves(p_gpu))
+    sc, sg = dict(_leaves(s_cpu)), dict(_leaves(s_gpu))
+    step_max = max(np.abs(pc[k] - p0[k]).max() for k in pc)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert max(np.abs(pg[k] - pc[k]).max() for k in pc) <= 1e-2 * step_max
+    assert max((np.abs(sg[k] - sc[k]) / (np.abs(sc[k]) + 1e-3)).max()
+               for k in sc) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_signed_gate_cache_follows_the_optimizer_on_card(card):
+    """A bf16 UNetLSTM with local_upsample on the card: its eval forward
+    runs the gate conv as one signed row-1 launch a date, from packed
+    weights cached on the gate tensors' version.  After a train step
+    (F.conv2d gates, cuDNN) updates them in place, the cache holds the new
+    [K, -K] and the eval forward equals a fresh model's on the new
+    variables, bit for bit.  In fp32, which the conv kernel does not
+    take, the eval forward computes the gate conv with cuDNN instead."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.models import build_model
+    variables, batch = _multidate_case("unet_lstm", seed=1)
+    x = torch.from_numpy(batch["imgs"]).to(card)
+    for dtype, launches in (("bfloat16", 3), ("float32", 0)):  # T = 3
+        _, _, state = _multidate_step("unet_lstm", card, variables, batch,
+                                      local_upsample=True, dtype=dtype)
+        model, cell = state.model, state.model.bottleneck_lstm
+        before = conv.conv3x3_bias_relu.launches
+        with torch.no_grad():
+            got = model(x)
+        assert conv.conv3x3_bias_relu.launches == before + launches
+        kk, _, packed = cell.signed_gates()
+        assert torch.equal(kk, torch.cat([cell.gates.kernel,
+                                          -cell.gates.kernel], -1))
+        assert packed is not None
+        fresh = build_model(Config(model="unet_lstm", model_base=8,
+                                   num_dates=3, dtype=dtype,
+                                   local_upsample=True),
+                            card, fold_bn=False,
+                            variables=state.variables(), train=True)
+        with torch.no_grad():
+            assert torch.equal(got, fresh(x))
+
+
+@pytest.mark.cuda
+def test_loader_dev_shm_check_raises_before_it_allocates(card, tmp_path,
+                                                        monkeypatch):
+    """A pinned multi-date ring for the card (7 workers, prefetch 1: 9
+    slots of 128 x 3 x 96^2 x 13 floats) that /dev/shm cannot hold:
+    BatchLoader raises naming the byte counts before it allocates the
+    ring (no shared block is made)."""
+    from collections import namedtuple
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.data import loader, oscd
+    from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
+    generate_synthetic_dataset(str(tmp_path), Config(), cities=["a"],
+                               sizes=[(64, 64)], num_dates=3)
+    dataset = oscd.full_load(str(tmp_path), Config(num_dates=3))
+    md, _ = oscd.metadata_from_dataset(dataset, [], 32, 32)
+    shared = loader.share_dataset(dataset)
+    need = loader.ring_bytes(7, 1, 128, 96, 3, 13, True)
+    usage = namedtuple("usage", "total used free")
+    monkeypatch.setattr(loader.shutil, "disk_usage",
+                        lambda path: usage(need, 1, need // 2))
+    made = []
+    monkeypatch.setattr(loader.torch, "empty",
+                        lambda *a, **k: made.append(a))
+    with pytest.raises(RuntimeError, match=f"9 slots .* needs {need} bytes"):
+        loader.BatchLoader(shared, md, 96, True, 128, shuffle=True,
+                           num_workers=7, prefetch=1, device=card,
+                           multi_date=True)
+    assert made == []

@@ -266,20 +266,6 @@ def test_scene_predictor_multidate(family, tmp_path):
                  else stacks[0])
 
 
-def test_training_multidate_refused_naming_item_8b(tmp_path):
-    from fabric_tpu_torch.evaluate import evaluate
-    from fabric_tpu_torch.train.loop import train
-    for name in FAMILIES:
-        cfg = Config(model=name, model_base=BASE, num_dates=T,
-                     dataset_dir=str(tmp_path / "none"))
-        for fn in (lambda: train(cfg, device="cpu"),
-                   lambda: evaluate(cfg, device="cpu"),
-                   lambda: build_model(cfg, "cpu", fold_bn=False,
-                                       train=True)):
-            with pytest.raises(NotImplementedError, match="item 8b"):
-                fn()
-
-
 def test_synthetic_multidate_dataset_matches_fabric_tpu(tmp_path):
     """num_dates=3: the same files, byte for byte, as fabric_tpu's
     generator (imgs_1..imgs_3, the change ramping up over the dates)."""
