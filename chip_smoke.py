@@ -53,6 +53,14 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   in-device run; UNetLSTM and UNet3D at T = 5 on a 1024^2 stack, bf16 and
   int8, banded = whole, streamed = in device memory; the card's idle share
   of one in-device and one streamed scene;
+- multi-GPU serving on the one card: the 2048^2 pair with the scene split
+  into H-bands over meshes of n = 2 and 4 shards (``[cuda:0] * n``), grid
+  and fullconv (band 512, halo 128), bf16 and int8, each mask bit-equal
+  to the single-device mask of its mode and each run's kernel launches
+  equal to the single-device run's (they are added to the kernels line's
+  counts); a shard's band bytes against the scene's, ms and Mpx/s (the
+  shards share the card: neither memory per card nor scaling is
+  measured);
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -77,6 +85,14 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   the store URI bit-exactly; and ``cli.evaluate`` on the training run's
   best checkpoint, its dataset given as a ``.tar.gz``, which must
   reproduce the loop's validation metrics for that checkpoint;
+- data-parallel training on the one card: ``train.loop.train`` in 2
+  ranks over gloo (NCCL refuses two ranks on one card), BiDateNet base
+  64, patch 96, global batch 128, tversky + SGD, fp32, 3 steps with
+  validation and scene inference, against the same run in 1 process:
+  loss, parameters and running statistics within the card-vs-CPU step's
+  bounds, the ranks equal, rank 0 alone writing; the ranks' rate is
+  printed as two ranks sharing one card; then one step over NCCL at world
+  size 1 through ``parallel.distributed.maybe_initialize``;
 - multi-date training: writes a 5-date synthetic dataset of the same
   cities and runs ``train.loop.train`` for UNetLSTM (base 64, with
   ``local_upsample``, so that its eval gate conv is the signed conv-kernel
@@ -2779,6 +2795,336 @@ def multidate_train_phase(root: str, smi: str) -> dict:
     return all_launches
 
 
+# multi-GPU on one card: n shards standing in for n cards
+SHARDS = (2, 4)                 # the sharded serve's mesh sizes
+DP_RANKS, DP_STEPS, DP_BATCH = 2, 3, 128  # dp_train: ranks, steps, batch
+
+
+def sharded_serve_phase(d1, d2, grid_mask):
+    """The 2048^2 pair served with the scene split into H-bands over a
+    mesh of n = 2 and 4 shards of the one card (``[cuda:0] * n``): grid
+    and fullconv (band 512, halo 128), bf16 and int8, each mask bit-equal
+    to the single-device mask of its mode and each run's kernel launches
+    equal to the single-device run's; a shard's band bytes against the
+    whole scene's, ms and Mpx/s.  Returns the sharded runs' launches."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.infer.sharded_scene import put_scene_sharded
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
+    from fabric_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
+                 model_base=BASE)
+    counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                fused.fused_mul_relu, conv_s8.conv3x3_s8_q,
+                conv_s8.conv3x3_s8, fuse_s8.siamese_fuse_s8)
+    mpx = SCENE * SCENE / 1e6
+    scene_bytes = SCENE * SCENE * 13 * 2  # one date in bf16
+    total: dict = {}
+    for quant in ("none", "int8"):
+        for band in (0, FC_BAND):
+            mode = (f"{'fullconv' if band else 'grid'} "
+                    f"{'int8' if quant == 'int8' else 'bf16'}")
+            one = ScenePredictor(cfg, bucket=512, device="cuda", quant=quant,
+                                 fullconv_band_rows=band)
+            if quant == "none" and not band:
+                want = grid_mask
+            else:
+                one.predict(d1, d2)  # first call (int8: calibrates)
+                want = one.predict(d1, d2)
+            zero_counts(counters)
+            one.predict(d1, d2)
+            want_launches = read_counts(counters)
+            for n in SHARDS:
+                mesh = make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+                pred = ScenePredictor(cfg, bucket=512, device="cuda",
+                                      quant=quant, fullconv_band_rows=band,
+                                      mesh=mesh, shard_scene=True)
+                pred.predict(d1, d2)  # first call (int8: calibrates)
+                zero_counts(counters)
+                got, wall, peak = timed(lambda: pred.predict(d1, d2))
+                launches = read_counts(counters)
+                b1, b2 = (put_scene_sharded(d, mesh, torch.bfloat16)
+                          for d in (d1, d2))
+                run = pred._get_runner(SCENE, SCENE)
+                fwd_ms = device_ms(lambda: run(b1, b2), 3)
+                shard_bytes = b1[0].numel() * b1[0].element_size()
+                same = np.array_equal(got, want)
+                print(f"sharded {mode} over {n} shards of one card "
+                      f"({pred.serving_mode()}, bucket {pred.bucket}): "
+                      f"== single-device mask: {same} "
+                      f"({int((got != want).sum())} pixels differ); a "
+                      f"shard's band {shard_bytes} B of the scene's "
+                      f"{scene_bytes} B a date (1/{scene_bytes // shard_bytes}"
+                      f"; on one card the shards share its memory, peak "
+                      f"allocated {peak / 2**20:.0f} MiB); predict "
+                      f"{wall * 1e3:.1f} ms = {mpx / wall:.2f} Mpx/s, "
+                      f"runner on placed bands {fwd_ms:.1f} ms = "
+                      f"{mpx / fwd_ms * 1e3:.2f} Mpx/s; kernels launched "
+                      f"{launches} (single device {want_launches})",
+                      flush=True)
+                if not same or launches != want_launches:
+                    fail(f"sharded {mode} over {n} shards differs from the "
+                         "single-device run")
+                if shard_bytes * n != scene_bytes:
+                    fail("a shard's band is not 1/n of the scene")
+                for k, v in launches.items():
+                    k = "conv3x3_s8" if k == "conv3x3_s8_q" else k
+                    total[k] = total.get(k, 0) + v
+                del b1, b2, pred, run
+            del one
+    return total
+
+
+_DP_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+import torch.distributed as tdist
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from fabric_tpu_torch.config import Config
+from fabric_tpu_torch.parallel import distributed
+from fabric_tpu_torch.train.loop import train
+from fabric_tpu_torch.weights import flatten_tree, variables_of
+
+cfg = Config(**json.loads(os.environ["DP_CFG"]))
+rank, world = int(os.environ["DP_RANK"]), int(os.environ["DP_WORLD"])
+if world > 1:  # NCCL refuses two ranks on one card: gloo
+    tdist.init_process_group("gloo", init_method=os.environ["DP_INIT"],
+                             world_size=world, rank=rank)
+state, history = train(cfg, device="cuda:0", run_scene_inference=True)
+params, stats = variables_of(state.model)
+np.savez(os.path.join(os.environ["DP_OUT"], f"vars_{rank}.npz"),
+         **{"params/" + k: v for k, v in flatten_tree(params).items()},
+         **{"stats/" + k: v for k, v in flatten_tree(stats).items()})
+with open(os.path.join(os.environ["DP_OUT"], f"history_{rank}.json"),
+          "w") as f:
+    json.dump(history, f)
+distributed.shutdown()
+"""
+
+_NCCL_WORKER = r"""
+import os
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+import torch.distributed as tdist
+from fabric_tpu_torch.config import Config
+from fabric_tpu_torch.losses import get_loss_fn
+from fabric_tpu_torch.models import build_model
+from fabric_tpu_torch.parallel import distributed
+from fabric_tpu_torch.train.state import create_state
+from fabric_tpu_torch.train.steps import make_train_step
+from fabric_tpu_torch.weights import init_variables, variables_of
+
+cfg = Config(model_base=64, patch_size=96, batch_size=8, dtype="float32",
+             loss_function="tversky", learning_rate=0.05)
+variables = init_variables(13, 2, 64, torch.Generator().manual_seed(5))
+rng = np.random.RandomState(5)
+img1 = rng.randn(8, 96, 96, 13).astype(np.float32)
+label = (rng.rand(8, 96, 96) < 0.3).astype(np.int32)
+img2 = img1 + 0.3 * rng.randn(*img1.shape).astype(np.float32)
+img2[label == 1] += 1.5
+batch = {"img1": img1, "img2": img2, "label": label,
+         "weight": np.ones(8, np.float32)}
+
+
+def step():
+    model = build_model(cfg, "cuda", fold_bn=False, variables=variables,
+                        train=True)
+    _, stats = make_train_step(model, get_loss_fn(cfg))(
+        create_state(cfg, model),
+        {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    return stats["loss"].item(), variables_of(model)
+
+
+loss0, (p0, s0) = step()           # no process group
+assert distributed.maybe_initialize()
+assert tdist.get_backend() == "nccl" and distributed.world_size() == 1
+loss1, (p1, s1) = step()           # the NCCL collectives, world size 1
+
+
+def flat(t, pre=""):
+    for k, v in t.items():
+        if isinstance(v, dict):
+            yield from flat(v, pre + k + ".")
+        else:
+            yield pre + k, v
+
+
+p0, p1, s0, s1 = (dict(flat(t)) for t in (p0, p1, s0, s1))
+pv = dict(flat(variables[0]))
+step_max = max(np.abs(p0[k] - pv[k]).max() for k in p0)
+p_err = max(np.abs(p1[k] - p0[k]).max() for k in p0)
+s_err = max((np.abs(s1[k] - s0[k]) / (np.abs(s0[k]) + 1e-3)).max()
+            for k in s0)
+l_err = abs(loss1 - loss0) / abs(loss0)
+ok = l_err <= 1e-5 and p_err <= 1e-2 * step_max and s_err <= 1e-3
+print(f"NCCL_STEP backend nccl, world 1: loss {loss1:.7f} vs {loss0:.7f} "
+      f"without a group (rel {l_err:.3g}, bound 1e-5); params max diff "
+      f"{p_err:.3g} (bound 1e-2 x largest update {step_max:.4g}); BN stats "
+      f"rel diff {s_err:.3g} (bound 1e-3): {'ok' if ok else 'MISMATCH'}")
+distributed.shutdown()
+raise SystemExit(0 if ok else 1)
+"""
+
+
+def _run_workers(code: str, envs: list, timeout: int) -> list:
+    """Run ``code`` in one process per env (from the checkout's root),
+    each killed at ``timeout`` seconds; their outputs.  Fails on a
+    non-zero exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=here,
+        env={**os.environ, "PYTHONPATH": here, **e},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for e in envs]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0].decode())
+            except subprocess.TimeoutExpired:
+                outs.append("(timed out)")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, text in zip(procs, outs):
+        if p.returncode != 0:
+            print(text[-6000:], flush=True)
+            fail(f"a worker exited with {p.returncode}")
+    return outs
+
+
+def dp_train_phase(root: str):
+    """Data-parallel training on the one card: train.loop.train in 2 ranks
+    over gloo (NCCL refuses two ranks on one card), full-width BiDateNet,
+    patch 96, global batch 128 (64 a rank), tversky + SGD, fp32, 3 steps,
+    validation and the validation city's scene inference, against the
+    same run in 1 process on the card on the same global batches: loss,
+    parameters and running statistics within the bounds of the card-vs-
+    CPU step (stated below), the ranks equal; rank 0 alone wrote.  The
+    1-process run is made twice, and its difference from itself (cuDNN's
+    backward is not deterministic) is printed beside the bounds.  Then
+    one step at world size 1 over NCCL through maybe_initialize against
+    the same step without a group."""
+    from fabric_tpu_torch.weights import flatten_tree, init_variables
+
+    base = dict(dataset_dir=os.path.join(root, "data"), patch_size=T_PATCH,
+                stride=32, batch_size=DP_BATCH, eval_batch_size=DP_BATCH,
+                epochs=1, steps_per_epoch=DP_STEPS, learning_rate=0.05,
+                loss_function="tversky", optimizer="sgd", dtype="float32",
+                model_base=BASE, validation_cities=["val"], num_workers=2,
+                seed=SEED + 7)
+    runs = {}
+    t_run = {}
+    for tag, world in (("once", 1), ("again", 1), ("ranks", DP_RANKS)):
+        out = os.path.join(root, f"dp_{tag}")
+        os.makedirs(out)
+        cfg = dict(base, weight_dir=os.path.join(out, "weights"),
+                   log_dir=os.path.join(out, "logs"))
+        init = f"tcp://localhost:{_free_port()}"
+        t0 = time.perf_counter()
+        _run_workers(_DP_WORKER, [
+            {"DP_CFG": json.dumps(cfg), "DP_RANK": str(r),
+             "DP_WORLD": str(world), "DP_INIT": init, "DP_OUT": out}
+            for r in range(world)], timeout=300)
+        t_run[tag] = time.perf_counter() - t0
+        runs[tag] = out
+    loaded = {}
+    for tag, out in runs.items():
+        for r in range(DP_RANKS if tag == "ranks" else 1):
+            with open(os.path.join(out, f"history_{r}.json")) as f:
+                loaded[tag, r] = (dict(np.load(os.path.join(
+                    out, f"vars_{r}.npz"))), json.load(f))
+    (v1, h1), (vr, _), (va, ha), (vb, hb) = (
+        loaded["once", 0], loaded["again", 0], loaded["ranks", 0],
+        loaded["ranks", 1])
+    ranks_equal = all(np.array_equal(va[k], vb[k]) for k in va)
+    # the weights train() drew from the seed: the updates' scale
+    init = flatten_tree(init_variables(
+        13, 2, BASE, torch.Generator().manual_seed(base["seed"]))[0])
+    params = [k for k in v1 if k.startswith("params/")]
+    stats = [k for k in v1 if k.startswith("stats/")]
+    step_max = max(np.abs(v1[k] - init[k[len("params/"):]]).max()
+                   for k in params)
+
+    def diffs(v):
+        """(largest parameter difference from the first 1-process run,
+        largest statistic difference over the statistic's magnitude)"""
+        return (max(np.abs(v[k] - v1[k]).max() for k in params),
+                max(np.abs(v[k] - v1[k]).max() / np.abs(v1[k]).max()
+                    for k in stats))
+    p_err, s_err = diffs(va)
+    p_noise, s_noise = diffs(vr)
+    l1, l2 = (h["train"][0]["cd_losses"] for h in (h1, ha))
+    l_err = abs(l2 - l1) / abs(l1)
+    v1l, v2l = (h["val"][0]["cd_losses"] for h in (h1, ha))
+    # card_vs_cpu_step's bounds for the loss and the parameters: cuDNN
+    # picks its algorithms by shape (batch 64 a rank against 128) and the
+    # ranks sum in another order, so the train loss (the mean of the 3
+    # steps') within 1e-5 relative, every parameter within 1e-2 of the
+    # largest update of the 3 steps.  The BatchNorm running statistics
+    # within 1e-4 of each statistic's largest magnitude (a running mean
+    # near 0 after 3 steps differs by a few 1e-6, which an element-relative
+    # bound reads as 1e-3; the 1-process run's difference from itself is
+    # printed for the scale)
+    ok = (ranks_equal and l_err <= 1e-5 and p_err <= 1e-2 * step_max
+          and s_err <= 1e-4)
+    logs = os.listdir(os.path.join(runs["ranks"], "logs"))
+    wrote = sorted(os.listdir(os.path.join(runs["ranks"], "weights")))
+    wrote1 = sorted(os.listdir(os.path.join(runs["once"], "weights")))
+    only_rank0 = (len(logs) == 1 and wrote == wrote1
+                  and "val_scene_f1" in ha["val"][0]
+                  and "val_scene_f1" not in hb["val"][0])
+    rate = {}
+    for tag, out in runs.items():
+        run_dir = os.path.join(out, "logs", os.listdir(
+            os.path.join(out, "logs"))[0])
+        rate[tag] = next(json.loads(x)["train_examples_per_sec"]
+                           for x in open(os.path.join(run_dir,
+                                                      "metrics.jsonl"))
+                           if "train_examples_per_sec" in x)
+    print(f"dp_train: {DP_RANKS} ranks over gloo on one card vs 1 process, "
+          f"BiDateNet base {BASE}, patch {T_PATCH}, global batch {DP_BATCH}"
+          f", {DP_STEPS} steps fp32: train loss {l2:.7f} vs {l1:.7f} (rel "
+          f"{l_err:.3g}, bound 1e-5), val loss {v2l:.7f} vs {v1l:.7f}; "
+          f"params max diff {p_err:.3g} (bound 1e-2 x largest update "
+          f"{step_max:.4g}); BN stats max diff {s_err:.3g} of the "
+          f"statistic's largest magnitude (bound 1e-4); 1 process against "
+          f"itself: params {p_noise:.3g}, stats {s_noise:.3g}; ranks' "
+          f"parameters "
+          f"and statistics equal: {ranks_equal}; "
+          f"rank 0 alone wrote ({len(logs)} tracker run, checkpoints "
+          f"{wrote}, scene inference on rank 0 only): {only_rank0}; "
+          f"{'ok' if ok and only_rank0 else 'MISMATCH'}", flush=True)
+    print(f"dp_train: two ranks sharing one card: {rate['ranks']:.1f} "
+          f"train examples/s of the global batch, 1 process "
+          f"{rate['once']:.1f} and {rate['again']:.1f} (the {DP_STEPS}-step "
+          f"epoch, its first step included; not a scaling figure); the "
+          f"whole 2-rank command {t_run['ranks']:.1f} s, the 1-process "
+          f"ones {t_run['once']:.1f} and {t_run['again']:.1f} s", flush=True)
+    if not (ok and only_rank0):
+        fail("data-parallel training differs from the 1-process run")
+    out = _run_workers(_NCCL_WORKER, [{
+        "FABRIC_COORDINATOR": f"localhost:{_free_port()}",
+        "FABRIC_NUM_PROCESSES": "1", "FABRIC_PROCESS_ID": "0"}],
+        timeout=240)[0]
+    print(next(x for x in out.splitlines() if x.startswith("NCCL_STEP")),
+          flush=True)
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2932,6 +3278,13 @@ def main() -> int:
         fullconv_multidate_phase(name, within)
     print(f"fullconv phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- multi-GPU serving, n shards on the one card ---
+    t0 = time.perf_counter()
+    for name, n in sharded_serve_phase(d1, d2, mask).items():
+        launches[name] += n
+    print(f"sharded_serve phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # --- the training path, then its kernel and cross checks ---
     with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:
         cfg_t, state, history, t_launches, evals, records = train_phase(
@@ -2946,6 +3299,10 @@ def main() -> int:
         remat_accum_phase(smi)
         store_phase(cfg_t, root)
         evaluate_phase(cfg_t, root, smi)
+        t0 = time.perf_counter()
+        dp_train_phase(root)
+        print(f"dp_train phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
         t0 = time.perf_counter()
         multidate_train_phase(root, smi)
         print(f"multi-date training phase: {time.perf_counter() - t0:.1f} s",
@@ -2994,12 +3351,15 @@ def main() -> int:
     print("per-kernel ms, plain_ms, bound_ms and library_ms are summed over "
           f"the kernel's launches in one forward: {BATCH} serving tiles at "
           f"patch {PATCH} for the conv and fusion kernels (launches: the "
-          f"serve), {T_BATCH} eval tiles at patch {T_PATCH} in bf16 for "
+          f"serve and the sharded serve), {T_BATCH} eval tiles at patch "
+          f"{T_PATCH} in bf16 for "
           f"bn_relu_inference (its conv-bias form; launches: the training "
           f"run, {evals} eval forwards), one int8 forward of {BATCH} tiles "
-          "for conv3x3_s8 (its 18 fused sites; launches: the int8 serve; no "
+          "for conv3x3_s8 (its 18 fused sites; launches: the int8 serve "
+          "and the sharded int8 serve; no "
           "PyTorch call computes an int8 conv) and siamese_fuse_s8 (its 5 "
-          "levels; launches: the int8 serve; no single PyTorch call "
+          "levels; launches: the int8 serve and the sharded int8 serve; no "
+          "single PyTorch call "
           "computes it), the int8 form at 131072 x 512 x 512 for "
           "int8_matmul (library: torch._int_mm; launches: the microbench)")
     print(json.dumps({"kernels": kernels}))

@@ -209,14 +209,18 @@ def resume_if_requested(cfg, state):
     """Honour ``cfg.resume``: "" -> fresh; a file -> load it; a directory
     -> load its latest save; a store URI (``file://``, ``gs://``) of
     either -> fetch it into ``<weight_dir>/.resume_cache`` first
-    (``store.fetch_resume``).  Returns (state, resumed epoch, metadata);
+    (``store.fetch_resume``; ``.resume_cache/p<rank>`` in a process group
+    of several).  Returns (state, resumed epoch, metadata);
     the epoch is -1 and the metadata {} when nothing was loaded."""
     target = getattr(cfg, "resume", "")
     if not target:
         return state, -1, {}
+    from fabric_tpu_torch.parallel import distributed
     from fabric_tpu_torch.store import fetch_resume
-    target = fetch_resume(target, os.path.join(cfg.weight_dir,
-                                               ".resume_cache"))
+    cache = os.path.join(cfg.weight_dir, ".resume_cache")
+    if distributed.world_size() > 1:  # each rank fetches its own copy
+        cache = os.path.join(cache, f"p{distributed.rank()}")
+    target = fetch_resume(target, cache)
     path = target
     if os.path.isdir(target):
         path = latest_checkpoint(target)

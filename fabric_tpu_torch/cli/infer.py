@@ -1,6 +1,7 @@
 """``python -m fabric_tpu_torch.cli.infer --config <json> --resume <ckpt>
 [--city X ...] [--quant int8] [--overlap_band_rows N] [--pack N|auto]
-[--fullconv_band_rows N [--fullconv_stream]] [--device cpu]``
+[--fullconv_band_rows N [--fullconv_stream]] [--shard_scene]
+[--device cpu]``
 
 Whole-scene inference of dataset cities (counterpart of
 ``fabric_tpu/cli/infer.py``), for the bi-date model or a multi-date one
@@ -17,7 +18,13 @@ of N tile rows; ``--pack`` packing N same-bucket cities, or "auto" as many
 as fill the tile batch, into one forward, the cities loaded lazily as the
 packs fill; ``--fullconv_band_rows`` running the network over
 halo-extended bands of N pixel rows instead of tiles, with
-``--fullconv_stream`` streamed band by band from host memory).  Unless
+``--fullconv_stream`` streamed band by band from host memory;
+``--shard_scene`` splitting each scene into H-bands over the mesh of
+``--mesh_data`` devices, grid or with ``--fullconv_band_rows`` seamless
+fullconv).  The serving path builds the mesh as ``fabric_tpu`` does
+(``parallel/mesh.make_mesh_from_config``: the visible cards, or with
+``--device cpu`` ``--mesh_data`` CPU "devices"); without
+``--shard_scene`` it splits each tile batch over it.  Unless
 ``--no_tracker``, every scene writes a ``serve_*`` record to
 ``<log_dir>/<run>/metrics.jsonl``.  On the card unless ``--device cpu``.
 """
@@ -32,7 +39,6 @@ import time
 
 # fabric_tpu serving options the port does not have yet -> ROADMAP item
 _NOT_PORTED = {
-    "shard_scene": "10 (multi-GPU)",
     "bundle": "11 (frozen artifacts and bundles)",
     "aot_dir": "11 (frozen artifacts and bundles)",
 }
@@ -73,7 +79,11 @@ def main(argv=None) -> int:
                        help="write no serve_* records")
     for opt in ("bundle", "aot_dir"):
         extra.add_argument(f"--{opt}", default=None)
-    extra.add_argument("--shard_scene", action="store_true")
+    extra.add_argument("--shard_scene", action="store_true",
+                       help="serve each scene as H-bands over the mesh's "
+                            "data axis (memory per device ~1/N): grid, or "
+                            "seamless sharded fullconv with "
+                            "--fullconv_band_rows")
     own, rest = extra.parse_known_args(sys.argv[1:] if argv is None else argv)
     for opt, item in _NOT_PORTED.items():
         if getattr(own, opt) not in (None, False, "0"):
@@ -86,6 +96,10 @@ def main(argv=None) -> int:
     from fabric_tpu_torch.track import Tracker
 
     cfg = load_config(argv=rest)
+    if max(cfg.mesh_spatial, cfg.mesh_model) > 1:
+        raise NotImplementedError(
+            "the spatial and model mesh axes are not ported to "
+            "fabric_tpu_torch yet: ROADMAP.md queue 1 item 10c")
     if not cfg.resume:
         print("error: --resume <checkpoint> is required", file=sys.stderr)
         return 2
@@ -113,11 +127,21 @@ def _serve(own, cfg, tracker) -> None:
     from fabric_tpu_torch.infer.runner import infer_city, load_scene
     from fabric_tpu_torch.infer.service import ScenePredictor, resolve_device
     from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.parallel.mesh import make_mesh_from_config
 
     if (own.quant == "int8" or own.overlap_band_rows > 0 or own.pack
-            or own.fullconv_band_rows > 0 or own.fullconv_stream):
+            or own.fullconv_band_rows > 0 or own.fullconv_stream
+            or own.shard_scene):
+        mesh = None
+        if not (own.overlap_band_rows or own.pack
+                or (own.fullconv_band_rows and not own.shard_scene)):
+            on_card = resolve_device(own.device).type == "cuda"
+            mesh = make_mesh_from_config(
+                cfg, None if on_card else
+                ["cpu"] * (cfg.mesh_data if cfg.mesh_data > 0 else 1))
         pred = ScenePredictor(cfg, checkpoint=cfg.resume, bucket=own.bucket,
                               device=own.device, quant=own.quant,
+                              mesh=mesh, shard_scene=own.shard_scene,
                               overlap_band_rows=own.overlap_band_rows,
                               fullconv_band_rows=own.fullconv_band_rows,
                               fullconv_stream=own.fullconv_stream,

@@ -1,5 +1,5 @@
 """Dataset acquisition: archives and URIs -> an on-disk dataset directory
-(the port's own copy of ``fabric_tpu/data/download.py``, one process).
+(the port's own copy of ``fabric_tpu/data/download.py``).
 
 The reference pulls a dataset tarball from a store and untars it into the
 working directory.  This does the same, safely:
@@ -11,7 +11,9 @@ working directory.  This does the same, safely:
   already-downloaded archive are never fetched again;
 - atomic: extraction happens into a temporary directory that is renamed
   into place, so an interrupted run never leaves what looks like a
-  complete dataset.
+  complete dataset;
+- multi-process: only rank 0 acquires; the other ranks wait for the
+  dataset to appear.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from urllib.parse import urlparse
 log = logging.getLogger("fabric_tpu_torch")
 
 _ARCHIVE_EXTS = (".tar.gz", ".tgz", ".tar")
+_RANK_WAIT_S = 1800.0  # how long a rank waits for rank 0's dataset
 
 
 def resolve_layout(root: str) -> str | None:
@@ -143,11 +146,22 @@ def dataset_provenance(cfg, resolved_dir: str) -> dict:
 def ensure_dataset(cfg) -> str:
     """Make sure ``cfg.dataset_dir`` holds a dataset, fetching and
     extracting ``cfg.dataset_name`` if it does not.  Returns the directory
-    that holds labels/ (an archive may nest it one level down)."""
+    that holds labels/ (an archive may nest it one level down).  In a
+    process group only rank 0 acquires; the others poll for the dataset
+    for up to ``_RANK_WAIT_S`` seconds."""
+    from fabric_tpu_torch.parallel.distributed import is_primary
     ddir = cfg.dataset_dir
     resolved = resolve_layout(ddir)
     if resolved:
         return resolved
+    if not is_primary():
+        deadline = time.time() + _RANK_WAIT_S
+        while time.time() < deadline:
+            resolved = resolve_layout(ddir)
+            if resolved:
+                return resolved
+            time.sleep(5.0)
+        raise TimeoutError(f"rank 0 never produced a dataset at {ddir!r}")
     name = getattr(cfg, "dataset_name", "")
     if not name:
         raise FileNotFoundError(f"dataset_dir {ddir!r} missing and no "

@@ -51,6 +51,12 @@ ps, C) instead of ``img1`` / ``img2``, T being the dataset's dates.
 A ``compat_aug_stream`` is one sequential random stream, which workers
 cannot share: ``compat_reference`` training keeps the thread of
 ``data/pipeline.py``.
+
+In data-parallel training each rank runs a loader of its own over its
+``batch_size / process_count`` rows of every global batch
+(``process_index``, as ``batch_iterator`` takes them), so its ring holds
+that many rows a slot, and each rank reckons its blocks, as it allocates
+them, against the one ``/dev/shm`` that the ranks of a host share.
 """
 
 from __future__ import annotations
@@ -174,7 +180,8 @@ class _Batches(torch.utils.data.Dataset):
     def __init__(self, dataset: SharedArrays, ring: SharedArrays,
                  metadata: list, patch_size: int, augment: bool,
                  batch_size: int, shuffle: bool, pad_mode: str,
-                 multi_date: bool):
+                 multi_date: bool, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset, self.ring = dataset, ring
         self.metadata = list(metadata)
         self.patch_size = patch_size
@@ -183,6 +190,8 @@ class _Batches(torch.utils.data.Dataset):
         self.shuffle = shuffle
         self.pad_mode = pad_mode
         self.multi_date = multi_date
+        self.process_index = process_index
+        self.process_count = process_count
         self._sampler = self._slots = self._plan = None
 
     def __getitem__(self, key: tuple[int, int, int]) -> int:
@@ -200,7 +209,9 @@ class _Batches(torch.utils.data.Dataset):
         if self._plan is None or self._plan.seed != seed:
             self._plan = plan_epoch(len(self.metadata), self.batch_size,
                                     self.shuffle, self.pad_mode, seed)
-        make_batch(self._sampler, self._plan, b, out=self._slots[slot])
+        make_batch(self._sampler, self._plan, b, out=self._slots[slot],
+                   process_index=self.process_index,
+                   process_count=self.process_count)
         return slot
 
 
@@ -235,7 +246,9 @@ class BatchLoader:
 
     ``dataset`` is :func:`share_dataset`'s block; each worker keeps
     ``prefetch`` batches in flight; ``multi_date`` batches carry every
-    date of the dataset as ``imgs``.  The ring (:func:`ring_bytes`) must
+    date of the dataset as ``imgs``; ``process_index`` of
+    ``process_count`` builds that rank's rows of each global batch of
+    ``batch_size``.  The ring (:func:`ring_bytes`) must
     fit ``/dev/shm`` beside the dataset, or the constructor raises a
     RuntimeError before it allocates anything.  Use as a context manager,
     or call :meth:`close`, to stop the workers and release the ring."""
@@ -243,9 +256,13 @@ class BatchLoader:
     def __init__(self, dataset: SharedArrays, metadata: list,
                  patch_size: int, augment: bool, batch_size: int, *,
                  shuffle: bool, pad_mode: str = "wrap", num_workers: int,
-                 device, prefetch: int = 2, multi_date: bool = False):
+                 device, prefetch: int = 2, multi_date: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
+        if batch_size % process_count:
+            raise ValueError(f"global batch_size {batch_size} not divisible "
+                             f"by process_count {process_count}")
         self.device = torch.device(device)
         self.batch_size = batch_size
         self._n = len(metadata)
@@ -254,8 +271,8 @@ class BatchLoader:
         dates, channels = next(((shape[0], shape[-1]) for (_, key), _, shape,
                                 _ in dataset.layout if key == "images"),
                                (0, 0))
-        specs = _batch_specs(self._k, batch_size, patch_size, dates,
-                             channels, multi_date)
+        specs = _batch_specs(self._k, batch_size // process_count,
+                             patch_size, dates, channels, multi_date)
         ring = SharedArrays(specs, (
             f"the batch ring of {self._k} slots ({num_workers} workers x "
             f"prefetch {prefetch} + 2), beside the shared "
@@ -276,7 +293,8 @@ class BatchLoader:
         self._keys = _EpochKeys()
         self._loader = torch.utils.data.DataLoader(
             _Batches(dataset, ring, metadata, patch_size, augment,
-                     batch_size, shuffle, pad_mode, multi_date),
+                     batch_size, shuffle, pad_mode, multi_date,
+                     process_index, process_count),
             batch_size=None, sampler=self._keys, num_workers=num_workers,
             multiprocessing_context=_worker_context(),
             persistent_workers=True, prefetch_factor=prefetch)

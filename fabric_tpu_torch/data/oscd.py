@@ -81,13 +81,25 @@ def band_files(image_dir: str, band_ids: list[str]) -> list[str]:
     return out
 
 
+def num_dates_on_disk(data_dir: str, city: str) -> int:
+    """The count of a city's ``imgs_1`` .. ``imgs_T`` date directories."""
+    root = os.path.join(data_dir, "images", city)
+    t = 0
+    while os.path.isdir(os.path.join(root, f"imgs_{t + 1}")):
+        t += 1
+    return t
+
+
 def load_city(data_dir: str, city: str, cfg,
               out_shape: tuple[int, int] | None = None,
-              num_dates: int = 2) -> np.ndarray:
-    """(T, H, W, 13) float32: every date, normalised, resized to the label
-    dims (or ``out_shape``)."""
+              num_dates: int | None = None) -> np.ndarray:
+    """(T, H, W, 13) float32: the first ``num_dates`` dates (None: every
+    date on disk, or 2 where none is found), normalised, resized to the
+    label dims (or ``out_shape``)."""
     out_h, out_w = (load_label(data_dir, city).shape if out_shape is None
                     else out_shape)
+    if num_dates is None:
+        num_dates = num_dates_on_disk(data_dir, city) or 2
     means, stds = cfg.band_stats_arrays()
     inv = np.float32(1) / stds
     dates = []

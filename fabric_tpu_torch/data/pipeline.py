@@ -1,5 +1,5 @@
 """Patch sampling, augmentation, batching and device prefetch
-(counterpart of ``fabric_tpu/data/pipeline.py``, single process).
+(counterpart of ``fabric_tpu/data/pipeline.py``).
 
 - ``PatchSampler`` crops (T, ps, ps, 13) windows from the in-memory
   dataset and augments them (rot90 by k in 0..3, independent H/V flips,
@@ -20,7 +20,12 @@
   (mid-epoch resume); a compat stream is fast-forwarded past the skipped
   rows instead (``replay_aug_draws``).  Batch b is
   ``make_batch(sampler, plan_epoch(...), b)``, which is also what the
-  worker processes of ``data/loader.py`` call.
+  worker processes of ``data/loader.py`` call.  ``batch_size`` is the
+  global batch: with ``process_count`` ranks (data-parallel training),
+  each derives the same global order from the seed and materialises only
+  its own ``batch_size / process_count`` rows, whose augmentation is
+  keyed by the global row, so the ranks' rows concatenate to the
+  1-process batch byte for byte.
 - ``prefetch_to_device`` assembles batches in a background thread, copies
   them into pinned host memory and starts non-blocking copies to the card,
   ``size`` batches ahead of the consumer.
@@ -116,14 +121,21 @@ def plan_epoch(n: int, batch_size: int, shuffle: bool,
 
 
 def make_batch(sampler: PatchSampler, plan: EpochPlan, b: int,
-               out: dict | None = None) -> dict:
+               out: dict | None = None, process_index: int = 0,
+               process_count: int = 1) -> dict:
     """Batch ``b`` of ``plan`` as {'img1', 'img2', 'label', 'weight'}
     numpy arrays ({'imgs', 'label', 'weight'} for a ``multi_date``
     sampler), written into ``out``'s arrays when given (a full batch's
     shapes); row r draws its augmentation from an RNG keyed by (seed, lo +
-    r), so the batch does not depend on the ones before."""
-    lo = b * plan.batch_size
-    rows = plan.order[lo:lo + plan.batch_size]
+    r), so the batch does not depend on the ones before.  With
+    ``process_count`` > 1 only rank ``process_index``'s slice of the
+    global batch, its ``batch_size / process_count`` rows in order (the
+    RNG keys stay those of the rows' global positions)."""
+    full_lo = b * plan.batch_size
+    local = min(plan.batch_size,
+                len(plan.order) - full_lo) // process_count
+    lo = full_lo + process_index * local
+    rows = plan.order[lo:lo + local]
     if out is None:
         shape = sampler.dataset[sampler.metadata[0][0]]["images"].shape
         out = {k: np.empty(s, dtype) for k, (dtype, s) in batch_shapes(
@@ -159,17 +171,32 @@ def batch_shapes(n: int, patch_size: int, dates: int, channels: int,
 def batch_iterator(sampler: PatchSampler, batch_size: int, shuffle: bool,
                    pad_mode: str = "wrap", seed: int = 0,
                    max_batches: int = 0, skip_batches: int = 0,
-                   ragged_tail: bool = False) -> Iterator[dict]:
+                   ragged_tail: bool = False, process_index: int = 0,
+                   process_count: int = 1) -> Iterator[dict]:
     """Yield {'img1', 'img2', 'label', 'weight'} (or with a
     ``multi_date`` sampler {'imgs', 'label', 'weight'}) numpy batches of
     fixed shape (the last one short with ``ragged_tail``);
     ``max_batches`` caps the epoch, ``skip_batches`` starts at that batch
-    without materialising the ones before."""
+    without materialising the ones before; ``process_index`` of
+    ``process_count`` takes that rank's rows of each global batch."""
     n = len(sampler)
     if n == 0:
         return
+    if batch_size % process_count:
+        raise ValueError(f"global batch_size {batch_size} not divisible by "
+                         f"process_count {process_count}")
+    if ragged_tail and process_count != 1:
+        raise ValueError("ragged_tail emits a final batch of "
+                         "len(sampler) % batch_size rows; it does not "
+                         "shard across processes")
     stream = sampler.compat_aug_stream
     if stream is not None and sampler.augment:
+        if process_count != 1:
+            raise ValueError(
+                "compat_aug_stream consumes one sequential python-random "
+                "stream (the reference's aug semantics): single-process "
+                "only; use the default keyed-RNG augmentation for "
+                "multi-process runs")
         if (n % batch_size and not ragged_tail
                 and not (max_batches and max_batches <= n // batch_size)):
             # padded rows would draw (randint, random, random) triples
@@ -188,7 +215,8 @@ def batch_iterator(sampler: PatchSampler, batch_size: int, shuffle: bool,
     plan = plan_epoch(n, batch_size, shuffle, pad_mode, seed, max_batches,
                       ragged_tail)
     for b in range(skip_batches, plan.num_batches):
-        yield make_batch(sampler, plan, b)
+        yield make_batch(sampler, plan, b, process_index=process_index,
+                         process_count=process_count)
 
 
 def replay_aug_draws(stream, rows: int) -> None:

@@ -19,6 +19,12 @@ with a last row, column and corner anchored at the far edge.
   same-size scenes whose tiles share the chunks; every kernel computes
   each image on its own, so each scene's mask equals its own run's.
 
+With a ``mesh`` (``parallel/mesh.py``), the grid and overlap runners
+split each tile batch over the mesh's data axis, each slice run by the
+model's replica on its device (``fabric_tpu``'s ``mesh`` argument); the
+scene stays whole on its device (``infer/sharded_scene.py`` splits the
+scene itself).
+
 The bi-date runners take ``model(t1, t2)``, the multi-date ones
 ``model(tiles)`` with (N, T, patch, patch, C) tiles; both return float32
 logits (N, patch, patch, classes).
@@ -179,11 +185,14 @@ def _stitch(outs: torch.Tensor, ys: np.ndarray, xs: np.ndarray, k: int,
     return canvas
 
 
-def _run_chunks(model, tiles: tuple, batch_size: int,
-                probs: bool) -> torch.Tensor:
+def _run_chunks(model, tiles: tuple, batch_size: int, probs: bool,
+                shards: list | None = None) -> torch.Tensor:
     """``model(*chunk)`` over the tile stacks in ``tiles`` (each (K, ...)),
     zero-padded to whole chunks of ``batch_size``: (K + pad, patch, patch)
-    class-1 probabilities (float32) or argmax masks (uint8)."""
+    class-1 probabilities (float32) or argmax masks (uint8).  ``shards``
+    [(device, forward)] splits each chunk into equal slices, slice j run
+    by forward j on device j (all launched before the chunk's results are
+    gathered on the tiles' device)."""
     k = tiles[0].shape[0]
     pad = (-k) % batch_size
     if pad:
@@ -193,11 +202,55 @@ def _run_chunks(model, tiles: tuple, batch_size: int,
     outs = torch.empty((k + pad,) + first.shape[-3:-1],
                        dtype=torch.float32 if probs else torch.uint8,
                        device=first.device)
+
+    def reduce(logits):
+        return (torch.softmax(logits, dim=-1)[..., 1] if probs
+                else logits.argmax(-1))
+
+    shards = shards or [(first.device, model)]
+    part = batch_size // len(shards)
     for i in range(0, k + pad, batch_size):
-        logits = model(*(t[i:i + batch_size] for t in tiles))
-        outs[i:i + batch_size] = (torch.softmax(logits, dim=-1)[..., 1]
-                                  if probs else logits.argmax(-1))
+        res = [reduce(fwd(*(t[i + j * part:i + (j + 1) * part].to(
+            dev, non_blocking=True) for t in tiles)))
+            for j, (dev, fwd) in enumerate(shards)]
+        for j, r in enumerate(res):
+            outs[i + j * part:i + (j + 1) * part] = r
     return outs
+    # slice j of every chunk: its rows, copied to device j up front (a copy
+    # waits for the work already queued on its source card), run there,
+    # and gathered back once every slice is launched
+    part = batch_size // len(shards)
+    rows = torch.arange(k + pad, device=first.device).reshape(
+        -1, len(shards), part)
+    res = []
+    for j, (dev, fwd) in enumerate(shards):
+        idx = rows[:, j].reshape(-1)
+        res.append((idx, [t.index_select(0, idx).to(dev, non_blocking=True)
+                          for t in tiles], dev, fwd))
+    done = []
+    for idx, sub, dev, fwd in res:
+        out_j = torch.empty((len(idx),) + first.shape[-3:-1],
+                            dtype=outs.dtype, device=dev)
+        for i in range(0, len(idx), part):
+            out_j[i:i + part] = reduce(fwd(*(t[i:i + part] for t in sub)))
+        done.append((idx, out_j))
+    for idx, out_j in done:
+        outs[idx] = out_j.to(first.device)
+    return outs
+
+
+def _mesh_shards(model, mesh, batch_size: int) -> list | None:
+    """[(device, replica)] of the mesh's data axis (None without a mesh);
+    the tile batch must divide over it."""
+    if mesh is None:
+        return None
+    from fabric_tpu_torch.infer.sharded_scene import replicas
+    devices = mesh.data_devices()
+    if batch_size % len(devices):
+        raise ValueError(f"batch_size {batch_size} must divide over the "
+                         f"{len(devices)}-device data axis")
+    reps = replicas(model, devices)
+    return [(d, reps[d]) for d in devices]
 
 
 def _multidate_tiles(scenes: torch.Tensor, ys, xs, patch: int):
@@ -208,20 +261,25 @@ def _multidate_tiles(scenes: torch.Tensor, ys, xs, patch: int):
 
 def make_scene_infer(model, patch: int, scene_shape: tuple[int, int],
                      batch_size: int = 32, overlap: int = 0,
-                     dtype: torch.dtype = torch.bfloat16):
+                     dtype: torch.dtype = torch.bfloat16, mesh=None):
     """Build ``run(scene1, scene2) -> (H, W) uint8 mask`` for (H, W, C)
     scenes on the model's device.  overlap 0: reference grid + overwrite
     stitching of argmax predictions; overlap > 0: stride patch - overlap,
-    probability average over the covering tiles, threshold 0.5."""
+    probability average over the covering tiles, threshold 0.5.
+    ``mesh`` (``parallel/mesh.py``): each tile batch is split over the
+    data axis's devices, each slice run by the model's replica there
+    (``batch_size`` must divide over it); the scene stays whole on its
+    device."""
     h, w = scene_shape
     stride = patch - overlap if overlap else patch
     ys, xs, k, _, _ = _plan_grid(h, w, patch, stride, batch_size)
+    shards = _mesh_shards(model, mesh, batch_size)
 
     @torch.inference_mode()
     def run(scene1: torch.Tensor, scene2: torch.Tensor) -> torch.Tensor:
         tiles = tuple(_gather_tiles(s.to(dtype), ys, xs, patch)
                       for s in (scene1, scene2))
-        outs = _run_chunks(model, tiles, batch_size, bool(overlap))
+        outs = _run_chunks(model, tiles, batch_size, bool(overlap), shards)
         return _stitch(outs, ys, xs, k, h, w, patch, stride, overlap)
 
     return run
@@ -230,13 +288,16 @@ def make_scene_infer(model, patch: int, scene_shape: tuple[int, int],
 def make_scene_infer_multidate(model, patch: int,
                                scene_shape: tuple[int, int], num_dates: int,
                                batch_size: int = 32, overlap: int = 0,
-                               dtype: torch.dtype = torch.bfloat16):
+                               dtype: torch.dtype = torch.bfloat16,
+                               mesh=None):
     """Build ``run(scenes) -> (H, W) uint8 mask`` for a (num_dates, H, W,
-    C) date stack: :func:`make_scene_infer`'s grid, chunks and stitching,
-    each chunk a (N, T, patch, patch, C) stack fed to ``model``."""
+    C) date stack: :func:`make_scene_infer`'s grid, chunks, stitching and
+    ``mesh`` split, each chunk a (N, T, patch, patch, C) stack fed to
+    ``model``."""
     h, w = scene_shape
     stride = patch - overlap if overlap else patch
     ys, xs, k, _, _ = _plan_grid(h, w, patch, stride, batch_size)
+    shards = _mesh_shards(model, mesh, batch_size)
 
     @torch.inference_mode()
     def run(scenes: torch.Tensor) -> torch.Tensor:
@@ -244,7 +305,8 @@ def make_scene_infer_multidate(model, patch: int,
             raise ValueError(f"expected a ({num_dates}, H, W, C) date "
                              f"stack, got shape {tuple(scenes.shape)}")
         tiles = _multidate_tiles(scenes.to(dtype), ys, xs, patch)
-        outs = _run_chunks(model, (tiles,), batch_size, bool(overlap))
+        outs = _run_chunks(model, (tiles,), batch_size, bool(overlap),
+                           shards)
         return _stitch(outs, ys, xs, k, h, w, patch, stride, overlap)
 
     return run

@@ -1,7 +1,7 @@
 """Seamless whole-scene inference: the U-Net run fully convolutionally over
 halo-extended horizontal bands of the scene (counterpart of
-``fabric_tpu/infer/fullconv.py``; its sharded form waits for ROADMAP.md
-queue 1 item 10).
+``fabric_tpu/infer/fullconv.py``, its sharded form
+:func:`make_sharded_fullconv_infer` included).
 
 The tiled modes predict each pixel from one 64-px tile of context and
 leave seams; the network itself is fully convolutional, so it can run on
@@ -178,6 +178,104 @@ def make_fullconv_scene_infer(model, scene_shape: tuple[int, int],
         scenes = [_edge_pad(s.to(dtype), hp, wp) for s in (scene1, scene2)]
         return _run_bands(model, scenes, groups, ctx_h, halo, hp,
                           wp)[:h, :w]
+
+    return run
+
+
+def make_sharded_fullconv_infer(model, scene_shape: tuple[int, int], mesh,
+                                band_rows: int = 1024, halo: int = 128,
+                                dtype: torch.dtype = torch.bfloat16):
+    """Seamless inference with the scene H-sharded over ``mesh``'s data
+    axis (``fabric_tpu``'s ``make_sharded_fullconv_infer``): each of the n
+    shards owns ``big = h / n`` rows on its device and runs the banding
+    over them, in sub-bands of ``min(band_rows, big)`` rows, with the
+    model's replica there (``infer/sharded_scene.replicas``).
+
+    Unlike the grid shards, a band needs context from its neighbours:
+    shard i's buffer holds scene rows ``[i*big - 2*halo, (i+1)*big +
+    2*halo)``, its neighbours' ``2*halo`` edge rows copied from their
+    devices (``Tensor.to(device, non_blocking=True)``: a peer copy between
+    cards), zero rows outside ``[0, h)`` as ``fabric_tpu``'s ``ppermute``
+    fills them.  Twice the halo, because a context window is clamped into
+    the scene as on one device (``fabric_tpu``'s clamp to ``h - ctx_h``),
+    and the edge shards' windows shift inward by up to ``2*halo``; the
+    zero rows are never inside a window.  So every kept row sees the
+    context of a whole-scene forward and the mask is the single-device
+    fullconv mask.
+
+    Needs ``h % n == 0`` and ``big`` a multiple of 16 and at least
+    ``2*halo`` (``ScenePredictor`` aligns its buckets to ``n * 256``).
+    With n = 1 it is :func:`make_fullconv_scene_infer` on the mesh's
+    device.  ``run(scene1, scene2) -> (H, W) uint8`` (a host tensor) takes
+    ``put_scene_sharded`` band lists or whole (H, W, C) arrays."""
+    from fabric_tpu_torch.infer.sharded_scene import (as_bands, gather_bands,
+                                                      replicas)
+
+    h, w = scene_shape
+    n = mesh.shape["data"]
+    devices = mesh.data_devices()
+    if n == 1:
+        inner = make_fullconv_scene_infer(
+            replicas(model, devices)[devices[0]], scene_shape,
+            band_rows=band_rows, halo=halo, dtype=dtype)
+
+        def run_one(scene1, scene2) -> torch.Tensor:
+            b1, b2 = (as_bands(s, mesh, dtype)[0] for s in (scene1, scene2))
+            return inner(b1, b2).cpu()
+
+        return run_one
+    _check(next(iter(model.values())) if isinstance(model, dict) else model,
+           band_rows, halo)
+    if h % n:
+        raise ValueError(f"H={h} must divide over the {n}-device data "
+                         "axis; pad the scene (ScenePredictor buckets do)")
+    big = h // n
+    if big % STRIDE:
+        raise ValueError(f"per-device band H/n={big} must be a multiple "
+                         f"of {STRIDE}")
+    if big < 2 * halo:
+        raise ValueError(f"per-device band H/n={big} must be >= 2*halo="
+                         f"{2 * halo} (edge devices' clamped context "
+                         "windows reach that deep into the neighbor)")
+    wp = _round_up(w, STRIDE)
+    br = min(band_rows, big)
+    n_sub, tail = divmod(big, br)
+    subs = [(j * br, br) for j in range(n_sub)] + (
+        [(n_sub * br, tail)] if tail else [])
+    reps = replicas(model, devices)
+
+    def extended(bands: list, i: int) -> torch.Tensor:
+        """Shard i's rows with 2*halo rows of each neighbour (zeros past
+        the scene's edges), on its device."""
+        dev, s = devices[i], bands[i]
+        zeros = s.new_zeros((2 * halo,) + tuple(s.shape[1:]))
+        above = bands[i - 1][-2 * halo:].to(dev, non_blocking=True) \
+            if i > 0 else zeros
+        below = bands[i + 1][:2 * halo].to(dev, non_blocking=True) \
+            if i < n - 1 else zeros
+        return torch.cat([above, s, below])
+
+    @torch.inference_mode()
+    def run(scene1, scene2) -> torch.Tensor:
+        padded = [[_edge_pad(b, big, wp) for b in as_bands(s, mesh, dtype)]
+                  for s in (scene1, scene2)]
+        # every halo copy is queued before any forward: a copy waits for
+        # the work already queued on its source card
+        ext = [[extended(p, i) for p in padded] for i in range(n)]
+        outs = []
+        for i, dev in enumerate(devices):
+            e1, e2 = ext[i]
+            canvas = torch.empty((big, wp), dtype=torch.uint8, device=dev)
+            for r0, rows in subs:
+                ctx_h = rows + 2 * halo
+                y0 = i * big + r0                     # first kept row
+                cs = min(max(y0 - halo, 0), h - ctx_h)  # window start
+                lcs = cs - (i * big - 2 * halo)       # in the buffer
+                m = _mask(reps[dev](e1[None, lcs:lcs + ctx_h],
+                                    e2[None, lcs:lcs + ctx_h]))
+                canvas[r0:r0 + rows] = m[0, y0 - cs:y0 - cs + rows]
+            outs.append(canvas[:, :w])
+        return gather_bands(outs)
 
     return run
 

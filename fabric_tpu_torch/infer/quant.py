@@ -398,15 +398,17 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
     logits (it drops into the scene runners unchanged).  With
     ``local_upsample`` the decoder upsamples with the local op and the
     forward composes with fullconv banding (its ``local_upsample``
-    attribute says which, for the fullconv runners' check)."""
+    attribute says which, for the fullconv runners' check).  Its
+    ``device`` is the weights', and ``replicate(device)`` builds the same
+    forward on another device (the sharded runners' replicas)."""
     _check_family(model)
     if model in MULTI_DATE:
         from fabric_tpu_torch.infer import quant_multidate
         forward = quant_multidate.make_int8_forward(folded, act_scales,
                                                     dtype, model,
                                                     local_upsample)
-        forward.local_upsample = local_upsample
-        return forward
+        return _tag(forward, folded, act_scales, dtype, local_upsample,
+                    model)
     s = dict(act_scales)
     blocks = Int8Blocks(folded, s, {f"up{k}": s[f"f{5 - k}"]
                                     for k in range(1, 5)}, dtype,
@@ -430,5 +432,21 @@ def make_int8_apply(folded, act_scales: dict, dtype=torch.bfloat16,
         y, _ = fuse_s8.siamese_fuse_s8(x, enc[5] * enc[5], dtype, pool=False)
         return blocks.decode(y, (f[3], f[2], f[1], f[0]))
 
+    return _tag(forward, folded, act_scales, dtype, local_upsample, model)
+
+
+def _tag(forward, folded, act_scales, dtype, local_upsample, model):
+    """An int8 forward with its ``local_upsample``, ``device`` and
+    ``replicate``."""
     forward.local_upsample = local_upsample
+    forward.device = _device(folded)
+
+    def replicate(device):
+        def to(tree):
+            return {k: to(v) if isinstance(v, dict) else v.to(device)
+                    for k, v in tree.items()}
+        return make_int8_apply(to(folded), act_scales, dtype,
+                               local_upsample, model)
+
+    forward.replicate = replicate
     return forward

@@ -13,7 +13,11 @@ bounded memory); in grid mode ``predict_many(pack=...)`` packs several
 same-bucket scenes into one chunked forward.  ``fullconv_band_rows``
 replaces tiling: the network runs over halo-extended bands of the scene
 (``infer/fullconv.py``), in device memory or, with ``fullconv_stream``,
-streamed band by band from host arrays.  The folded forward runs on
+streamed band by band from host arrays.  With a ``mesh``
+(``parallel/mesh.py``) each tile batch is split over its devices, and
+with ``shard_scene`` the scene itself is split into H-bands over them,
+grid (``infer/sharded_scene.py``) or fullconv
+(``fullconv.make_sharded_fullconv_infer``).  The folded forward runs on
 the port's hand-written kernels; with ``fold_bn=False`` the eval-BN
 forward runs, on the eval-BatchNorm kernel; with ``quant="int8"`` the
 post-training-quantized forward of ``infer/quant.py`` runs, on the int8
@@ -22,8 +26,9 @@ later one.  A multi-date model (``cfg.model`` "unet_lstm" or "unet3d")
 serves (T, H, W, C) date stacks through :meth:`predict_multidate` and
 :meth:`predict_many_multidate`.
 
-Serving modes of ``fabric_tpu`` that this port does not have yet raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Serving modes of ``fabric_tpu`` that this port does not have yet (AOT
+artifacts, bundles) raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ from fabric_tpu_torch.infer.device_tiling import (make_banded_overlap_infer,
                                                   make_packed_scene_infer,
                                                   make_scene_infer,
                                                   make_scene_infer_multidate)
+from fabric_tpu_torch.infer.sharded_scene import (make_sharded_scene_infer,
+                                                  put_scene_sharded,
+                                                  replicas)
 from fabric_tpu_torch.models import MULTI_DATE, build_model, compute_dtype
 
 log = logging.getLogger("fabric_tpu_torch")
@@ -114,8 +122,16 @@ class ScenePredictor:
         writes a ``serve_``-prefixed record (dims, bucket, new runner or
         cached, wall ms, Mpx/s, serving mode, quant, the pack size of a
         packed scene and, for int8, the worst clip site and ratio).
-      mesh, shard_scene, aot_dir, bundle: ``fabric_tpu`` serving modes
-        that are not ported yet; anything but their default raises.
+      mesh: a ``parallel.mesh.Mesh``: split each tile batch over its data
+        axis's devices (a model replica on each; the grid and overlap
+        modes, bi-date and multi-date), or with ``shard_scene`` the scene.
+      shard_scene: with a mesh, serve each scene as H-bands over its data
+        axis (memory per device ~1/n): grid mode (buckets aligned to ``n
+        * patch``), or with ``fullconv_band_rows`` seamless sharded
+        fullconv (halos copied between the devices; buckets aligned to
+        ``n * 256``); bi-date only.
+      aot_dir, bundle: ``fabric_tpu`` serving modes that are not ported
+        yet; anything but their default raises.
     """
 
     def __init__(self, cfg, checkpoint: str | None = None, bucket: int = 512,
@@ -126,30 +142,62 @@ class ScenePredictor:
                  aot_dir=None, bundle=None, tracker=None):
         if quant not in (None, "none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
-        if mesh is not None or shard_scene:
-            raise _not_ported("mesh / shard_scene serving", "10 (multi-GPU)")
         if aot_dir is not None or bundle is not None:
             raise _not_ported("aot_dir / bundle serving",
                               "11 (frozen artifacts and bundles)")
+        if mesh is not None and max(mesh.shape["spatial"],
+                                    mesh.shape["model"]) > 1:
+            raise _not_ported("the spatial and model mesh axes",
+                              "10c (the spatial and model mesh axes)")
         self.multi_date = cfg.model in MULTI_DATE
+        if fullconv_stream:
+            if not fullconv_band_rows:
+                raise ValueError("fullconv_stream streams the fullconv "
+                                 "bands from host memory: set "
+                                 "fullconv_band_rows too")
+            if shard_scene:
+                raise ValueError("fullconv_stream streams bands from the "
+                                 "host to ONE device (use shard_scene for "
+                                 "mesh-distributed scenes)")
+        if fullconv_band_rows:
+            if ((mesh is not None and not shard_scene) or overlap_band_rows
+                    or cfg.infer_overlap or not fold_bn):
+                raise ValueError("fullconv_band_rows serves BatchNorm-folded "
+                                 "models with grid and overlap tiling off "
+                                 "(it replaces tiling); exact and int8 both "
+                                 "compose with it, the multi-date models "
+                                 "serve through it, and shard_scene=True "
+                                 "distributes the bands over the mesh")
+            if shard_scene and self.multi_date:
+                raise ValueError("sharded fullconv serves the bidate model "
+                                 "only")
         if overlap_band_rows:
             if not cfg.infer_overlap:
                 raise ValueError("overlap_band_rows requires "
                                  "cfg.infer_overlap > 0 (grid-mode tiles "
                                  "are disjoint: no banding needed)")
+            if shard_scene or self.multi_date or mesh is not None:
+                raise ValueError("overlap_band_rows supports the "
+                                 "single-device bi-date model only")
+        if shard_scene:
+            # the scene lives H-banded over the mesh: buckets align with
+            # the bands
             if self.multi_date:
-                raise ValueError("overlap_band_rows supports the bi-date "
-                                 "model only")
-        if fullconv_stream and not fullconv_band_rows:
-            raise ValueError("fullconv_stream streams the fullconv bands "
-                             "from host memory: set fullconv_band_rows too")
-        if fullconv_band_rows and (overlap_band_rows or cfg.infer_overlap
-                                   or not fold_bn):
-            raise ValueError("fullconv_band_rows serves BatchNorm-folded "
-                             "models with grid and overlap tiling off (it "
-                             "replaces tiling); exact and int8 both "
-                             "compose with it, and the multi-date models "
-                             "serve through it")
+                raise ValueError("shard_scene currently supports the "
+                                 "bidate model only")
+            if mesh is None:
+                raise ValueError("shard_scene requires a mesh")
+            if cfg.infer_overlap:
+                raise ValueError("shard_scene supports grid and fullconv "
+                                 "modes only (tiled overlap stitching "
+                                 "needs its own halo machinery)")
+            # sharded fullconv: a shard's band must be 16-aligned and >=
+            # 2*halo (the clamped edge windows); 256 covers the halo 128
+            align = mesh.shape["data"] * (256 if fullconv_band_rows
+                                          else cfg.patch_size)
+            bucket = max(_round_up(bucket or align, align), align)
+        self.mesh = mesh
+        self.shard_scene = shard_scene
         self.overlap_band_rows = overlap_band_rows
         self.fullconv_band_rows = fullconv_band_rows
         self.fullconv_stream = fullconv_stream
@@ -177,8 +225,9 @@ class ScenePredictor:
             cfg, self.device, fold_bn=fold_bn, variables=variables,
             local_upsample=bool(fullconv_band_rows) if fold_bn else None)
         # what the runners call: the model, or the int8 forward once the
-        # scales exist
+        # scales exist; with a mesh, its replica on each device
         self._forward = self.model
+        self._replicas = None
         self._runners: dict[tuple, object] = {}
         self._scales: dict | None = None
         self._stats_fwd = None
@@ -208,6 +257,7 @@ class ScenePredictor:
             folded, scales, self.dtype,
             local_upsample=self.model.local_upsample, model=self.cfg.model)
         self._scales = dict(scales)
+        self._replicas = None
         self._runners.clear()
         # a scene served right after a calibration ran no probe: the last
         # report (against the old scales) is not its own
@@ -301,10 +351,15 @@ class ScenePredictor:
     # --- serving ---
 
     def serving_mode(self) -> str:
-        """The configured serving mode: "fullconv_stream", "fullconv",
-        "banded_overlap", "overlap" or "grid"."""
+        """The configured serving mode: "fullconv_stream",
+        "sharded_fullconv", "fullconv", "sharded_grid", "banded_overlap",
+        "overlap" or "grid"."""
         if self.fullconv_band_rows:
-            return "fullconv_stream" if self.fullconv_stream else "fullconv"
+            if self.fullconv_stream:
+                return "fullconv_stream"
+            return "sharded_fullconv" if self.shard_scene else "fullconv"
+        if self.shard_scene:
+            return "sharded_grid"
         if self.overlap_band_rows:
             return "banded_overlap"
         if self.cfg.infer_overlap:
@@ -368,11 +423,21 @@ class ScenePredictor:
                     max(_round_up(w, self.bucket), patch))
         return max(h, patch), max(w, patch)
 
+    def _mesh_forward(self):
+        """The forward, or with a mesh its replicas (made once per
+        forward)."""
+        if self.mesh is None:
+            return self._forward
+        if self._replicas is None:
+            self._replicas = replicas(self._forward, self.mesh.devices)
+        return self._replicas
+
     def _get_runner(self, h: int, w: int):
         key = (h, w)
         if key not in self._runners:
             cfg = self.cfg
             common = dict(batch_size=cfg.eval_batch_size, dtype=self.dtype)
+            fwd = self._mesh_forward()
             band = dict(band_rows=self.fullconv_band_rows, dtype=self.dtype,
                         halo=fullconv.halo_for(cfg.model, cfg.num_dates))
             if self.fullconv_stream:
@@ -385,6 +450,12 @@ class ScenePredictor:
                     if self.multi_date else
                     fullconv.make_fullconv_scene_infer_streamed(
                         self._forward, key, **stream))
+            elif self.shard_scene and self.fullconv_band_rows:
+                run = fullconv.make_sharded_fullconv_infer(
+                    fwd, key, self.mesh, **band)
+            elif self.shard_scene:
+                run = make_sharded_scene_infer(fwd, cfg.patch_size, key,
+                                               self.mesh, **common)
             elif self.fullconv_band_rows:
                 run = (fullconv.make_fullconv_scene_infer_multidate(
                     self._forward, key, cfg.num_dates, **band)
@@ -393,17 +464,18 @@ class ScenePredictor:
                                                        **band))
             elif self.multi_date:
                 run = make_scene_infer_multidate(
-                    self._forward, cfg.patch_size, key,
+                    fwd, cfg.patch_size, key,
                     num_dates=cfg.num_dates, overlap=cfg.infer_overlap,
-                    **common)
+                    mesh=self.mesh, **common)
             elif self.overlap_band_rows:
                 run = make_banded_overlap_infer(
                     self._forward, cfg.patch_size, key,
                     overlap=cfg.infer_overlap,
                     band_tile_rows=self.overlap_band_rows, **common)
             else:
-                run = make_scene_infer(self._forward, cfg.patch_size, key,
-                                       overlap=cfg.infer_overlap, **common)
+                run = make_scene_infer(fwd, cfg.patch_size, key,
+                                       overlap=cfg.infer_overlap,
+                                       mesh=self.mesh, **common)
             self._runners[key] = run
         return self._runners[key]
 
@@ -443,6 +515,12 @@ class ScenePredictor:
                     None)
         ph, pw = self._bucket_dims(h, w)
         run = self._get_runner(ph, pw)
+        if self.shard_scene:
+            # each band is cast on the host and uploaded to its shard's
+            # device: no device holds the whole scene
+            a1, a2 = (put_scene_sharded(self._pad(d, ph, pw), self.mesh,
+                                        self.dtype) for d in (d1, d2))
+            return run(a1, a2), h, w, None
         (a1, h1), (a2, h2) = (self._upload([self._pad(d, ph, pw)])
                               for d in (d1, d2))
         return run(a1, a2), h, w, (h1, h2)

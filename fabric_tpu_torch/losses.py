@@ -7,6 +7,14 @@ H) only, the reference's shipped behaviour, and averages the per-(column,
 class) ratios.  ``weights`` is an optional per-sample (N,) vector: weight
 0 excludes a padded row exactly.  ``bce`` is mean softmax cross-entropy
 and ``wbce`` adds a weight on the change class, as in ``fabric_tpu``.
+
+In data-parallel training (a process group, ``parallel/distributed.py``)
+every loss is the global batch's, as under ``fabric_tpu``'s jit SPMD:
+the sums it is made of (the soft counts of dice, jaccard and Tversky,
+the weighted log-likelihood and the weight of cross-entropy and focal)
+are all-reduced with their gradient before the ratio, so every rank holds
+the 1-process loss.  The mean of per-rank losses would be another
+function, with another gradient.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from fabric_tpu_torch.parallel.distributed import active, all_reduce_sum
 
 
 def _pixel_weights(labels: torch.Tensor, weights) -> torch.Tensor | None:
@@ -38,7 +48,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     pw = _pixel_weights(labels, weights)
     if pw is not None:
         w = w * pw
-    return -torch.sum(ll * w) / torch.clamp(torch.sum(w), min=1e-7)
+    return _weighted_mean(-ll, w)
+
+
+def _weighted_mean(loss: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum(loss * w) / max(sum(w), 1e-7), both sums global."""
+    num, den = all_reduce_sum(torch.stack([torch.sum(loss * w),
+                                           torch.sum(w)]))
+    return num / torch.clamp(den, min=1e-7)
 
 
 def weighted_bce_loss(logits, labels, pos_weight: float = 1.0,
@@ -67,7 +84,9 @@ def focal_loss(logits, labels, gamma: float = 2.0, alpha=None,
     if weights is not None:
         w = torch.as_tensor(weights, dtype=torch.float32, device=loss.device)
         pw = torch.repeat_interleave(w, loss.shape[0] // w.shape[0])
-        return torch.sum(loss * pw) / torch.clamp(torch.sum(pw), min=1e-7)
+        return _weighted_mean(loss, pw)
+    if active():
+        return _weighted_mean(loss, torch.ones_like(loss))
     return torch.mean(loss)
 
 
@@ -88,7 +107,8 @@ def dice_loss(logits, labels, eps: float = 1e-7,
     """Soft Sorensen-Dice loss."""
     probs, onehot, axes, inter = _soft_counts(logits, labels,
                                               compat_reference, weights)
-    cardinality = torch.sum(probs + onehot, dim=axes)
+    inter, cardinality = all_reduce_sum(torch.stack(
+        [inter, torch.sum(probs + onehot, dim=axes)]))
     return 1.0 - torch.mean(2.0 * inter / (cardinality + eps))
 
 
@@ -97,7 +117,9 @@ def jaccard_loss(logits, labels, eps: float = 1e-7,
     """Soft IoU (Jaccard) loss."""
     probs, onehot, axes, inter = _soft_counts(logits, labels,
                                               compat_reference, weights)
-    union = torch.sum(probs + onehot, dim=axes) - inter
+    inter, cardinality = all_reduce_sum(torch.stack(
+        [inter, torch.sum(probs + onehot, dim=axes)]))
+    union = cardinality - inter
     return 1.0 - torch.mean(inter / (union + eps))
 
 
@@ -108,8 +130,9 @@ def tversky_loss(logits, labels, alpha: float = 0.5, beta: float = 0.5,
     false negatives (alpha = beta = 0.5 is dice)."""
     probs, onehot, axes, inter = _soft_counts(logits, labels,
                                               compat_reference, weights)
-    fps = torch.sum(probs * (1.0 - onehot), dim=axes)
-    fns = torch.sum((1.0 - probs) * onehot, dim=axes)
+    inter, fps, fns = all_reduce_sum(torch.stack(
+        [inter, torch.sum(probs * (1.0 - onehot), dim=axes),
+         torch.sum((1.0 - probs) * onehot, dim=axes)]))
     denom = inter + alpha * fps + beta * fns
     return 1.0 - torch.mean(inter / (denom + eps))
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
 from fabric_tpu_torch import weights
@@ -37,9 +39,16 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     multi-date model trains without them, as in ``fabric_tpu``
     (``fabric_tpu/models/__init__.py:21-46``).  ``local_upsample`` (None:
     ``cfg.local_upsample``) gives the decoder the shift-invariant
-    upsample that fullconv serving needs; it adds no parameter."""
+    upsample that fullconv serving needs; it adds no parameter.
+    ``cfg.sync_batchnorm`` is never read: in data-parallel training the
+    batch statistics are the global batch's whatever it says
+    (``models/blocks.BatchNorm``), and it logs ``fabric_tpu``'s warning."""
     if cfg.model not in ("bidate",) + MULTI_DATE:
         raise ValueError(f"unknown model: {cfg.model!r}")
+    if getattr(cfg, "sync_batchnorm", False):
+        logging.getLogger("fabric_tpu_torch").warning(
+            "sync_batchnorm=True is a no-op under jit SPMD: BN batch "
+            "statistics are already computed over the global batch")
     if train and fold_bn:
         raise ValueError("a model built for training keeps BatchNorm: pass "
                          "fold_bn=False")

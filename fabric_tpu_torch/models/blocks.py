@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fabric_tpu_torch.ops import bn_relu as bn_relu_ops
+from fabric_tpu_torch.parallel import distributed
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import double_conv as double_conv_ops
 from fabric_tpu_torch.ops.resize import (pad_to_match,
@@ -72,7 +73,14 @@ class BatchNorm(nn.Module):
 
     ``update_stats`` False normalises the same way but leaves the running
     averages where they are: the rematerialised forward of a checkpointed
-    stage (``BiDateNet.remat``) repeats a forward whose update was made."""
+    stage (``BiDateNet.remat``) repeats a forward whose update was made.
+
+    In data-parallel training (a process group,
+    ``parallel/distributed.py``) the statistics are the global batch's,
+    as under ``fabric_tpu``'s jit SPMD: the per-channel sums of x and x^2
+    are all-reduced with their gradient, and n is the global count (the
+    ranks hold equal rows).  Every rank runs these collectives in the same
+    order, the rematerialised forward's included."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -89,9 +97,15 @@ class BatchNorm(nn.Module):
         """Train-mode BatchNorm; float32 output."""
         xf = x.float()
         axes = tuple(range(x.dim() - 1))
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
         n = x.numel() // x.shape[-1]
+        if distributed.active():
+            sums = distributed.all_reduce_sum(
+                torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
+            n *= distributed.world_size()
+            mean, sq = sums[0] / n, sums[1] / n
+        else:
+            mean, sq = xf.mean(axes), (xf * xf).mean(axes)
+        var = torch.clamp(sq - mean * mean, min=0.0)
         if self.update_stats:
             self._move_averages(mean, var, n)
         inv = (var + self.eps) ** -0.5

@@ -19,6 +19,8 @@ import functools
 
 import torch
 
+from fabric_tpu_torch.ops import _build
+
 _BLOCK = 4096
 
 
@@ -59,8 +61,10 @@ def fused_mul_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     n = a.numel()
     if n:
-        _kernel()[(-(-n // _BLOCK),)](a, b, out, n, BLOCK=_BLOCK,
-                                       num_warps=8)
+        # Triton launches on the current device: make it the tensors'
+        with _build.on_device(a.get_device()):
+            _kernel()[(-(-n // _BLOCK),)](a, b, out, n, BLOCK=_BLOCK,
+                                           num_warps=8)
         fused_mul_relu.launches += 1
     return out
 

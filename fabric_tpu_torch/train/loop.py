@@ -21,6 +21,27 @@ periodic checkpoint.  Each train step is timed on the host clock
 ``cfg.profile_steps`` train steps are traced there (``torch.profiler``,
 the card's kernels included).
 
+Data-parallel training runs one process per card in a
+``torch.distributed`` group (``parallel/distributed.maybe_initialize``,
+as ``cli.train`` calls it): the data axis of the mesh is the processes
+(``cfg.mesh_data`` -1 or the world size; more raises, as ``fabric_tpu``
+raises for missing devices).  Every rank derives the same global batch
+order and materialises its own ``batch_size / world size`` rows (an
+indivisible batch raises, as ``fabric_tpu``'s multi-process pipeline
+does), the BatchNorm statistics, the loss and the confusion counts are
+the global batch's, and the update takes the mean of the ranks'
+gradients, so the run computes what one process computes on the same
+global batches.  The parameters and buffers are broadcast from rank 0
+after the start or a resume.  Only rank 0 writes (the tracker; the
+others get a ``NullTracker``), checkpoints, mirrors to the store, traces
+and runs the scene inference of the validation cities (no collective
+runs there, so the other ranks go on to the next epoch); the ranks agree
+on a preemption request every step (a host all-reduce), so that all of
+them unwind at the same step.  ``compat_reference``'s sequential
+augmentation stream and ragged last batch are single-process, as in
+``fabric_tpu``: several ranks keep the keyed augmentation and whole
+batches.
+
 The batches come from ``cfg.num_workers`` worker processes
 (``data/loader.py``), or with 0 from one prefetch thread; both give the
 same batches.  ``compat_reference`` keeps the thread: it draws the
@@ -61,8 +82,10 @@ from fabric_tpu_torch.infer.service import _not_ported, resolve_device
 from fabric_tpu_torch.losses import get_loss_fn
 from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
 from fabric_tpu_torch.models import MULTI_DATE, build_model
+from fabric_tpu_torch.parallel import distributed
+from fabric_tpu_torch.parallel.mesh import indexed_device
 from fabric_tpu_torch.store import open_store
-from fabric_tpu_torch.track import Tracker
+from fabric_tpu_torch.track import NullTracker, Tracker
 from fabric_tpu_torch.train.preemption import (PreemptionGuard,
                                                TrainingPreempted)
 from fabric_tpu_torch.train.state import create_state
@@ -77,12 +100,23 @@ _COUNT_KEYS = ("tp", "fp", "fn", "tn")
 
 def _check_ported(cfg) -> None:
     """Raise for a config option of fabric_tpu's loop that is not ported
-    (the model checks its own)."""
+    (the model checks its own), and for a data axis that is not the
+    process group's."""
     for flag in ("lane_pack", "lane_pack_bwd"):
         if getattr(cfg, flag):
             raise _not_ported(flag, "12")
-    if max(cfg.mesh_data, cfg.mesh_spatial, cfg.mesh_model) > 1:
-        raise _not_ported("a multi-device mesh", "10 (multi-GPU)")
+    if max(cfg.mesh_spatial, cfg.mesh_model) > 1:
+        raise _not_ported("the spatial and model mesh axes",
+                          "10c (the spatial and model mesh axes)")
+    world = distributed.world_size()
+    if cfg.mesh_data > world:
+        raise ValueError(f"mesh {cfg.mesh_data}x{cfg.mesh_spatial}x"
+                         f"{cfg.mesh_model} needs {cfg.mesh_data} devices, "
+                         f"have {world} (the data axis spans the "
+                         f"processes, one card each)")
+    if cfg.mesh_data not in (-1, world):
+        raise ValueError(f"mesh_data={cfg.mesh_data}: the data axis spans "
+                         f"the {world} processes (-1 or {world})")
 
 
 class _ProfileCapture:
@@ -222,12 +256,14 @@ class EpochBatches:
     """The train and validation batches of each epoch, on ``device``: from
     ``cfg.num_workers`` worker processes (``data/loader.py``), started at
     the first epoch that asks and kept for the run, or with 0 workers, or
-    under ``compat_reference``, from the prefetch thread.
+    under ``compat_reference`` in one process, from the prefetch thread.
+    In data-parallel training each rank's batches are its rows of the
+    global batch.
 
-    Under ``compat_reference`` the training batches draw their
-    augmentation from one ``random.Random(cfg.seed)`` stream, fast-forwarded
-    past ``start_epoch`` finished epochs, and the epoch's last batch is
-    short when the samples do not fill it.  A multi-date model's batches
+    Under ``compat_reference`` in one process the training batches draw
+    their augmentation from one ``random.Random(cfg.seed)`` stream,
+    fast-forwarded past ``start_epoch`` finished epochs, and the epoch's
+    last batch is short when the samples do not fill it.  A multi-date model's batches
     carry all of the dataset's dates as ``imgs``."""
 
     def __init__(self, cfg, data: dict, train_md: list, val_md: list,
@@ -235,14 +271,23 @@ class EpochBatches:
         self.cfg, self.train_md, self.val_md = cfg, train_md, val_md
         self.device = device
         self.multi_date = cfg.model in MULTI_DATE
+        self.rank = (distributed.rank(), distributed.world_size())
+        single = self.rank[1] == 1
+        self.ragged = cfg.compat_reference and single
         self.compat_aug = None
-        if cfg.compat_reference and cfg.augmentation:
+        if cfg.compat_reference and cfg.augmentation and not single:
+            log.warning("compat_reference augmentation stream is "
+                        "single-process only; multi-process run keeps the "
+                        "keyed per-row augmentation RNG")
+        elif cfg.compat_reference and cfg.augmentation:
             self.compat_aug = random.Random(cfg.seed)
             replay_aug_draws(self.compat_aug, start_epoch * epoch_train_rows(
                 len(train_md), cfg.batch_size, cfg.steps_per_epoch,
                 ragged_tail=True))
-        self.workers = 0 if cfg.compat_reference else cfg.num_workers
-        if cfg.compat_reference and cfg.num_workers:
+        # the workers take the keyed augmentation and whole batches, which
+        # compat_reference keeps only in a single process
+        self.workers = 0 if self.ragged else cfg.num_workers
+        if self.ragged and cfg.num_workers:
             log.info("compat_reference: batches from one thread, not %d "
                      "worker processes (the augmentation is one sequential "
                      "stream, the final batch ragged)", cfg.num_workers)
@@ -256,7 +301,8 @@ class EpochBatches:
                 self.data, md, self.cfg.patch_size, augment, batch_size,
                 shuffle=shuffle, pad_mode=pad_mode,
                 num_workers=self.workers, device=self.device,
-                prefetch=self.cfg.prefetch, multi_date=self.multi_date)
+                prefetch=self.cfg.prefetch, multi_date=self.multi_date,
+                process_index=self.rank[0], process_count=self.rank[1])
         return self._loaders[name]
 
     def train(self, epoch: int, skip: int = 0):
@@ -277,8 +323,9 @@ class EpochBatches:
             batch_iterator(sampler, cfg.batch_size, shuffle=cfg.shuffle_train,
                            pad_mode="wrap", seed=cfg.seed + epoch,
                            max_batches=cfg.steps_per_epoch,
-                           skip_batches=skip,
-                           ragged_tail=cfg.compat_reference),
+                           skip_batches=skip, ragged_tail=self.ragged,
+                           process_index=self.rank[0],
+                           process_count=self.rank[1]),
             self.device, size=cfg.prefetch)
 
     def val(self):
@@ -293,7 +340,9 @@ class EpochBatches:
                                         cfg.patch_size, augment=False,
                                         multi_date=self.multi_date),
                            cfg.eval_batch_size, shuffle=False,
-                           pad_mode="mask", max_batches=cfg.steps_per_epoch),
+                           pad_mode="mask", max_batches=cfg.steps_per_epoch,
+                           process_index=self.rank[0],
+                           process_count=self.rank[1]),
             self.device, size=cfg.prefetch)
 
     def close(self) -> None:
@@ -306,21 +355,22 @@ def train(cfg, dataset: dict | None = None, tracker=None,
           run_scene_inference: bool = True,
           metadata: tuple[list, list] | None = None,
           preemption_guard: PreemptionGuard | None = None, device=None):
-    """Run the training loop on ``device`` (None means the card) from
-    fresh weights drawn from ``cfg.seed`` or from ``cfg.resume``; returns
-    (state, history).
+    """Run the training loop on ``device`` (None means the card: in a
+    process group, the rank's own) from fresh weights drawn from
+    ``cfg.seed`` or from ``cfg.resume``; returns (state, history).
 
     ``dataset`` is an in-memory dataset dict (else ``cfg.dataset_dir`` is
-    loaded); ``metadata`` the (train, val) patch lists; ``preemption_guard``
-    a pre-built guard (else one is installed on SIGTERM when
-    ``cfg.handle_preemption``)."""
+    loaded, fetched by rank 0 if need be); ``metadata`` the (train, val)
+    patch lists; ``preemption_guard`` a pre-built guard (else one is
+    installed on SIGTERM when ``cfg.handle_preemption``)."""
     _check_ported(cfg)
-    device = resolve_device(device)
+    device = indexed_device(resolve_device(device))
     if dataset is None:
         cfg.dataset_dir = ensure_dataset(cfg)
     owned_tracker = tracker is None
     if owned_tracker:
-        tracker = Tracker(cfg.log_dir, project=cfg.project_name)
+        tracker = (Tracker(cfg.log_dir, project=cfg.project_name)
+                   if distributed.is_primary() else NullTracker())
     try:
         return _train(cfg, dataset, tracker, run_scene_inference, metadata,
                       preemption_guard, device)
@@ -359,6 +409,7 @@ def _train(cfg, dataset, tracker, run_scene_inference, metadata,
     state, resumed_epoch, resumed_meta = ckpt.resume_if_requested(cfg, state)
     if resumed_epoch >= 0:
         log.info("resumed from epoch %d (step %d)", resumed_epoch, state.step)
+    distributed.broadcast_module(model)  # every rank starts from rank 0's
 
     best = {"cd_f1scores": -1.0, "cd_recalls": -1.0, "cd_precisions": -1.0}
     # seed the best metrics from the resumed save, so a regression after
@@ -379,7 +430,8 @@ def _train(cfg, dataset, tracker, run_scene_inference, metadata,
         log.info("mid-epoch resume: completing epoch %d from batch %d",
                  start_epoch, resume_skip)
 
-    store = open_store(cfg.output_store)
+    store = open_store(cfg.output_store) if distributed.is_primary() \
+        else None
     if store is not None:
         log.info("mirroring checkpoints and tracker output to %s",
                  cfg.output_store)
@@ -390,7 +442,7 @@ def _train(cfg, dataset, tracker, run_scene_inference, metadata,
     batches = EpochBatches(cfg, data, train_md, val_md, device, start_epoch)
     del data  # with workers, the shared copy is the one kept
     profiler = None
-    if cfg.profile_dir:
+    if cfg.profile_dir and distributed.is_primary():
         profiler = _ProfileCapture(cfg.profile_dir, cfg.profile_steps,
                                    device.type == "cuda")
     try:
@@ -434,7 +486,10 @@ def _store_epilogue(store, tracker) -> None:
 
 
 def _save(cfg, state, epoch, store, **kw) -> None:
-    """ckpt.save into cfg.weight_dir, mirrored to ``store``."""
+    """ckpt.save into cfg.weight_dir, mirrored to ``store``; rank 0's
+    alone."""
+    if not distributed.is_primary():
+        return
     path = ckpt.save(state, cfg.weight_dir, epoch, keep_last=cfg.keep_last,
                      **kw)
     if store is not None:
@@ -446,7 +501,7 @@ def _periodic_saver(cfg, tracker, guard, best, epoch, rows, store):
     carrying the epoch's progress and stat rows."""
     def on_step(s, stats):
         rows.append(stats)
-        preempt = guard is not None and guard.requested
+        preempt = guard is not None and distributed.any_rank(guard.requested)
         if not (preempt or (cfg.checkpoint_every > 0
                             and s.step % cfg.checkpoint_every == 0)):
             return
@@ -467,8 +522,9 @@ def _run_epochs(cfg, state, batches, tracker, device, train_step,
                 eval_step, best, history, start_epoch, resume_skip,
                 resume_rows, guard, run_scene_inference, store,
                 profiler=None):
+    primary = distributed.is_primary()
     for epoch in range(start_epoch, cfg.epochs):
-        if guard is not None and guard.requested:
+        if guard is not None and distributed.any_rank(guard.requested):
             # the request landed between epochs: save the epoch boundary
             # as a zero-progress periodic save of the previous epoch (not
             # while a mid-epoch resume is pending: the checkpoint it came
@@ -521,8 +577,9 @@ def _run_epochs(cfg, state, batches, tracker, device, train_step,
                  {k: round(v, 4) for k, v in mean_train.items()})
 
         _epoch(eval_step, state, batches.val(), val_acc, train=False,
-               on_first_batch=lambda b, s: _log_val_patches(tracker, epoch,
-                                                            b, s),
+               on_first_batch=(lambda b, s: _log_val_patches(tracker, epoch,
+                                                             b, s))
+               if primary else None,
                tracker=tracker, log_every=cfg.log_every,
                prefix="batch_validate_")
         mean_val = val_acc.means()
@@ -532,7 +589,8 @@ def _run_epochs(cfg, state, batches, tracker, device, train_step,
                  {k: round(v, 4) for k, v in mean_val.items()
                   if k.startswith("cd_")})
 
-        if run_scene_inference:
+        # rank 0's alone: it only writes, and runs no collective
+        if run_scene_inference and primary:
             for city in cfg.validation_cities:
                 try:
                     mask = infer_city(state.model, cfg, city, device=device)

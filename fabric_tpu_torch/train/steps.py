@@ -6,6 +6,13 @@ A step runs on the batch's device: forward, loss, backward and update
 as device scalars and never waits for the device, so a loop of steps
 syncs only where the caller reads them.  A multi-date batch carries its
 (N, T, H, W, C) stack as ``imgs``, a bi-date one ``img1`` and ``img2``.
+
+In data-parallel training (a process group) a batch is the rank's rows
+of the global batch: the loss and the BatchNorm statistics are global
+already (``losses.py``, ``models/blocks.BatchNorm``), the train step
+takes the mean of the ranks' gradients before the update, and both steps
+sum the confusion counts over the ranks, so every rank returns the
+1-process stats.
 """
 
 from __future__ import annotations
@@ -15,6 +22,19 @@ from typing import Callable
 import torch
 
 from fabric_tpu_torch.metrics import confusion_counts
+from fabric_tpu_torch.parallel import distributed
+
+
+def _counts(preds, batch) -> dict:
+    """The confusion counts of the global batch."""
+    stats = confusion_counts(preds, batch["label"],
+                             weights=batch.get("weight"))
+    if distributed.active():
+        keys = list(stats)
+        total = distributed.all_reduce_(torch.stack([stats[k]
+                                                     for k in keys]))
+        stats = dict(zip(keys, total))
+    return stats
 
 
 def _logits(model, batch: dict, train: bool = False) -> torch.Tensor:
@@ -34,9 +54,9 @@ def make_train_step(model, loss_fn: Callable):
         logits = _logits(state.model, batch, train=True)
         loss = loss_fn(logits, batch["label"], weights=batch.get("weight"))
         loss.backward()
+        distributed.mean_gradients(state.tx.params.values())
         state.apply_gradients()
-        stats = confusion_counts(logits.detach().argmax(-1), batch["label"],
-                                 weights=batch.get("weight"))
+        stats = _counts(logits.detach().argmax(-1), batch)
         stats["loss"] = loss.detach()
         return state, stats
 
@@ -52,8 +72,7 @@ def make_eval_step(model, loss_fn: Callable):
         logits = _logits(state.model, batch)
         loss = loss_fn(logits, batch["label"], weights=batch.get("weight"))
         preds = logits.argmax(-1)
-        stats = confusion_counts(preds, batch["label"],
-                                 weights=batch.get("weight"))
+        stats = _counts(preds, batch)
         stats["loss"] = loss
         stats["preds"] = preds
         return stats

@@ -525,7 +525,8 @@ def _cfg(**kw):
 
 def test_predictor_fullconv_guards():
     """fabric_tpu's guards: streaming needs band rows; fullconv needs
-    fold_bn and no overlap; the sharded form waits for item 10."""
+    fold_bn and no overlap; the sharded form needs a mesh (it is ported:
+    tests/test_torch_sharded.py)."""
     with pytest.raises(ValueError, match="fullconv_stream"):
         ScenePredictor(_cfg(), device="cpu", fullconv_stream=True)
     for cfg, kw in ((_cfg(infer_overlap=8), {}),
@@ -533,7 +534,7 @@ def test_predictor_fullconv_guards():
                     (_cfg(), dict(fold_bn=False))):
         with pytest.raises(ValueError, match="fullconv_band_rows"):
             ScenePredictor(cfg, device="cpu", fullconv_band_rows=160, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="shard_scene requires a mesh"):
         ScenePredictor(_cfg(), device="cpu", shard_scene=True,
                        fullconv_band_rows=160)
 

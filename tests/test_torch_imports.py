@@ -51,6 +51,10 @@ def test_port_imports_no_jax_or_fabric_tpu():
             "fabric_tpu_torch.models.unet3d",
             "fabric_tpu_torch.infer.quant_multidate",
             "fabric_tpu_torch.infer.fullconv",
+            "fabric_tpu_torch.infer.sharded_scene",
+            "fabric_tpu_torch.parallel",
+            "fabric_tpu_torch.parallel.distributed",
+            "fabric_tpu_torch.parallel.mesh",
             "fabric_tpu_torch.utils.profiling"} <= set(modules)
     assert _loaded_after(modules) == []
 

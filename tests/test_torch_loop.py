@@ -289,7 +289,8 @@ def test_prune_keeps_the_newest_and_what_pointers_name(tmp_path):
         "periodic_epoch_3.msgpack")
 
 
-@pytest.mark.parametrize("kw", [dict(lane_pack=True), dict(mesh_data=2)])
+@pytest.mark.parametrize("kw", [dict(lane_pack=True),
+                                dict(mesh_spatial=2)])
 def test_unported_options_raise(kw, tmp_path):
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
                  **kw)

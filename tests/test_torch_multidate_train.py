@@ -98,6 +98,23 @@ def test_full_load_loads_num_dates_like_fabric_tpu(data_dir, data):
             want[city]["labels"].tobytes()
 
 
+def test_load_city_defaults_to_the_dates_on_disk(data_dir):
+    """load_city with no num_dates loads every date on disk, as
+    fabric_tpu's does (it used to load 2): byte-equal to fabric_tpu's on
+    the 3-date cities (the native library loaded first, as above)."""
+    from fabric_tpu import native
+    assert native.available()
+    for city in CITIES:
+        assert oscd.num_dates_on_disk(data_dir, city) == T == \
+            jax_oscd.num_dates_on_disk(data_dir, city)
+        got = oscd.load_city(data_dir, city, config.Config())
+        want = jax_oscd.load_city(data_dir, city, jax_config.Config())
+        assert got.shape == want.shape == (T,) + SIZES[
+            CITIES.index(city)] + (13,)
+        assert got.tobytes() == want.tobytes(), city
+    assert oscd.num_dates_on_disk(data_dir, "missing") == 0
+
+
 def _assert_batches_equal(ours, theirs) -> int:
     n = 0
     for a, b in zip(ours, theirs, strict=True):

@@ -468,7 +468,8 @@ def test_cli_infer_writes_masks_and_records(dataset, tmp_path, quant):
 
 
 @pytest.mark.parametrize("flag", [["--bundle", "b.npz"],
-                                  ["--aot_dir", "a"], ["--shard_scene"]])
+                                  ["--aot_dir", "a"],
+                                  ["--shard_scene", "--mesh_spatial", "2"]])
 def test_cli_infer_unported_options_raise(flag):
     from fabric_tpu_torch.cli.infer import main
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
