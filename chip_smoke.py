@@ -61,6 +61,21 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   counts); a shard's band bytes against the scene's, ms and Mpx/s (the
   shards share the card: neither memory per card nor scaling is
   measured);
+- serving bundles and AOT artifacts: the main path's weights in a
+  checkpoint, exported as bf16 and int8 bundles (``tools.export``, int8
+  calibrated on the card) and served bit-equal to the checkpoint path
+  (int8 at the bundle's scales, nothing calibrating); then each bucket's
+  forward frozen with ``torch.export`` (the kernels as the
+  ``fabric_tpu_torch::`` custom ops) for grid bf16, grid int8, fullconv
+  (band 512) at the 2048^2 pair and 4 packed 512^2 pairs, served from
+  ``aot_dir`` bit-equal to in-process with equal kernel launches counted
+  at run time and every record's ``aot`` true, with export seconds,
+  ``.pt2`` MiB, load seconds and the runner's time beside in-process; a
+  grid artifact for the card exported by a CPU predictor; the custom
+  ops' host cost a call; one ``cli.infer --bundle --aot_dir`` run; and
+  each in a fresh process, ``ScenePredictor`` plus the first predict of
+  the 2048^2 pair from the checkpoint, the bundle and the bundle with its
+  artifact;
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -2876,6 +2891,340 @@ def sharded_serve_phase(d1, d2, grid_mask):
     return total
 
 
+AOT_PACK = 4   # the packed artifact: packs of 4 FLEET_SIDE^2 pairs
+
+
+def serve_counters():
+    """The launch counters of the serving kernels (rows 1-3, 5b, 5c)."""
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv, fuse_s8, fused
+    return (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+            fused.fused_mul_relu, conv_s8.conv3x3_s8_q, conv_s8.conv3x3_s8,
+            fuse_s8.siamese_fuse_s8)
+
+
+def counted(fn):
+    """(fn(), its kernel launches), the counts zeroed just before."""
+    counters = serve_counters()
+    zero_counts(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(counters)
+
+
+def bundle_serve_phase(root: str, d1, d2, grid_mask) -> tuple:
+    """The main path's weights (seed 0) in a checkpoint, exported as bf16
+    and int8 serving bundles (``tools.export.export_bundle``; int8
+    calibrated on the card on its synthetic batches): the 2048^2 pair
+    served from the bf16 bundle bit-equal to the checkpoint path and to
+    the main serve's mask, and from the int8 bundle (its scales seeding
+    the forward, nothing calibrating) bit-equal to the checkpoint path at
+    the same scales, with equal launches.  Returns (checkpoint dir,
+    {quant: bundle path}, {quant: in-process mask}, launches)."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.tools.export import export_bundle, load_bundle
+    from fabric_tpu_torch.train.state import create_state
+
+    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
+                 model_base=BASE)
+    run = os.path.join(root, "run")
+    # build_model draws the seed-0 weights ScenePredictor(checkpoint=None)
+    # serves
+    ckpt.save(create_state(cfg, build_model(cfg, "cpu", fold_bn=False,
+                                            train=True)), run, epoch=0)
+    bundles, masks, total = {}, {}, {}
+    for quant in ("none", "int8"):
+        bundles[quant] = os.path.join(root, f"bundle_{quant}.npz")
+        t0 = time.perf_counter()
+        export_bundle(cfg, run, bundles[quant], quant=quant)
+        print(f"bundle {quant}: exported in {time.perf_counter() - t0:.2f} s"
+              f" ({os.path.getsize(bundles[quant]) / 2**20:.1f} MiB)",
+              flush=True)
+    _, scales, _ = load_bundle(bundles["int8"])
+    for quant in ("none", "int8"):
+        from_ckpt = ScenePredictor(cfg, checkpoint=run, bucket=512,
+                                   device="cuda", quant=quant)
+        if quant == "int8":
+            from_ckpt._use_scales(scales)
+        served = ScenePredictor(cfg, bundle=bundles[quant], bucket=512,
+                                device="cuda")
+        for pred in (from_ckpt, served):
+            pred.predict(d1, d2)  # the first call builds the runner
+        want, want_n = counted(lambda: from_ckpt.predict(d1, d2))
+        got, got_n = counted(lambda: served.predict(d1, d2))
+        same = np.array_equal(got, want)
+        print(f"bundle {quant} serve of the {SCENE}^2 pair: == checkpoint "
+              f"path: {same} ({int((got != want).sum())} pixels differ); "
+              f"quant {served.quant}, scales the bundle's: "
+              f"{served._scales == (scales if quant == 'int8' else None)}; "
+              f"launches {got_n} (checkpoint path {want_n})", flush=True)
+        if not same or got_n != want_n or served.quant != quant:
+            fail(f"the {quant} bundle does not serve as the checkpoint")
+        if quant == "none" and not np.array_equal(got, grid_mask):
+            fail("the bf16 bundle's mask is not the main serve's")
+        if quant == "int8" and served._scales != scales:
+            fail("the int8 bundle's scales did not seed its forward")
+        masks[quant] = want
+        for k, v in got_n.items():
+            total[k] = total.get(k, 0) + v
+    return run, bundles, masks, total
+
+
+_COLD_START = r"""
+import json, sys, time
+import numpy as np
+import torch
+from fabric_tpu_torch import Config
+from fabric_tpu_torch.infer.service import ScenePredictor
+root, how = sys.argv[1], sys.argv[2]
+d1, d2 = np.load(f"{root}/d1.npy"), np.load(f"{root}/d2.npy")
+kw = {"checkpoint": {"checkpoint": f"{root}/run"},
+      "bundle": {"bundle": f"{root}/bundle_none.npz"},
+      "bundle+aot_dir": {"bundle": f"{root}/bundle_none.npz",
+                         "aot_dir": f"{root}/aot_grid_bf16"}}[how]
+cfg = Config(patch_size=%(patch)d, eval_batch_size=%(batch)d,
+             dtype="bfloat16", model_base=%(base)d)
+t0 = time.perf_counter()
+pred = ScenePredictor(cfg, bucket=512, device="cuda", **kw)
+t1 = time.perf_counter()
+mask = pred.predict(d1, d2)
+t2 = time.perf_counter()
+np.save(f"{root}/cold_mask.npy", mask)
+reload_s = None
+if pred.aot_dir:  # the artifact's load again, its imports made
+    from fabric_tpu_torch.infer import aot
+    t3 = time.perf_counter()
+    aot.load_aot(pred.aot_dir, *pred._bucket_dims(*d1.shape[:2]),
+                 device="cuda")
+    reload_s = time.perf_counter() - t3
+print(json.dumps({"how": how, "init_s": t1 - t0, "first_predict_s": t2 - t1,
+                  "reload_s": reload_s,
+                  "aot": sorted(map(list, pred._aot_keys))}))
+"""
+
+
+def cold_starts(root: str, d1, d2, want) -> dict:
+    """ScenePredictor(...) plus the first predict of the 2048^2 pair, each
+    in a fresh process: from the checkpoint, from the bf16 bundle, from
+    the bundle and the grid artifact; every mask the main serve's."""
+    np.save(os.path.join(root, "d1.npy"), d1)
+    np.save(os.path.join(root, "d2.npy"), d2)
+    code = _COLD_START % {"patch": PATCH, "batch": BATCH, "base": BASE}
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    out = {}
+    for how in ("checkpoint", "bundle", "bundle+aot_dir"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, root, how],
+                              capture_output=True, text=True, env=env,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            fail(f"cold start from {how} failed:\n{proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        mask = np.load(os.path.join(root, "cold_mask.npy"))
+        same = np.array_equal(mask, want)
+        out[how] = rec["init_s"] + rec["first_predict_s"]
+        print(f"cold start from {how}: ScenePredictor {rec['init_s']:.2f} s"
+              f" + first predict {rec['first_predict_s']:.2f} s = "
+              f"{out[how]:.2f} s (the process {wall:.1f} s); runners from "
+              f"the artifact {rec['aot']}"
+              + (f" (its load again in the same process "
+                 f"{rec['reload_s']:.2f} s)" if rec["reload_s"] else "")
+              + f"; mask == main serve's: {same}", flush=True)
+        if not same or (how == "bundle+aot_dir") != bool(rec["aot"]):
+            fail(f"cold start from {how} served another mask or runner")
+    return out
+
+
+def aot_serve_phase(root: str, d1, d2, bundles: dict, masks: dict) -> dict:
+    """Scene runners exported with ``torch.export`` from the bundles'
+    predictors and served from ``aot_dir`` on the card: grid bf16, grid
+    int8 and fullconv (band 512) at the 2048^2 pair, and 4 packed 512^2
+    pairs; for each the export seconds, the ``.pt2`` MiB and the
+    ``torch.export.load`` seconds, masks bit-equal to in-process, the
+    kernel launches of a scene equal to in-process (counted at run time),
+    every record's ``aot`` true, and the loaded runner's device time
+    beside the in-process runner's.  Then a grid artifact for the card
+    exported by a CPU predictor, moved to the card when it loads; the
+    custom ops' host cost a call against the direct launch; one
+    ``cli.infer --bundle --aot_dir`` run; and the cold starts.  Returns
+    the artifact runs' launches."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer import aot
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.track import Tracker
+
+    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
+                 model_base=BASE)
+    rng = np.random.RandomState(SEED + 12)
+    fleet = [tuple(rng.randn(FLEET_SIDE, FLEET_SIDE, 13).astype(np.float32)
+                   for _ in range(2)) for _ in range(AOT_PACK)]
+    specs = (("grid_bf16", dict(bundle=bundles["none"]), 0),
+             ("grid_int8", dict(bundle=bundles["int8"]), 0),
+             ("fullconv_bf16", dict(bundle=bundles["none"],
+                                    fullconv_band_rows=FC_BAND), 0),
+             (f"pack{AOT_PACK}_bf16", dict(bundle=bundles["none"]),
+              AOT_PACK))
+    tracker = Tracker(os.path.join(root, "logs"), run_name="aot")
+    total: dict = {}
+    for name, kw, pack in specs:
+        pred = ScenePredictor(cfg, bucket=512, device="cuda", **kw)
+        d = os.path.join(root, f"aot_{name}")
+        side = FLEET_SIDE if pack else SCENE
+        t0 = time.perf_counter()
+        meta = aot.export_aot(pred, d, [(side, side)],
+                              packs=(pack,) if pack else ())
+        export_s = time.perf_counter() - t0
+        bh, bw = pred._bucket_dims(side, side)
+        fname = aot._runner_name(bh, bw, pack)
+        mib = os.path.getsize(os.path.join(d, fname)) / 2**20
+        t0 = time.perf_counter()
+        aot.load_aot(d, bh, bw, pack, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        served = ScenePredictor(cfg, bucket=512, device="cuda", aot_dir=d,
+                                tracker=tracker, **kw)
+        if pack:
+            def serve(p):
+                return p.predict_many(fleet, pack=pack)
+            key = (bh, bw, pack, "packed")
+            a1, a2 = (torch.stack([torch.from_numpy(pred._pad(f[i], bh, bw))
+                                   for f in fleet]).cuda() for i in (0, 1))
+
+            def runner(p):
+                return p._get_packed_runner(bh, bw, pack)
+        else:
+            def serve(p):
+                return p.predict(d1, d2)
+            key = (bh, bw)
+            a1, a2 = (torch.from_numpy(p._pad(x, bh, bw)).cuda()
+                      for p, x in ((pred, d1), (pred, d2)))
+
+            def runner(p):
+                return p._get_runner(bh, bw)
+        for p in (pred, served):
+            serve(p)  # the first call builds or loads the runner
+        want, want_n = counted(lambda: serve(pred))
+        got, got_n = counted(lambda: serve(served))
+        same = all(np.array_equal(g, w) for g, w in
+                   zip(got if pack else [got], want if pack else [want]))
+        if name == "grid_bf16" or name == "grid_int8":
+            same = same and np.array_equal(
+                got, masks["none" if name == "grid_bf16" else "int8"])
+        in_ms = device_ms(lambda: runner(pred)(a1, a2), 3)
+        aot_ms = device_ms(lambda: runner(served)(a1, a2), 3)
+        print(f"aot {name}: exported in {export_s:.2f} s, {fname} "
+              f"{mib:.1f} MiB, torch.export.load + to card {load_s:.2f} s; "
+              f"ops {meta['ops'][fname]}; masks == in-process: {same}; "
+              f"launches a {'pack' if pack else 'scene'} {got_n} "
+              f"(in-process {want_n}); runner {aot_ms:.2f} ms (in-process "
+              f"{in_ms:.2f} ms); from the artifact: "
+              f"{key in served._aot_keys}", flush=True)
+        if not same or got_n != want_n or key not in served._aot_keys:
+            fail(f"the {name} artifact does not serve as in-process")
+        for k, v in got_n.items():
+            total[k] = total.get(k, 0) + v
+        del pred, served, a1, a2
+    tracker.close()
+    with open(os.path.join(tracker.dir, "metrics.jsonl")) as fin:
+        recs = [json.loads(line) for line in fin]
+    print(f"aot serve records: {len(recs)}, aot true in "
+          f"{sum(r['serve_aot'] is True for r in recs)}", flush=True)
+    if not recs or not all(r["serve_aot"] is True for r in recs):
+        fail("an artifact scene's record does not say aot")
+
+    # an artifact for the card exported on the CPU: tensors moved at load
+    pred = ScenePredictor(cfg, bundle=bundles["none"], bucket=512,
+                          device="cuda")
+    cpu = ScenePredictor(cfg, bundle=bundles["none"], bucket=512,
+                         device="cpu")
+    d = os.path.join(root, "aot_from_cpu")
+    t0 = time.perf_counter()
+    aot.export_aot(cpu, d, [(FLEET_SIDE, FLEET_SIDE)], platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    served = ScenePredictor(cfg, bundle=bundles["none"], bucket=512,
+                            device="cuda", aot_dir=d)
+    pair = fleet[0]
+    want, want_n = counted(lambda: pred.predict(*pair))
+    got, got_n = counted(lambda: served.predict(*pair))
+    same = np.array_equal(got, want)
+    print(f"aot for the card exported on the CPU ({FLEET_SIDE}^2 grid, "
+          f"{export_s:.2f} s): masks == in-process on the card: {same}; "
+          f"launches {got_n} (in-process {want_n})", flush=True)
+    if not same or got_n != want_n or not served._aot_keys:
+        fail("the CPU-exported artifact does not serve on the card")
+    del cpu, served
+
+    # what the custom-op dispatch costs the host a call
+    from fabric_tpu_torch.ops import bn_relu, conv
+    x = torch.randn(2 * BATCH, 4, 4, 8 * BASE, device="cuda").bfloat16()
+    k = torch.randn(3, 3, 8 * BASE, 8 * BASE, device="cuda") * 0.02
+    b = torch.zeros(8 * BASE, device="cuda")
+    pk = conv.pack_weight(k)
+    v = [torch.ones(8 * BASE, device="cuda") for _ in range(4)]
+    ops = torch.ops.fabric_tpu_torch
+    with torch.inference_mode():
+        rows = {
+            "conv3x3_bias_relu": (
+                lambda: conv.conv3x3_bias_relu(x, k, b, pk),
+                lambda: ops.conv3x3_bias_relu(x, k, b, pk)),
+            "bn_relu_inference": (
+                lambda: bn_relu.bn_relu_inference(x, *v),
+                lambda: ops.bn_relu_inference(x, *v, 1e-5, None))}
+        for op, (direct, via_op) in rows.items():
+            # alternated, the least of 5 each: the host clock spreads
+            direct_us = [host_us(direct, 200) for _ in range(5)]
+            op_us = [host_us(via_op, 200) for _ in range(5)]
+            print(f"host cost a call of {op} at {tuple(x.shape)}, least of "
+                  f"5 x 200 calls: direct {min(direct_us):.1f} us (median "
+                  f"{statistics.median(direct_us):.1f}), custom op "
+                  f"{min(op_us):.1f} us (median "
+                  f"{statistics.median(op_us):.1f})", flush=True)
+
+    # cli.infer --bundle --aot_dir on a 512^2 city, from the packed
+    # artifact's single-scene runner
+    from fabric_tpu_torch.data.image import read_png_gray
+    from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from fabric_tpu_torch.infer.runner import load_scene
+    data = os.path.join(root, "aot_data")
+    cfg_c = Config(patch_size=PATCH, eval_batch_size=BATCH,
+                   dtype="bfloat16", model_base=BASE, dataset_dir=data,
+                   validation_cities=["alpha"])
+    generate_synthetic_dataset(data, cfg_c, cities=["alpha"],
+                               sizes=[(FLEET_SIDE, FLEET_SIDE)])
+    art = os.path.join(root, f"aot_pack{AOT_PACK}_bf16")
+    logs = os.path.join(root, "cli_logs")
+    cmd = [sys.executable, "-m", "fabric_tpu_torch.cli.infer", "--bundle",
+           bundles["none"], "--aot_dir", art, "--dataset_dir", data,
+           "--validation_cities", '["alpha"]', "--patch_size", str(PATCH),
+           "--eval_batch_size", str(BATCH), "--model_base", str(BASE),
+           "--dtype", "bfloat16", "--output_dir", os.path.join(root, "cli"),
+           "--log_dir", logs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                              os.path.abspath(__file__))))
+    if proc.returncode:
+        fail(f"cli.infer --bundle --aot_dir failed:\n{proc.stderr[-3000:]}")
+    scene = load_scene(cfg_c, "alpha")
+    want = pred.predict(scene[0], scene[1])
+    got = read_png_gray(os.path.join(root, "cli", "alpha_mask.png")) // 255
+    (run_dir,) = os.listdir(logs)
+    with open(os.path.join(logs, run_dir, "metrics.jsonl")) as fin:
+        (rec,) = [json.loads(line) for line in fin]
+    print(f"cli.infer --bundle --aot_dir: {time.perf_counter() - t0:.1f} s;"
+          f" mask == in-process: {np.array_equal(got, want)}; record aot "
+          f"{rec['serve_aot']}, mode {rec['serve_mode']}", flush=True)
+    if not np.array_equal(got, want) or rec["serve_aot"] is not True:
+        fail("cli.infer --bundle --aot_dir did not serve the artifact")
+    del pred
+    cold_starts(root, d1, d2, masks["none"])
+    return total
+
+
 _DP_WORKER = r"""
 import json, os, sys
 import numpy as np
@@ -3284,6 +3633,22 @@ def main() -> int:
         launches[name] += n
     print(f"sharded_serve phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # --- serving bundles and AOT artifacts ---
+    with tempfile.TemporaryDirectory(prefix="fabric_smoke_aot_") as root:
+        t0 = time.perf_counter()
+        _, bundles, served_masks, n = bundle_serve_phase(root, d1, d2, mask)
+        print(f"bundle_serve phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        for k, v in aot_serve_phase(root, d1, d2, bundles,
+                                    served_masks).items():
+            n[k] = n.get(k, 0) + v
+        print(f"aot_serve phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    for name, v in n.items():  # both int8 conv modes count for row 5b
+        key = "conv3x3_s8" if name == "conv3x3_s8_q" else name
+        launches[key] = launches.get(key, 0) + v
 
     # --- the training path, then its kernel and cross checks ---
     with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:

@@ -1,17 +1,20 @@
 """``python -m fabric_tpu_torch.cli.infer --config <json> --resume <ckpt>
 [--city X ...] [--quant int8] [--overlap_band_rows N] [--pack N|auto]
 [--fullconv_band_rows N [--fullconv_stream]] [--shard_scene]
-[--device cpu]``
+[--bundle <npz> [--aot_dir <dir>]] [--device cpu]``
 
 Whole-scene inference of dataset cities (counterpart of
 ``fabric_tpu/cli/infer.py``), for the bi-date model or a multi-date one
 (``--model unet_lstm|unet3d``, ``--num_dates T``): loads a checkpoint (for
 a directory, its best-metric save, else the latest), predicts each
 requested city (default: ``validation_cities``) and writes
-``<output_dir>/<city>_mask.png``.  Without ``--quant``, ``--pack``,
-``--overlap_band_rows`` or ``--fullconv_band_rows`` it runs the reference
-path (``infer/runner.infer_city`` on the unfolded eval forward, grid or
-``--infer_overlap``); with any of them it serves through ``ScenePredictor``
+``<output_dir>/<city>_mask.png``.  ``--bundle`` serves a serving bundle
+(``tools/export.py``) instead of a checkpoint (``--resume`` is then not
+needed), ``--aot_dir`` the runners frozen into an ahead-of-time artifact
+(``infer/aot.py``).  Without ``--quant``, ``--pack``,
+``--overlap_band_rows``, ``--fullconv_band_rows``, ``--bundle`` or
+``--aot_dir`` it runs the reference path (``infer/runner.infer_city`` on
+the unfolded eval forward, grid or ``--infer_overlap``); with any of them it serves through ``ScenePredictor``
 (BatchNorm folded; ``--quant int8`` calibrated on the first city;
 ``--overlap_band_rows`` accumulating overlap-mode probabilities in bands
 of N tile rows; ``--pack`` packing N same-bucket cities, or "auto" as many
@@ -37,12 +40,6 @@ import os
 import sys
 import time
 
-# fabric_tpu serving options the port does not have yet -> ROADMAP item
-_NOT_PORTED = {
-    "bundle": "11 (frozen artifacts and bundles)",
-    "aot_dir": "11 (frozen artifacts and bundles)",
-}
-
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
@@ -53,8 +50,9 @@ def main(argv=None) -> int:
                        help="int8 = post-training-quantized serving, "
                             "calibrated once on the first city")
     extra.add_argument("--bucket", type=int, default=512,
-                       help="int8, --pack, --overlap_band_rows, "
-                            "--fullconv_band_rows: scene dims pad up to "
+                       help="the serving path (int8, --pack, "
+                            "--overlap_band_rows, --fullconv_band_rows, "
+                            "--bundle, --aot_dir): scene dims pad up to "
                             "multiples of this")
     extra.add_argument("--overlap_band_rows", type=int, default=0,
                        help="overlap mode (--infer_overlap > 0), bi-date: "
@@ -77,19 +75,19 @@ def main(argv=None) -> int:
     extra.add_argument("--device", default=None, help="cuda (default) or cpu")
     extra.add_argument("--no_tracker", action="store_true",
                        help="write no serve_* records")
-    for opt in ("bundle", "aot_dir"):
-        extra.add_argument(f"--{opt}", default=None)
+    extra.add_argument("--bundle", default=None,
+                       help="serve this serving bundle (tools/export.py) "
+                            "instead of --resume")
+    extra.add_argument("--aot_dir", default=None,
+                       help="serve the runners frozen into this AOT "
+                            "artifact (infer/aot.py); buckets it lacks run "
+                            "in process")
     extra.add_argument("--shard_scene", action="store_true",
                        help="serve each scene as H-bands over the mesh's "
                             "data axis (memory per device ~1/N): grid, or "
                             "seamless sharded fullconv with "
                             "--fullconv_band_rows")
     own, rest = extra.parse_known_args(sys.argv[1:] if argv is None else argv)
-    for opt, item in _NOT_PORTED.items():
-        if getattr(own, opt) not in (None, False, "0"):
-            raise NotImplementedError(
-                f"--{opt} is not ported to fabric_tpu_torch yet: ROADMAP.md "
-                f"queue 1 item {item}")
 
     from fabric_tpu_torch.config import load_config
     from fabric_tpu_torch.data.download import ensure_dataset
@@ -100,8 +98,9 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "the spatial and model mesh axes are not ported to "
             "fabric_tpu_torch yet: ROADMAP.md queue 1 item 10c")
-    if not cfg.resume:
-        print("error: --resume <checkpoint> is required", file=sys.stderr)
+    if not cfg.resume and not own.bundle:
+        print("error: --resume <checkpoint> is required (or --bundle for "
+              "the serving path)", file=sys.stderr)
         return 2
     cfg.dataset_dir = ensure_dataset(cfg)
     tracker = None
@@ -131,21 +130,22 @@ def _serve(own, cfg, tracker) -> None:
 
     if (own.quant == "int8" or own.overlap_band_rows > 0 or own.pack
             or own.fullconv_band_rows > 0 or own.fullconv_stream
-            or own.shard_scene):
+            or own.shard_scene or own.bundle or own.aot_dir):
         mesh = None
-        if not (own.overlap_band_rows or own.pack
+        if not (own.overlap_band_rows or own.pack or own.aot_dir
                 or (own.fullconv_band_rows and not own.shard_scene)):
             on_card = resolve_device(own.device).type == "cuda"
             mesh = make_mesh_from_config(
                 cfg, None if on_card else
                 ["cpu"] * (cfg.mesh_data if cfg.mesh_data > 0 else 1))
-        pred = ScenePredictor(cfg, checkpoint=cfg.resume, bucket=own.bucket,
+        pred = ScenePredictor(cfg, checkpoint=cfg.resume or None,
+                              bundle=own.bundle, bucket=own.bucket,
                               device=own.device, quant=own.quant,
                               mesh=mesh, shard_scene=own.shard_scene,
                               overlap_band_rows=own.overlap_band_rows,
                               fullconv_band_rows=own.fullconv_band_rows,
                               fullconv_stream=own.fullconv_stream,
-                              tracker=tracker)
+                              aot_dir=own.aot_dir, tracker=tracker)
         predict_city = pred.predict_city
     else:
         path = ckpt.resolve(cfg.resume)

@@ -309,7 +309,8 @@ class Int8Blocks:
     """The int8 forward's conv sites and decoder, shared by every family.
 
     The weights are quantized, moved to the device and packed for the
-    kernel once, each with its scale product ``sw * sx`` in float32, sx
+    kernel once (on every device, so that an exported forward holds them
+    as constants), each with its scale product ``sw * sx`` in float32, sx
     the input's activation scale: a decoder conv1's two halves take the
     skip's (``skip_scales[block]``) and the concat range's, the UNetLSTM
     gate conv's halves ``enc.x5`` and ``lstm.h``; a conv that runs as its
@@ -345,8 +346,7 @@ class Int8Blocks:
             wq = wq.to(device)
             w[name] = {"wq": wq,
                        "k": torch.from_numpy(p["sw"]).to(device) * sx,
-                       "packed": (conv_s8.pack_weight(wq)
-                                  if device.type == "cuda" else None)}
+                       "packed": conv_s8.pack_weight(wq)}
             if "bias" in p:
                 w[name]["bias"] = torch.from_numpy(p["bias"]).to(device)
         for block in ("up1", "up2", "up3", "up4"):

@@ -2,8 +2,9 @@
 ``fabric_tpu/infer/service.py``: the tiled modes and seamless fullconv,
 exact or int8, for the bi-date model and the multi-date ones).
 
-Loads a checkpoint once (or initialises weights from a seed), folds
-BatchNorm on the host, and serves scenes of any size: each scene is
+Loads a checkpoint once (or initialises weights from a seed) and folds
+BatchNorm on the host, or loads a serving bundle's folded weights
+(``tools/export.py``), and serves scenes of any size: each scene is
 edge-padded up to the next multiple of ``bucket``, run through a tiler of
 ``infer/device_tiling.py`` on the device, and the mask is cropped back.
 One runner is built per bucket and reused.  The tiled modes are grid
@@ -26,13 +27,16 @@ later one.  A multi-date model (``cfg.model`` "unet_lstm" or "unet3d")
 serves (T, H, W, C) date stacks through :meth:`predict_multidate` and
 :meth:`predict_many_multidate`.
 
-Serving modes of ``fabric_tpu`` that this port does not have yet (AOT
-artifacts, bundles) raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+With ``aot_dir`` a covered bucket's runner calls the forward frozen in an
+ahead-of-time artifact (``infer/aot.py``: ``torch.export`` programs that
+call the kernels as custom ops), checked at start against this
+predictor's configuration and weights; a bucket the artifact lacks falls
+back to the in-process forward, on the same kernels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from collections import deque
@@ -41,6 +45,8 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch import checkpoint as ckpt
+from fabric_tpu_torch import weights
+from fabric_tpu_torch.infer import aot
 from fabric_tpu_torch.infer import fullconv
 from fabric_tpu_torch.infer import quant as q
 from fabric_tpu_torch.infer.device_tiling import (make_banded_overlap_infer,
@@ -80,17 +86,18 @@ class ScenePredictor:
     Args:
       cfg: Config (model, patch, eval batch, dtype, overlap, num_dates).
       checkpoint: a ``fabric_tpu`` checkpoint file, or a directory (its
-        best-metric save, else the latest); None draws fresh weights from
-        a generator seeded 0 (benchmarks, smoke runs).
+        best-metric save, else the latest); None (and no ``bundle``) draws
+        fresh weights from a generator seeded 0 (benchmarks, smoke runs).
       bucket: scene dims are edge-padded up to multiples of this (0 =
         exact shapes, one runner per distinct shape).
       fold_bn: fold BatchNorm into the conv weights (the conv kernels);
         False keeps eval BatchNorm: ``F.conv2d`` convs with the
         ``bn_relu_inference`` kernel as their epilogue.
       device: where the model runs; None means the card.
-      quant: None / "none" serves exactly; "int8" serves the int8 forward
-        (needs ``fold_bn``), calibrated with :meth:`calibrate` or, failing
-        that, on the first scene.
+      quant: "none" serves exactly; "int8" serves the int8 forward (needs
+        ``fold_bn``), calibrated with :meth:`calibrate` or, failing that,
+        on the first scene; None follows a bundle's mode (exact without
+        one).
       recalibrate_every: int8: re-derive the scales from every Nth scene
         (0 = calibrate once).  A recalibration rebuilds the int8 forward
         and drops the runners, so every later scene serves the new scales.
@@ -130,8 +137,21 @@ class ScenePredictor:
         * patch``), or with ``fullconv_band_rows`` seamless sharded
         fullconv (halos copied between the devices; buckets aligned to
         ``n * 256``); bi-date only.
-      aot_dir, bundle: ``fabric_tpu`` serving modes that are not ported
-        yet; anything but their default raises.
+      bundle: a serving bundle (``tools/export.py``, of either package)
+        instead of ``checkpoint``: its folded weights load as they are
+        (``model_base`` from its meta; ``n_channels`` and the model family
+        must match ``cfg``), and an int8 bundle's scales seed the int8
+        forward, with no calibration at serving time.
+      aot_dir: serve from an ahead-of-time artifact (``infer/aot.py``
+        ``export_aot``): a covered bucket's runner calls the loaded
+        program, masks bit-identical to the in-process runner's; a
+        missing bucket falls back to the in-process runner with a
+        warning.  Refused at
+        start when the artifact was frozen for another platform, model,
+        quant, dtype, bucket, dates, fullconv band rows or other weights;
+        int8 artifacts pin their scales (seeded from ``aot_meta.json``;
+        ``recalibrate_every`` must be 0 and :meth:`calibrate` is refused).
+        Single-device modes only (not streamed, not with a mesh).
     """
 
     def __init__(self, cfg, checkpoint: str | None = None, bucket: int = 512,
@@ -142,9 +162,10 @@ class ScenePredictor:
                  aot_dir=None, bundle=None, tracker=None):
         if quant not in (None, "none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
-        if aot_dir is not None or bundle is not None:
-            raise _not_ported("aot_dir / bundle serving",
-                              "11 (frozen artifacts and bundles)")
+        folded = scales = None
+        if bundle is not None:
+            folded, scales, cfg, quant = self._read_bundle(bundle, cfg,
+                                                           quant, fold_bn)
         if mesh is not None and max(mesh.shape["spatial"],
                                     mesh.shape["model"]) > 1:
             raise _not_ported("the spatial and model mesh axes",
@@ -218,21 +239,122 @@ class ScenePredictor:
                                       "serve folded with cfg.dtype="
                                       "'bfloat16'")
         variables = None
-        if checkpoint:
+        if checkpoint and folded is None:
             variables = ckpt.load_variables(ckpt.resolve(checkpoint))
         # folded serving upsamples align-corners, except in fullconv
         self.model = build_model(
             cfg, self.device, fold_bn=fold_bn, variables=variables,
+            folded=folded,
             local_upsample=bool(fullconv_band_rows) if fold_bn else None)
         # what the runners call: the model, or the int8 forward once the
         # scales exist; with a mesh, its replica on each device
         self._forward = self.model
         self._replicas = None
         self._runners: dict[tuple, object] = {}
+        self._aot_keys: set = set()  # runner keys served from aot_dir
         self._scales: dict | None = None
         self._stats_fwd = None
         self._scenes_predicted = 0
         self.last_clip_report: dict | None = None
+        if self.quant == "int8" and scales:
+            self._use_scales(scales)
+        self._init_aot(aot_dir)
+
+    @staticmethod
+    def _read_bundle(path: str, cfg, quant, fold_bn: bool):
+        """(folded params, int8 scales or None, cfg with the bundle's
+        ``model_base``, quant: None follows the bundle) of a serving
+        bundle, checked against ``cfg``."""
+        from fabric_tpu_torch.tools.export import load_bundle
+        folded, scales, meta = load_bundle(path)
+        if meta["n_channels"] != cfg.n_channels:
+            raise ValueError(f"bundle n_channels {meta['n_channels']} != "
+                             f"config {cfg.n_channels}")
+        model = meta.get("model", "bidate")
+        if model != cfg.model:
+            raise ValueError(f"bundle was exported from a {model!r} model; "
+                             f"config says {cfg.model!r}")
+        if meta.get("n_classes", cfg.n_classes) != cfg.n_classes:
+            raise ValueError(f"bundle n_classes {meta['n_classes']} != "
+                             f"config {cfg.n_classes}")
+        if not fold_bn:
+            raise ValueError("a bundle holds BatchNorm-folded weights: "
+                             "serve it with fold_bn=True")
+        cfg = dataclasses.replace(cfg, model_base=meta.get("model_base", 0))
+        log.info("loaded serving bundle %s (model=%s quant=%s)", path, model,
+                 meta.get("quant", "none"))
+        return (folded, scales, cfg,
+                quant if quant is not None else meta.get("quant", "none"))
+
+    def variables(self) -> dict:
+        """The served weights as ``fabric_tpu``'s variables tree:
+        ``{"params": folded, "batch_stats": {}}``, or unfolded the params
+        and the BatchNorm statistics (what ``aot.params_fingerprint``
+        hashes)."""
+        if self.model.fold_bn:
+            return {"params": q.folded_params(self.model), "batch_stats": {}}
+        params, stats = weights.variables_of(self.model)
+        return {"params": params, "batch_stats": stats}
+
+    def _init_aot(self, aot_dir) -> None:
+        """Check an AOT artifact against this predictor (platform, serving
+        configuration, weights) and seed an int8 artifact's pinned
+        scales."""
+        self.aot_dir = aot_dir
+        if not aot_dir:
+            return
+        if self.fullconv_stream or self.shard_scene or self.mesh is not None:
+            raise ValueError(
+                "aot_dir serves the single-device modes; streamed and "
+                "sharded runners do per-band host work and stay in-process "
+                "(the modes export_aot refuses)")
+        meta = aot.read_meta(aot_dir)
+        here = self.device.type
+        if meta.get("platforms") and here not in meta["platforms"]:
+            raise ValueError(
+                f"AOT artifact {aot_dir} was exported for platforms "
+                f"{meta['platforms']} but this predictor serves on {here!r}:"
+                f" re-export it with platforms=({here!r},) (tools/export.py "
+                f"--aot_platform {here})")
+        mine = {"model": self.cfg.model, "quant": self.quant,
+                "fullconv_band_rows": self.fullconv_band_rows,
+                "dtype": ("bfloat16" if self.dtype == torch.bfloat16
+                          else "float32"),
+                "bucket": self.bucket,
+                "num_dates": self.cfg.num_dates if self.multi_date else 0}
+        for field, value in mine.items():
+            if field in meta and meta[field] != value:
+                raise ValueError(
+                    f"AOT artifact {aot_dir} was frozen with {field}="
+                    f"{meta[field]!r}; this predictor uses {value!r}: its "
+                    f"masks would diverge from the artifact's")
+        # the programs hold the export-time weights: other weights would
+        # serve the frozen ones on covered buckets and the live ones on
+        # fallback buckets
+        frozen = meta.get("weights_sha256")
+        if frozen:
+            digest = aot.params_fingerprint(self.variables())
+            if digest != frozen:
+                raise ValueError(
+                    f"AOT artifact {aot_dir} was exported from different "
+                    f"weights (artifact sha256 {frozen[:12]}..., these "
+                    f"{digest[:12]}...): re-export it from the weights "
+                    f"being served (tools/export.py --aot_dir)")
+        else:
+            log.warning("AOT artifact %s records no weights fingerprint; "
+                        "cannot check that it matches these weights",
+                        aot_dir)
+        if self.quant == "int8":
+            if self.recalibrate_every > 0:
+                raise ValueError(
+                    "AOT int8 artifacts pin the calibration scales frozen "
+                    "at export; recalibrate_every > 0 would move the "
+                    "in-process scales away from them")
+            if not meta.get("int8_scales"):
+                raise ValueError(f"AOT artifact {aot_dir} is int8 but "
+                                 f"records no pinned scales (re-export it "
+                                 f"with infer/aot.export_aot)")
+            self._use_scales(meta["int8_scales"])
 
     # --- int8: calibration and the per-scene clip probe ---
 
@@ -248,20 +370,32 @@ class ScenePredictor:
         """Calibrate the int8 activation scales on (d1, d2) NHWC batch
         pairs, or for a multi-date model on (N, T, H, W, C) stacks (e.g.
         patches cropped from held-out scenes), and serve the int8 forward
-        with them from now on (the runners are rebuilt)."""
-        folded = q.folded_params(self.model)
-        scales = q.calibrate(folded, batches, self.dtype,
-                             stats_forward=self._stats_forward(),
+        with them from now on (the runners are rebuilt).  Refused when
+        serving an AOT artifact, whose scales are pinned."""
+        if self.aot_dir:
+            raise ValueError(
+                "this predictor serves an AOT artifact whose int8 scales "
+                "are pinned (aot_meta.json); recalibrating would move the "
+                "in-process math away from it: export a new artifact "
+                "instead (infer/aot.export_aot)")
+        scales = q.calibrate(q.folded_params(self.model), batches,
+                             self.dtype, stats_forward=self._stats_forward(),
                              model=self.cfg.model)
+        self._use_scales(scales)
+        # a scene served right after a calibration ran no probe: the last
+        # report (against the old scales) is not its own
+        self.last_clip_report = None
+
+    def _use_scales(self, scales: dict) -> None:
+        """Serve the int8 forward at ``scales`` from now on (the runners
+        are rebuilt)."""
         self._forward = q.make_int8_apply(
-            folded, scales, self.dtype,
+            q.folded_params(self.model), scales, self.dtype,
             local_upsample=self.model.local_upsample, model=self.cfg.model)
         self._scales = dict(scales)
         self._replicas = None
         self._runners.clear()
-        # a scene served right after a calibration ran no probe: the last
-        # report (against the old scales) is not its own
-        self.last_clip_report = None
+        self._aot_keys.clear()
 
     def _calibration_crops(self, d1, d2) -> tuple[np.ndarray, np.ndarray]:
         """Corner and centre patch crops of a scene pair, edge-padded up to
@@ -372,7 +506,9 @@ class ScenePredictor:
                       pipelined: bool = False, clip_report=_CLIP_UNSET,
                       packed: int = 0) -> None:
         """Stream one served scene's ``serve_*`` record through the tracker
-        (nothing without one)."""
+        (nothing without one); ``runner_key`` is the key of the runner that
+        served it (its ``aot`` field: whether that came from the
+        artifact)."""
         if self.tracker is None:
             return
         h, w = dims
@@ -385,7 +521,7 @@ class ScenePredictor:
             "mpx_per_sec": round(h * w / wall_s / 1e6, 3),
             "mode": self.serving_mode(),
             "quant": self.quant,
-            "aot": False,
+            "aot": runner_key in self._aot_keys,
         }
         if pipelined:
             # several scenes are in flight: this scene's wall clock
@@ -432,52 +568,81 @@ class ScenePredictor:
             self._replicas = replicas(self._forward, self.mesh.devices)
         return self._replicas
 
+    def _load_aot(self, key: tuple):
+        """The artifact's forward for a runner key, None (with a warning)
+        where the artifact lacks it or without ``aot_dir``."""
+        if not self.aot_dir:
+            return None
+        h, w = key[:2]
+        pack = key[2] if len(key) > 2 else 0
+        forward = aot.load_aot(self.aot_dir, h, w, pack=pack,
+                               device=self.device)
+        if forward is None:
+            log.warning("no AOT artifact for bucket %dx%d%s in %s; falling "
+                        "back to the in-process runner", h, w,
+                        f" pack {pack}" if pack else "", self.aot_dir)
+            return None
+        forward.local_upsample = self.model.local_upsample
+        self._aot_keys.add(key)
+        return forward
+
     def _get_runner(self, h: int, w: int):
         key = (h, w)
         if key not in self._runners:
-            cfg = self.cfg
-            common = dict(batch_size=cfg.eval_batch_size, dtype=self.dtype)
-            fwd = self._mesh_forward()
-            band = dict(band_rows=self.fullconv_band_rows, dtype=self.dtype,
-                        halo=fullconv.halo_for(cfg.model, cfg.num_dates))
-            if self.fullconv_stream:
-                # bands sliced from the host scene, padded virtually to
-                # the bucket: the mask of the in-device-memory runner
-                stream = dict(band, padded_shape=self._bucket_dims(h, w),
-                              device=self.device)
-                run = (fullconv.make_fullconv_scene_infer_multidate_streamed(
-                    self._forward, key, cfg.num_dates, **stream)
-                    if self.multi_date else
-                    fullconv.make_fullconv_scene_infer_streamed(
-                        self._forward, key, **stream))
-            elif self.shard_scene and self.fullconv_band_rows:
-                run = fullconv.make_sharded_fullconv_infer(
-                    fwd, key, self.mesh, **band)
-            elif self.shard_scene:
-                run = make_sharded_scene_infer(fwd, cfg.patch_size, key,
-                                               self.mesh, **common)
-            elif self.fullconv_band_rows:
-                run = (fullconv.make_fullconv_scene_infer_multidate(
-                    self._forward, key, cfg.num_dates, **band)
-                    if self.multi_date else
-                    fullconv.make_fullconv_scene_infer(self._forward, key,
-                                                       **band))
-            elif self.multi_date:
-                run = make_scene_infer_multidate(
-                    fwd, cfg.patch_size, key,
-                    num_dates=cfg.num_dates, overlap=cfg.infer_overlap,
-                    mesh=self.mesh, **common)
-            elif self.overlap_band_rows:
-                run = make_banded_overlap_infer(
-                    self._forward, cfg.patch_size, key,
-                    overlap=cfg.infer_overlap,
-                    band_tile_rows=self.overlap_band_rows, **common)
-            else:
-                run = make_scene_infer(fwd, cfg.patch_size, key,
-                                       overlap=cfg.infer_overlap,
-                                       mesh=self.mesh, **common)
-            self._runners[key] = run
+            self._runners[key] = self._in_process_runner(
+                h, w, forward=self._load_aot(key))
         return self._runners[key]
+
+    def _in_process_runner(self, h: int, w: int, forward=None):
+        """The runner of this predictor's mode for an (h, w) bucket, built
+        here around ``forward`` (an artifact's program), or None: the
+        predictor's forward (with a mesh, its replicas)."""
+        key = (h, w)
+        cfg = self.cfg
+        common = dict(batch_size=cfg.eval_batch_size, dtype=self.dtype)
+        if forward is None:
+            forward, fwd = self._forward, self._mesh_forward()
+        else:
+            fwd = forward
+        band = dict(band_rows=self.fullconv_band_rows, dtype=self.dtype,
+                    halo=fullconv.halo_for(cfg.model, cfg.num_dates))
+        if self.fullconv_stream:
+            # bands sliced from the host scene, padded virtually to
+            # the bucket: the mask of the in-device-memory runner
+            stream = dict(band, padded_shape=self._bucket_dims(h, w),
+                          device=self.device)
+            run = (fullconv.make_fullconv_scene_infer_multidate_streamed(
+                forward, key, cfg.num_dates, **stream)
+                if self.multi_date else
+                fullconv.make_fullconv_scene_infer_streamed(
+                    forward, key, **stream))
+        elif self.shard_scene and self.fullconv_band_rows:
+            run = fullconv.make_sharded_fullconv_infer(
+                fwd, key, self.mesh, **band)
+        elif self.shard_scene:
+            run = make_sharded_scene_infer(fwd, cfg.patch_size, key,
+                                           self.mesh, **common)
+        elif self.fullconv_band_rows:
+            run = (fullconv.make_fullconv_scene_infer_multidate(
+                forward, key, cfg.num_dates, **band)
+                if self.multi_date else
+                fullconv.make_fullconv_scene_infer(forward, key,
+                                                   **band))
+        elif self.multi_date:
+            run = make_scene_infer_multidate(
+                fwd, cfg.patch_size, key,
+                num_dates=cfg.num_dates, overlap=cfg.infer_overlap,
+                mesh=self.mesh, **common)
+        elif self.overlap_band_rows:
+            run = make_banded_overlap_infer(
+                forward, cfg.patch_size, key,
+                overlap=cfg.infer_overlap,
+                band_tile_rows=self.overlap_band_rows, **common)
+        else:
+            run = make_scene_infer(fwd, cfg.patch_size, key,
+                                   overlap=cfg.infer_overlap,
+                                   mesh=self.mesh, **common)
+        return run
 
     def _upload(self, slots, n: int | None = None):
         """Host arrays to the device: ``(device tensor, host buffer)``.
@@ -625,11 +790,20 @@ class ScenePredictor:
     def _get_packed_runner(self, ph: int, pw: int, pack: int):
         key = (ph, pw, pack, "packed")
         if key not in self._runners:
-            self._runners[key] = make_packed_scene_infer(
-                self._forward, self.cfg.patch_size, (ph, pw), pack,
-                batch_size=self.cfg.eval_batch_size, dtype=self.dtype,
-                num_dates=self.cfg.num_dates if self.multi_date else 0)
+            self._runners[key] = self._in_process_packed_runner(
+                ph, pw, pack, forward=self._load_aot(key))
         return self._runners[key]
+
+    def _in_process_packed_runner(self, ph: int, pw: int, pack: int,
+                                  forward=None):
+        """The fleet-packed runner of ``pack`` (ph, pw) scenes, built here
+        around ``forward`` (an artifact's program), or None: the
+        predictor's forward."""
+        return make_packed_scene_infer(
+            self._forward if forward is None else forward,
+            self.cfg.patch_size, (ph, pw), pack,
+            batch_size=self.cfg.eval_batch_size, dtype=self.dtype,
+            num_dates=self.cfg.num_dates if self.multi_date else 0)
 
     def _pack_for(self, pack, bkey: tuple[int, int]) -> int:
         """``pack``, or for "auto" the first pack that fills the tile batch
@@ -683,7 +857,8 @@ class ScenePredictor:
             host = masks.cpu().numpy()
             for slot, e in enumerate(entries):
                 results[e["idx"]] = host[slot, :e["h"], :e["w"]]
-                self._record_scene(e["sid"], (e["h"], e["w"]), bkey,
+                self._record_scene(e["sid"], (e["h"], e["w"]),
+                                   (*bkey, packs[bkey], "packed"),
                                    new_runner and slot == 0,
                                    time.perf_counter() - e["t0"],
                                    pipelined=True, clip_report=e["report"],

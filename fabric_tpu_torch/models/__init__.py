@@ -11,7 +11,8 @@ from fabric_tpu_torch.models.bidate import BiDateNet  # noqa: F401
 from fabric_tpu_torch.models.blocks import (  # noqa: F401
     DoubleConv, Down, OutConv, Up)
 from fabric_tpu_torch.models.unet3d import UNet3D  # noqa: F401
-from fabric_tpu_torch.models.unet_lstm import UNetLSTM  # noqa: F401
+from fabric_tpu_torch.models.unet_lstm import (  # noqa: F401
+    ConvLSTMCell, UNetLSTM)
 
 MULTI_DATE = ("unet_lstm", "unet3d")
 
@@ -23,7 +24,8 @@ def compute_dtype(cfg) -> torch.dtype:
 def build_model(cfg, device, generator: torch.Generator | None = None,
                 fold_bn: bool = True, variables: tuple | None = None,
                 train: bool = False,
-                local_upsample: bool | None = None) -> torch.nn.Module:
+                local_upsample: bool | None = None,
+                folded: dict | None = None) -> torch.nn.Module:
     """The ``cfg.model`` network (BiDateNet, base 64 by default; UNetLSTM,
     base 64; UNet3D, base 32) on ``device``.
 
@@ -40,6 +42,9 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     (``fabric_tpu/models/__init__.py:21-46``).  ``local_upsample`` (None:
     ``cfg.local_upsample``) gives the decoder the shift-invariant
     upsample that fullconv serving needs; it adds no parameter.
+    ``folded`` (instead of ``variables``): an already BatchNorm-folded
+    params tree, a serving bundle's, loaded as it is into the folded
+    model (``fold_bn`` must be True).
     ``cfg.sync_batchnorm`` is never read: in data-parallel training the
     batch statistics are the global batch's whatever it says
     (``models/blocks.BatchNorm``), and it logs ``fabric_tpu``'s warning."""
@@ -53,7 +58,10 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
         raise ValueError("a model built for training keeps BatchNorm: pass "
                          "fold_bn=False")
     base = cfg.model_base or (32 if cfg.model == "unet3d" else 64)
-    if variables is None:
+    if folded is not None and (variables is not None or not fold_bn):
+        raise ValueError("folded weights build a folded model, without "
+                         "variables")
+    if variables is None and folded is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         variables = weights.init_variables(cfg.n_channels, cfg.n_classes,
@@ -70,10 +78,15 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
         net = UNetLSTM if cfg.model == "unet_lstm" else UNet3D
         model = net(cfg.n_channels, cfg.n_classes, base, fold_bn=fold_bn,
                     dtype=dtype, local_upsample=local_upsample)
-    weights.load_variables(model, *variables)
+    if folded is not None:
+        weights.load_folded(model, folded)
+    else:
+        weights.load_variables(model, *variables)
     model.requires_grad_(train)
     model = model.to(device).train(train)
-    for m in model.modules():  # pack the folded kernels for the card once
+    for m in model.modules():  # pack the serving kernels' weights once
         if isinstance(m, DoubleConv) and m.fold_bn:
             m.packed_kernels()
+        elif isinstance(m, ConvLSTMCell) and m.exact_crops and not train:
+            m.signed_gates()
     return model

@@ -37,6 +37,16 @@ from fabric_tpu_torch.ops.resize import (pad_to_match,
                                         upsample2x_local)
 
 
+def weights_key(*tensors: torch.Tensor) -> tuple | None:
+    """(data_ptr, version) of each tensor: a cache made from them is stale
+    when this changes.  None while ``torch.export`` traces (the weights
+    are fake tensors then, and the cache made before the trace is what the
+    program holds)."""
+    if torch.compiler.is_exporting():
+        return None
+    return tuple((t.data_ptr(), t._version) for t in tensors)
+
+
 def _weight(*shape: int) -> nn.Parameter:
     """A frozen parameter; ``build_model(train=True)`` unfreezes them."""
     return nn.Parameter(torch.zeros(shape), requires_grad=False)
@@ -140,16 +150,14 @@ class DoubleConv(nn.Module):
             self.bn1 = BatchNorm(cout)
             self.bn2 = BatchNorm(cout)
 
-    def packed_kernels(self) -> tuple | None:
+    def packed_kernels(self) -> tuple:
         """The folded kernels packed for the conv kernels
-        (``conv_ops.pack_weight``), made at the first call on the card and
-        kept until the kernels change (in place or replaced); None on the
-        CPU, whose plain versions take the kernels as they are."""
+        (``conv_ops.pack_weight``), made at the first call and kept until
+        the kernels change (in place or replaced).  ``build_model`` makes
+        them, so that an exported program holds them as constants."""
         k1, k2 = self.conv1.kernel, self.conv2.kernel
-        if k1.device.type == "cpu":
-            return None
-        key = (k1.data_ptr(), k1._version, k2.data_ptr(), k2._version)
-        if getattr(self, "_packed_key", None) != key:
+        key = weights_key(k1, k2)
+        if key is not None and getattr(self, "_packed_key", None) != key:
             with torch.no_grad():
                 self._packed = (conv_ops.pack_weight(k1),
                                 conv_ops.pack_weight(k2))
@@ -167,9 +175,9 @@ class DoubleConv(nn.Module):
             if double_conv_ops.supports(h, w, cin, cout, cout):
                 return double_conv_ops.double_conv3x3_bias_relu(
                     x, c1.kernel, c1.bias, c2.kernel, c2.bias, packed)
-            p1, p2 = packed or (None, None)
-            x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias, p1)
-            return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias, p2)
+            x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias, packed[0])
+            return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias,
+                                              packed[1])
         for c, bn in ((c1, self.bn1), (c2, self.bn2)):
             if train:
                 x = torch.relu(bn(c(x))).to(x.dtype)

@@ -46,7 +46,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fabric_tpu_torch.models.blocks import Conv, DoubleConv, Down, OutConv, Up
+from fabric_tpu_torch.models.blocks import (Conv, DoubleConv, Down, OutConv,
+                                            Up, weights_key)
 from fabric_tpu_torch.ops import conv as conv_ops
 
 
@@ -78,15 +79,15 @@ class ConvLSTMCell(nn.Module):
         self.gates = Conv(cin + features, 4 * features)
 
     def signed_gates(self) -> tuple:
-        """([K, -K], [b, -b], their packed form on the card) for
-        :func:`signed_conv`, made once and again when the weights change."""
+        """([K, -K], [b, -b], the packed [K, -K]) for :func:`signed_conv`,
+        made once and again when the weights change (``build_model`` makes
+        them, so that an exported program holds them as constants)."""
         k, b = self.gates.kernel, self.gates.bias
-        key = (k.data_ptr(), k._version, b.data_ptr(), b._version)
-        if getattr(self, "_signed_key", None) != key:
+        key = weights_key(k, b)
+        if key is not None and getattr(self, "_signed_key", None) != key:
             with torch.no_grad():
                 kk, bb = torch.cat([k, -k], -1), torch.cat([b, -b])
-                self._signed = (kk, bb, None if k.device.type == "cpu"
-                                else conv_ops.pack_weight(kk))
+                self._signed = (kk, bb, conv_ops.pack_weight(kk))
             self._signed_key = key
         return self._signed
 

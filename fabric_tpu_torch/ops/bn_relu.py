@@ -98,17 +98,8 @@ def _check(x: torch.Tensor, vecs: tuple) -> int:
     return idx
 
 
-def bn_relu_inference(x: torch.Tensor, scale: torch.Tensor,
-                      bias: torch.Tensor, mean: torch.Tensor,
-                      var: torch.Tensor, eps: float = 1e-5,
-                      conv_bias: torch.Tensor | None = None) -> torch.Tensor:
-    """relu((z - mean) * scale / sqrt(var + eps) + bias) over the last
-    axis of an (N, H, W, C) tensor, z = x, or x + conv_bias rounded to x's
-    dtype; scale, bias, mean, var, conv_bias (C,) float32.  On the card C
-    is a multiple of 8."""
-    if x.device.type == "cpu":
-        return bn_relu_inference_reference(x, scale, bias, mean, var, eps,
-                                           conv_bias)
+def _launch(x, scale, bias, mean, var, eps, conv_bias) -> torch.Tensor:
+    """Validate and launch csrc/bn_relu.cu (counted)."""
     vecs = (scale, bias, mean, var) + (() if conv_bias is None
                                        else (conv_bias,))
     idx = _check(x, vecs)
@@ -125,6 +116,46 @@ def bn_relu_inference(x: torch.Tensor, scale: torch.Tensor,
         _build.check(lib, err, "bn_relu_inference")
         bn_relu_inference.launches += 1
     return out
+
+
+@torch.library.custom_op("fabric_tpu_torch::bn_relu_inference",
+                         mutates_args=(), device_types="cuda")
+def bn_relu_inference_op(x: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, mean: torch.Tensor,
+                         var: torch.Tensor, eps: float,
+                         conv_bias: torch.Tensor | None) -> torch.Tensor:
+    """The kernel as a custom op (what an exported program calls): the
+    launch on CUDA, the plain version on the CPU."""
+    return _launch(x, scale, bias, mean, var, eps, conv_bias)
+
+
+@bn_relu_inference_op.register_kernel("cpu")
+def _(x, scale, bias, mean, var, eps, conv_bias):
+    return bn_relu_inference_reference(x, scale, bias, mean, var, eps,
+                                       conv_bias)
+
+
+@bn_relu_inference_op.register_fake
+def _(x, scale, bias, mean, var, eps, conv_bias):
+    return torch.empty_like(x)
+
+
+def bn_relu_inference(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, mean: torch.Tensor,
+                      var: torch.Tensor, eps: float = 1e-5,
+                      conv_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """relu((z - mean) * scale / sqrt(var + eps) + bias) over the last
+    axis of an (N, H, W, C) tensor, z = x, or x + conv_bias rounded to x's
+    dtype; scale, bias, mean, var, conv_bias (C,) float32.  On the card C
+    is a multiple of 8.  Under ``torch.export`` the call is the custom
+    op."""
+    if torch.compiler.is_exporting():
+        return bn_relu_inference_op(x, scale, bias, mean, var, eps,
+                                    conv_bias)
+    if x.device.type == "cpu":
+        return bn_relu_inference_reference(x, scale, bias, mean, var, eps,
+                                           conv_bias)
+    return _launch(x, scale, bias, mean, var, eps, conv_bias)
 
 
 bn_relu_inference.launches = 0

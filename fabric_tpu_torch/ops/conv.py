@@ -177,14 +177,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
-                      bias: torch.Tensor,
-                      packed: torch.Tensor | None = None) -> torch.Tensor:
-    """relu(conv3x3_SAME(x, kernel) + bias).  x: (N, H, W, Cin); kernel:
-    (3, 3, Cin, Cout); bias: (Cout,); ``packed``: ``pack_weight(kernel)``,
-    made here when None.  Any H, W and channel counts."""
-    if x.device.type == "cpu":
-        return conv3x3_bias_relu_reference(x, kernel, bias)
+def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+            packed: torch.Tensor | None) -> torch.Tensor:
+    """Validate and launch csrc/conv3x3_bias_relu.cu (counted)."""
     check_operands(x, [kernel], [bias])
     if packed is None:
         packed = pack_weight(kernel)
@@ -203,6 +198,42 @@ def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
     _build.check(lib, err, "conv3x3_bias_relu")
     conv3x3_bias_relu.launches += 1
     return y
+
+
+@torch.library.custom_op("fabric_tpu_torch::conv3x3_bias_relu",
+                         mutates_args=(), device_types="cuda")
+def conv3x3_bias_relu_op(x: torch.Tensor, kernel: torch.Tensor,
+                         bias: torch.Tensor,
+                         packed: torch.Tensor | None) -> torch.Tensor:
+    """The kernel as a custom op (what an exported program calls): the
+    launch on CUDA, the plain version on the CPU."""
+    return _launch(x, kernel, bias, packed)
+
+
+@conv3x3_bias_relu_op.register_kernel("cpu")
+def _(x, kernel, bias, packed):
+    return conv3x3_bias_relu_reference(x, kernel, bias)
+
+
+@conv3x3_bias_relu_op.register_fake
+def _(x, kernel, bias, packed):
+    return x.new_empty(tuple(x.shape[:3]) + (kernel.shape[3],))
+
+
+def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
+                      bias: torch.Tensor,
+                      packed: torch.Tensor | None = None) -> torch.Tensor:
+    """relu(conv3x3_SAME(x, kernel) + bias).  x: (N, H, W, Cin); kernel:
+    (3, 3, Cin, Cout); bias: (Cout,); ``packed``: ``pack_weight(kernel)``,
+    made here when None.  Any H, W and channel counts.  Under
+    ``torch.export`` the call is the custom op; otherwise the launch (or
+    on the CPU the plain version) directly, without the dispatcher's
+    host cost."""
+    if torch.compiler.is_exporting():
+        return conv3x3_bias_relu_op(x, kernel, bias, packed)
+    if x.device.type == "cpu":
+        return conv3x3_bias_relu_reference(x, kernel, bias)
+    return _launch(x, kernel, bias, packed)
 
 
 conv3x3_bias_relu.launches = 0

@@ -247,19 +247,99 @@ def _launch(mode: str, x, wq, packed, out_dtype, scale=None, bias=None,
     return y
 
 
-def conv3x3_s8(x: torch.Tensor, wq: torch.Tensor,
-               packed: torch.Tensor | None = None) -> torch.Tensor:
-    """conv3x3_SAME(x, wq) -> int32.  x: (N, H, W, Cin) int8; wq: (3, 3,
-    Cin, Cout) int8; ``packed``: ``pack_weight(wq)``, made here when None.
-    Any H, W and channel counts."""
-    if x.device.type == "cpu":
-        return conv3x3_s8_reference(x, wq)
+def _launch_raw(x, wq, packed) -> torch.Tensor:
+    """The raw int32 conv on the card (counted)."""
     y = _launch("raw", x, wq, packed, torch.int32)
     conv3x3_s8.launches += 1
     return y
 
 
+@torch.library.custom_op("fabric_tpu_torch::conv3x3_s8", mutates_args=(),
+                         device_types="cuda")
+def conv3x3_s8_op(x: torch.Tensor, wq: torch.Tensor,
+                  packed: torch.Tensor | None) -> torch.Tensor:
+    """The raw kernel as a custom op (what an exported program calls): the
+    launch on CUDA, the plain version on the CPU."""
+    return _launch_raw(x, wq, packed)
+
+
+@conv3x3_s8_op.register_kernel("cpu")
+def _(x, wq, packed):
+    return conv3x3_s8_reference(x, wq)
+
+
+@conv3x3_s8_op.register_fake
+def _(x, wq, packed):
+    return x.new_empty(tuple(x.shape[:3]) + (wq.shape[3],),
+                       dtype=torch.int32)
+
+
+def conv3x3_s8(x: torch.Tensor, wq: torch.Tensor,
+               packed: torch.Tensor | None = None) -> torch.Tensor:
+    """conv3x3_SAME(x, wq) -> int32.  x: (N, H, W, Cin) int8; wq: (3, 3,
+    Cin, Cout) int8; ``packed``: ``pack_weight(wq)``, made here when None.
+    Any H, W and channel counts.  Under ``torch.export`` the call is the
+    custom op."""
+    if torch.compiler.is_exporting():
+        return conv3x3_s8_op(x, wq, packed)
+    if x.device.type == "cpu":
+        return conv3x3_s8_reference(x, wq)
+    return _launch_raw(x, wq, packed)
+
+
 conv3x3_s8.launches = 0
+
+
+def _launch_q(x, wq, scale, bias, s_out, packed, up, dtype) -> torch.Tensor:
+    """One int8 conv site on the card (counted)."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_s8_q computes in bfloat16 on the card, "
+                        f"got {dtype}")
+    if up is not None and s_out is None:
+        raise ValueError("the split form writes int8: give s_out")
+    mode = "bf16" if s_out is None else "int8" if up is None else "split"
+    inv = 0.0 if s_out is None else float(np.float32(1) / np.float32(s_out))
+    y = _launch(mode, x, wq, packed,
+                torch.bfloat16 if s_out is None else torch.int8, scale, bias,
+                inv, up)
+    conv3x3_s8_q.launches += 1
+    return y
+
+
+def _up(x_up, wq_up, scale_up, packed_up):
+    """The split form's second segment, or None."""
+    return None if x_up is None else (x_up, wq_up, scale_up, packed_up)
+
+
+@torch.library.custom_op("fabric_tpu_torch::conv3x3_s8_q", mutates_args=(),
+                         device_types="cuda")
+def conv3x3_s8_q_op(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, s_out: float | None,
+                    packed: torch.Tensor | None, x_up: torch.Tensor | None,
+                    wq_up: torch.Tensor | None,
+                    scale_up: torch.Tensor | None,
+                    packed_up: torch.Tensor | None,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """One int8 conv site as a custom op (what an exported program calls),
+    the split form's second segment as ``*_up`` (None without it): the
+    launch on CUDA, the plain version on the CPU."""
+    return _launch_q(x, wq, scale, bias, s_out, packed,
+                     _up(x_up, wq_up, scale_up, packed_up), dtype)
+
+
+@conv3x3_s8_q_op.register_kernel("cpu")
+def _(x, wq, scale, bias, s_out, packed, x_up, wq_up, scale_up, packed_up,
+      dtype):
+    return conv3x3_s8_q_reference(x, wq, scale, bias, s_out,
+                                  _up(x_up, wq_up, scale_up, packed_up),
+                                  dtype)
+
+
+@conv3x3_s8_q_op.register_fake
+def _(x, wq, scale, bias, s_out, packed, x_up, wq_up, scale_up, packed_up,
+      dtype):
+    return x.new_empty(tuple(x.shape[:3]) + (wq.shape[3],),
+                       dtype=dtype if s_out is None else torch.int8)
 
 
 def conv3x3_s8_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -275,21 +355,17 @@ def conv3x3_s8_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     ``up`` = (x_up, wq_up, scale_up, packed_up): the decoder's split form,
     h = relu(fma(a, scale, b * scale_up) + bias) with a and b the exact
     convs of (x, wq) and (x_up, wq_up) (int8 out only).  On the card the
-    compute dtype is bf16 (the kernel's)."""
+    compute dtype is bf16 (the kernel's).  Under ``torch.export`` the call
+    is the custom op."""
+    if torch.compiler.is_exporting():
+        x_up, wq_up, scale_up, packed_up = up or (None,) * 4
+        return conv3x3_s8_q_op(x, wq, scale, bias,
+                               None if s_out is None else float(s_out),
+                               packed, x_up, wq_up, scale_up, packed_up,
+                               dtype)
     if x.device.type == "cpu":
         return conv3x3_s8_q_reference(x, wq, scale, bias, s_out, up, dtype)
-    if dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3_s8_q computes in bfloat16 on the card, "
-                        f"got {dtype}")
-    if up is not None and s_out is None:
-        raise ValueError("the split form writes int8: give s_out")
-    mode = "bf16" if s_out is None else "int8" if up is None else "split"
-    inv = 0.0 if s_out is None else float(np.float32(1) / np.float32(s_out))
-    y = _launch(mode, x, wq, packed,
-                torch.bfloat16 if s_out is None else torch.int8, scale, bias,
-                inv, up)
-    conv3x3_s8_q.launches += 1
-    return y
+    return _launch_q(x, wq, scale, bias, s_out, packed, up, dtype)
 
 
 conv3x3_s8_q.launches = 0

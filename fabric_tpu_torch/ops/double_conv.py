@@ -102,16 +102,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
-                             b1: torch.Tensor, w2: torch.Tensor,
-                             b2: torch.Tensor,
-                             packed: tuple | None = None) -> torch.Tensor:
-    """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding.
-    x: (N, H, W, Cin); w1: (3, 3, Cin, Cmid); w2: (3, 3, Cmid, Cout);
-    ``packed``: ``(pack_weight(w1), pack_weight(w2))``, made here when
-    None.  On the card, raises where :func:`fits` fails."""
-    if x.device.type == "cpu":
-        return double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2)
+def _launch(x, w1, b1, w2, b2, w1pk, w2pk) -> torch.Tensor:
+    """Validate and launch csrc/double_conv3x3_bias_relu.cu (counted)."""
     check_operands(x, [w1, w2], [b1, b2])
     n, h, w, cin = x.shape
     cmid, cout = w1.shape[3], w2.shape[3]
@@ -121,8 +113,8 @@ def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
             f"double_conv3x3_bias_relu: a block of {h}x{w} images with "
             f"{cmid} intermediate channels does not fit {MAX_SMEM} bytes of "
             f"shared memory; run it as two conv3x3_bias_relu launches")
-    w1pk, w2pk = packed if packed is not None else (pack_weight(w1),
-                                                    pack_weight(w2))
+    if w1pk is None or w2pk is None:
+        w1pk, w2pk = pack_weight(w1), pack_weight(w2)
     check_packed(w1pk, w1)
     check_packed(w2pk, w2)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
@@ -138,6 +130,46 @@ def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
     _build.check(lib, err, "double_conv3x3_bias_relu")
     double_conv3x3_bias_relu.launches += 1
     return y
+
+
+@torch.library.custom_op("fabric_tpu_torch::double_conv3x3_bias_relu",
+                         mutates_args=(), device_types="cuda")
+def double_conv3x3_bias_relu_op(x: torch.Tensor, w1: torch.Tensor,
+                                b1: torch.Tensor, w2: torch.Tensor,
+                                b2: torch.Tensor,
+                                w1_packed: torch.Tensor | None,
+                                w2_packed: torch.Tensor | None
+                                ) -> torch.Tensor:
+    """The kernel as a custom op (what an exported program calls): the
+    launch on CUDA, the plain version on the CPU."""
+    return _launch(x, w1, b1, w2, b2, w1_packed, w2_packed)
+
+
+@double_conv3x3_bias_relu_op.register_kernel("cpu")
+def _(x, w1, b1, w2, b2, w1_packed, w2_packed):
+    return double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2)
+
+
+@double_conv3x3_bias_relu_op.register_fake
+def _(x, w1, b1, w2, b2, w1_packed, w2_packed):
+    return x.new_empty(tuple(x.shape[:3]) + (w2.shape[3],))
+
+
+def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
+                             b1: torch.Tensor, w2: torch.Tensor,
+                             b2: torch.Tensor,
+                             packed: tuple | None = None) -> torch.Tensor:
+    """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding.
+    x: (N, H, W, Cin); w1: (3, 3, Cin, Cmid); w2: (3, 3, Cmid, Cout);
+    ``packed``: ``(pack_weight(w1), pack_weight(w2))``, made here when
+    None.  On the card, raises where :func:`fits` fails.  Under
+    ``torch.export`` the call is the custom op."""
+    w1pk, w2pk = packed if packed is not None else (None, None)
+    if torch.compiler.is_exporting():
+        return double_conv3x3_bias_relu_op(x, w1, b1, w2, b2, w1pk, w2pk)
+    if x.device.type == "cpu":
+        return double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2)
+    return _launch(x, w1, b1, w2, b2, w1pk, w2pk)
 
 
 double_conv3x3_bias_relu.launches = 0

@@ -75,16 +75,8 @@ def _check(a: torch.Tensor, out_dtype) -> None:
                          f"multiple of 16, got {a.shape[-1]}")
 
 
-def siamese_fuse_s8(a: torch.Tensor, m: float, out_dtype=torch.int8,
-                    pool: bool = True):
-    """(f, p) of an int8 encoder level ``a`` (2n, H, W, C): f (n, H, W, C)
-    = float(relu(a[n + i] * a[i])) * float32(m), as int8 codes
-    clamp(round(f), 0, 127) for ``out_dtype`` int8, else rounded once to
-    ``out_dtype`` (bfloat16 or float32); p (2n, H // 2, W // 2, C) int8 the
-    2x2 max-pool of a when ``pool``, else None.  On the card C is a
-    multiple of 16."""
-    if a.device.type == "cpu":
-        return siamese_fuse_s8_reference(a, m, out_dtype, pool)
+def _launch(a: torch.Tensor, m: float, out_dtype, pool: bool):
+    """Validate and launch csrc/siamese_s8.cu (counted)."""
     _check(a, out_dtype)
     n2, h, w, c = a.shape
     f = torch.empty((n2 // 2, h, w, c), dtype=out_dtype, device=a.device)
@@ -100,6 +92,52 @@ def siamese_fuse_s8(a: torch.Tensor, m: float, out_dtype=torch.int8,
     _build.check(lib, err, "siamese_fuse_s8")
     siamese_fuse_s8.launches += 1
     return f, p
+
+
+def _no_pool(a: torch.Tensor) -> torch.Tensor:
+    """The op's stand-in for "no pool": a custom op returns tensors."""
+    return a.new_empty((0,))
+
+
+@torch.library.custom_op("fabric_tpu_torch::siamese_fuse_s8",
+                         mutates_args=(), device_types="cuda")
+def siamese_fuse_s8_op(a: torch.Tensor, m: float, out_dtype: torch.dtype,
+                       pool: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel as a custom op (what an exported program calls): the
+    launch on CUDA, the plain version on the CPU; without ``pool`` the
+    second output is empty."""
+    f, p = _launch(a, m, out_dtype, pool)
+    return f, _no_pool(a) if p is None else p
+
+
+@siamese_fuse_s8_op.register_kernel("cpu")
+def _(a, m, out_dtype, pool):
+    f, p = siamese_fuse_s8_reference(a, m, out_dtype, pool)
+    return f, _no_pool(a) if p is None else p
+
+
+@siamese_fuse_s8_op.register_fake
+def _(a, m, out_dtype, pool):
+    n2, h, w, c = a.shape
+    f = a.new_empty((n2 // 2, h, w, c), dtype=out_dtype)
+    return f, (a.new_empty((n2, h // 2, w // 2, c)) if pool
+               else _no_pool(a))
+
+
+def siamese_fuse_s8(a: torch.Tensor, m: float, out_dtype=torch.int8,
+                    pool: bool = True):
+    """(f, p) of an int8 encoder level ``a`` (2n, H, W, C): f (n, H, W, C)
+    = float(relu(a[n + i] * a[i])) * float32(m), as int8 codes
+    clamp(round(f), 0, 127) for ``out_dtype`` int8, else rounded once to
+    ``out_dtype`` (bfloat16 or float32); p (2n, H // 2, W // 2, C) int8 the
+    2x2 max-pool of a when ``pool``, else None.  On the card C is a
+    multiple of 16.  Under ``torch.export`` the call is the custom op."""
+    if torch.compiler.is_exporting():
+        f, p = siamese_fuse_s8_op(a, float(m), out_dtype, pool)
+        return f, (p if pool else None)
+    if a.device.type == "cpu":
+        return siamese_fuse_s8_reference(a, m, out_dtype, pool)
+    return _launch(a, m, out_dtype, pool)
 
 
 siamese_fuse_s8.launches = 0

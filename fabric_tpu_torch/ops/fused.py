@@ -46,10 +46,8 @@ def _kernel():
     return mul_relu_kernel
 
 
-def fused_mul_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """relu(a * b) for two tensors of one shape and dtype."""
-    if a.device.type == "cpu":
-        return fused_mul_relu_reference(a, b)
+def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Validate and launch the Triton kernel (counted)."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"expected two tensors on one CUDA device, got "
                          f"{a.device} and {b.device}")
@@ -67,6 +65,34 @@ def fused_mul_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                            num_warps=8)
         fused_mul_relu.launches += 1
     return out
+
+
+@torch.library.custom_op("fabric_tpu_torch::fused_mul_relu", mutates_args=(),
+                         device_types="cuda")
+def fused_mul_relu_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel as a custom op (what an exported program calls): the
+    launch on CUDA, the plain version on the CPU."""
+    return _launch(a, b)
+
+
+@fused_mul_relu_op.register_kernel("cpu")
+def _(a, b):
+    return fused_mul_relu_reference(a, b)
+
+
+@fused_mul_relu_op.register_fake
+def _(a, b):
+    return torch.empty_like(a)
+
+
+def fused_mul_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu(a * b) for two tensors of one shape and dtype.  Under
+    ``torch.export`` the call is the custom op."""
+    if torch.compiler.is_exporting():
+        return fused_mul_relu_op(a, b)
+    if a.device.type == "cpu":
+        return fused_mul_relu_reference(a, b)
+    return _launch(a, b)
 
 
 fused_mul_relu.launches = 0

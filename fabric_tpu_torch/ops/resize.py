@@ -53,12 +53,23 @@ def _interp_tensor(out_size: int, in_size: int, device: torch.device,
             device, dtype)
 
 
+def _interp(out_size: int, in_size: int, device: torch.device,
+            dtype: torch.dtype) -> torch.Tensor:
+    """The cached :func:`_interp_tensor`, except while ``torch.export``
+    traces: a tensor made there is the trace's, and must not outlive it in
+    the cache (the program holds the matrix as a constant instead)."""
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(_interp_matrix(out_size, in_size)).to(
+            device, dtype)
+    return _interp_tensor(out_size, in_size, device, dtype)
+
+
 def resize_align_corners(x: torch.Tensor, out_h: int,
                          out_w: int) -> torch.Tensor:
     """Bilinear align-corners resize of an (N, H, W, C) tensor."""
     _, h, w, _ = x.shape
-    wh = _interp_tensor(out_h, h, x.device, x.dtype)
-    ww = _interp_tensor(out_w, w, x.device, x.dtype)
+    wh = _interp(out_h, h, x.device, x.dtype)
+    ww = _interp(out_w, w, x.device, x.dtype)
     y = torch.einsum("nhwc,Hh->nHwc", x, wh)
     return torch.einsum("nhwc,Ww->nhWc", y, ww).contiguous()
 

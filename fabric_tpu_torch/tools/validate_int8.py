@@ -10,8 +10,8 @@ below the exact one, or its agreement below ``--min_agreement`` (default
 0.95), so the tool can gate a deployment.
 
     python -m fabric_tpu_torch.tools.validate_int8 --config metadata.json \
-        --resume ./outputs [--city X ...] [--max_f1_drop 0.01] \
-        [--device cpu]
+        --resume ./outputs | --bundle model_bundle.npz [--city X ...] \
+        [--max_f1_drop 0.01] [--device cpu]
 """
 
 from __future__ import annotations
@@ -34,22 +34,20 @@ def _scene_f1(mask: np.ndarray, label: np.ndarray) -> float:
 def validate(cfg, cities=None, max_f1_drop: float = 0.01,
              bundle: str | None = None, min_agreement: float = 0.95,
              device=None) -> tuple[list[dict], bool]:
-    """-> (per-city reports, ok).  ``ok`` is False if a city's int8 F1
+    """-> (per-city reports, ok), both predictors from ``bundle`` when
+    given, else from ``cfg.resume``.  ``ok`` is False if a city's int8 F1
     drops more than ``max_f1_drop`` below the exact one, or its mask
     agreement falls below ``min_agreement`` (which also gates cities whose
     label does not match the scene dims)."""
     from fabric_tpu_torch.data.oscd import load_label
     from fabric_tpu_torch.infer.service import ScenePredictor
 
-    if bundle:
-        raise NotImplementedError(
-            "validating a serving bundle is not ported to fabric_tpu_torch "
-            "yet: ROADMAP.md queue 1 item 11 (frozen artifacts and bundles)")
     cities = cities or cfg.validation_cities
-    exact = ScenePredictor(cfg, checkpoint=cfg.resume, quant="none",
-                           device=device)
-    q = ScenePredictor(cfg, checkpoint=cfg.resume, quant="int8",
-                       device=device)
+    # a bundle carries the folded weights (and an int8 bundle its scales),
+    # so both predictors can come from it
+    source = dict(bundle=bundle) if bundle else dict(checkpoint=cfg.resume)
+    exact = ScenePredictor(cfg, quant="none", device=device, **source)
+    q = ScenePredictor(cfg, quant="int8", device=device, **source)
     reports, ok = [], True
     for city in cities:
         m_ref = exact.predict_city(city)

@@ -109,7 +109,21 @@ def load_variables(model: torch.nn.Module, params: dict,
     """Copy a ``fabric_tpu`` variable tree into ``model`` (folded or not,
     as the model was built), checking that names and shapes agree."""
     fold_bn = getattr(model, "fold_bn", True)
-    state = state_dict(params, batch_stats, fold_bn)
+    _load_state(model, state_dict(params, batch_stats, fold_bn),
+                f"variables (fold_bn={fold_bn})")
+
+
+def load_folded(model: torch.nn.Module, folded: dict) -> None:
+    """Copy an already BatchNorm-folded params tree (a serving bundle's,
+    ``fabric_tpu``'s ``fold_batchnorm`` layout) into a folded ``model``,
+    as it is: no second fold."""
+    if not getattr(model, "fold_bn", True):
+        raise ValueError("a folded params tree loads into a model built "
+                         "with fold_bn=True")
+    _load_state(model, flatten_tree(folded), "the folded params")
+
+
+def _load_state(model: torch.nn.Module, state: dict, what: str) -> None:
     want = model.state_dict()
     missing = sorted(set(want) - set(state))
     extra = sorted(set(state) - set(want))
@@ -117,7 +131,7 @@ def load_variables(model: torch.nn.Module, params: dict,
                  if tuple(want[k].shape) != state[k].shape)
     if missing or extra or bad:
         raise ValueError(
-            f"variables do not match the model (fold_bn={fold_bn}): "
+            f"{what} do not match the model: "
             f"missing {missing[:5]}, unexpected {extra[:5]}, shape "
             + ", ".join(f"{k} {state[k].shape} vs {tuple(want[k].shape)}"
                         for k in bad[:5]))

@@ -55,7 +55,9 @@ def test_port_imports_no_jax_or_fabric_tpu():
             "fabric_tpu_torch.parallel",
             "fabric_tpu_torch.parallel.distributed",
             "fabric_tpu_torch.parallel.mesh",
-            "fabric_tpu_torch.utils.profiling"} <= set(modules)
+            "fabric_tpu_torch.utils.profiling",
+            "fabric_tpu_torch.tools.export",
+            "fabric_tpu_torch.infer.aot"} <= set(modules)
     assert _loaded_after(modules) == []
 
 

@@ -10,6 +10,7 @@ calibration forward."""
 
 import json
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -443,8 +444,14 @@ def test_validate_int8_gate(dataset, capsys):
     assert main(_cli_args(dataset) + ["--max_f1_drop", "-1.0"]) == 1
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert lines[0]["verdict"] == lines[-1]["summary"] == "FAIL"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        validate(dataset, bundle="b.npz", device="cpu")
+    # a serving bundle of the same checkpoint gives both predictors
+    from fabric_tpu_torch.tools.export import export_bundle
+    bundle = os.path.join(dataset.weight_dir, "..", "gate_bundle.npz")
+    export_bundle(dataset, dataset.weight_dir, bundle, device="cpu")
+    reports, ok = validate(dataset, bundle=bundle, max_f1_drop=1.0,
+                           min_agreement=0.0, device="cpu")
+    assert ok and [r["city"] for r in reports] == ["alpha"]
+    assert {"f1_bf16", "f1_int8", "mask_agreement"} <= set(reports[0])
 
 
 @pytest.mark.parametrize("quant", ["int8", None])
@@ -470,10 +477,23 @@ def test_cli_infer_writes_masks_and_records(dataset, tmp_path, quant):
 @pytest.mark.parametrize("flag", [["--bundle", "b.npz"],
                                   ["--aot_dir", "a"],
                                   ["--shard_scene", "--mesh_spatial", "2"]])
-def test_cli_infer_unported_options_raise(flag):
+def test_cli_infer_unported_options_raise(flag, dataset, tmp_path):
+    """--mesh_spatial > 1 is not ported (item 10c) and raises naming it;
+    --bundle and --aot_dir are (item 11): they reach the serving path,
+    which here finds no bundle and no artifact there
+    (tests/test_torch_export.py and tests/test_torch_aot.py serve real
+    ones)."""
     from fabric_tpu_torch.cli.infer import main
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(flag + ["--resume", "x"])
+    if "--mesh_spatial" in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            main(flag + ["--resume", "x"])
+        return
+    args = _cli_args(dataset) + ["--log_dir", str(tmp_path / "logs"),
+                                 flag[0], str(tmp_path / flag[1])]
+    with pytest.raises(FileNotFoundError,
+                       match="b.npz" if flag[0] == "--bundle"
+                       else "aot_meta.json"):
+        main(args)
 
 
 def test_unported_int8_families_raise(folded):
