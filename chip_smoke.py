@@ -76,6 +76,19 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   each in a fresh process, ``ScenePredictor`` plus the first predict of
   the 2048^2 pair from the checkpoint, the bundle and the bundle with its
   artifact;
+- the tools: a reference-layout torch checkpoint of seeded full-width
+  weights, bare and with ``module.``, imported on the card
+  (``tools.import_torch``) and served bit-equal to the same weights
+  through the weight bridge, launches equal; ``tools.ablate``'s stages
+  0-11 on the main path's first 256 tiles (stage 11 bit-equal to the
+  folded forward and to the served mask, one forward's launches), each
+  stage's ms and delta; ``tools.ablate_train``'s variants full, grad, fwd
+  and eval_fwd at patch 96, batch 128, bf16 (the step's split, launches
+  checked) and its space_to_depth and group_conv microbenches; one train
+  step with ``lane_pack`` and with ``lane_pack_bwd`` against the direct
+  step (fp32 and bf16 bounds, the packed convs counted) and their step
+  times; the int8 shift-conv microbench (the raw int8 conv kernel against
+  nine int8 GEMM launches, exact);
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -3225,6 +3238,367 @@ def aot_serve_phase(root: str, d1, d2, bundles: dict, masks: dict) -> dict:
     return total
 
 
+TOOL_ITERS = 5  # timed calls of each tool phase's measurement
+
+
+def tool_counters():
+    """The serving kernels' launch counters and the eval-BatchNorm and
+    int8 GEMM kernels'."""
+    from fabric_tpu_torch.ops import bn_relu, int8_matmul
+    return serve_counters() + (bn_relu.bn_relu_inference,
+                               int8_matmul.int8_matmul)
+
+
+def counted_tools(fn):
+    """(fn(), every kernel's launches in it), the counts zeroed just
+    before."""
+    counters = tool_counters()
+    zero_counts(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in read_counts(counters).items() if v}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def seeded_variables():
+    """The main path's seed-0 weights, with each BatchNorm's scale, bias
+    and running statistics drawn from RandomState(SEED) near their
+    defaults, so that every tensor a conversion maps differs from its
+    default while the mask stays two-class."""
+    from fabric_tpu_torch import weights
+
+    params, stats = weights.init_variables(
+        13, 2, BASE, torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    for level in weights.LEVELS:
+        p, s = params[level], stats[level]
+        if "conv1" not in p:
+            p, s = p["conv"], s["conv"]
+        for bn in ("bn1", "bn2"):
+            c = p[bn]["scale"].shape[0]
+            p[bn]["scale"] = rng.uniform(0.9, 1.1, c).astype(np.float32)
+            p[bn]["bias"] = (rng.randn(c) * 0.01).astype(np.float32)
+            s[bn]["mean"] = (rng.randn(c) * 0.01).astype(np.float32)
+            s[bn]["var"] = rng.uniform(0.9, 1.1, c).astype(np.float32)
+    return params, stats
+
+
+def reference_state_dict(params, stats) -> dict:
+    """The reference PyTorch BiDateNet's state_dict of a variable tree:
+    OIHW convs under ``inc.conv.conv.N``, ``downK.mpconv.1.conv.N``,
+    ``upK.conv.conv.N`` (N = 0, 3 the convs, 1, 4 their BatchNorms) and
+    ``outc.conv``."""
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(p["kernel"].transpose(3, 2, 0, 1)))
+        sd[f"{name}.bias"] = torch.from_numpy(p["bias"].copy())
+
+    def double(name, p, s):
+        for i, (c, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"))):
+            conv(f"{name}.{3 * i}", p[c])
+            b = f"{name}.{3 * i + 1}"
+            sd[f"{b}.weight"] = torch.from_numpy(p[bn]["scale"].copy())
+            sd[f"{b}.bias"] = torch.from_numpy(p[bn]["bias"].copy())
+            sd[f"{b}.running_mean"] = torch.from_numpy(s[bn]["mean"].copy())
+            sd[f"{b}.running_var"] = torch.from_numpy(s[bn]["var"].copy())
+            sd[f"{b}.num_batches_tracked"] = torch.tensor(1)
+
+    double("inc.conv.conv", params["inc"], stats["inc"])
+    for level in ("down1", "down2", "down3", "down4"):
+        double(f"{level}.mpconv.1.conv", params[level]["conv"],
+               stats[level]["conv"])
+    for level in ("up1", "up2", "up3", "up4"):
+        double(f"{level}.conv.conv", params[level]["conv"],
+               stats[level]["conv"])
+    conv("outc.conv", params["outc"]["conv"])
+    return sd
+
+
+def import_torch_phase(root: str, d1, d2) -> dict:
+    """A reference-layout torch checkpoint of seeded full-width weights,
+    saved bare and with DataParallel's ``module.`` prefix, imported on the
+    card (``tools.import_torch``) and served: the 2048^2 pair's masks
+    bit-equal to the same weights written through the weight bridge
+    (``weights.py``), with equal launches.  Returns the counted serves'
+    launches."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.tools.import_torch import import_checkpoint
+    from fabric_tpu_torch.train.state import create_state
+
+    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
+                 model_base=BASE)
+    params, stats = seeded_variables()
+    sd = reference_state_dict(params, stats)
+    dirs = {"weights.py": os.path.join(root, "bridge")}
+    ckpt.save(create_state(cfg, build_model(
+        cfg, "cuda", fold_bn=False, variables=(params, stats), train=True)),
+        dirs["weights.py"], epoch=0)
+    for prefix in ("", "module."):
+        pt = os.path.join(root, f"reference_{prefix or 'bare.'}pt")
+        torch.save({prefix + k: v for k, v in sd.items()}, pt)
+        name = f"import {prefix or 'bare'}"
+        dirs[name] = os.path.join(root, name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        import_checkpoint(pt, dirs[name], device="cuda")
+        print(f"import_torch {name} ({len(sd)} tensors, "
+              f"{os.path.getsize(pt) / 2**20:.1f} MiB): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    masks, launches, total = {}, {}, {}
+    for name, d in dirs.items():
+        pred = ScenePredictor(cfg, checkpoint=d, bucket=512, device="cuda")
+        pred.predict(d1, d2)  # the first call builds the runner
+        masks[name], launches[name] = counted_tools(
+            lambda: pred.predict(d1, d2))
+        add_counts(total, launches[name])
+        del pred
+    want = masks["weights.py"]
+    for name in dirs:
+        same = np.array_equal(masks[name], want)
+        print(f"import_torch serve of the {SCENE}^2 pair from {name}: == "
+              f"weight bridge: {same}; launches {launches[name]}; change "
+              f"share {masks[name].mean():.4f}", flush=True)
+        if not same or launches[name] != launches["weights.py"]:
+            fail(f"the checkpoint from {name} does not serve as the weight "
+                 "bridge's")
+    if want.shape != (SCENE, SCENE) or set(np.unique(want)) != {0, 1}:
+        fail(f"the import_torch mask is not a two-class {SCENE}^2 mask")
+    return total
+
+
+def grid_tiles(d, rows: int) -> torch.Tensor:
+    """The first ``rows`` rows of PATCH^2 grid tiles of an (H, W, C)
+    scene, row-major, as the grid runner cuts them, on the card."""
+    t = torch.from_numpy(d[:rows * PATCH]).cuda()
+    cols = d.shape[1] // PATCH
+    return t.reshape(rows, PATCH, cols, PATCH, -1).permute(
+        0, 2, 1, 3, 4).reshape(rows * cols, PATCH, PATCH, -1)
+
+
+def ablate_phase(model, d1, d2, mask, forward_ms: float,
+                 kernels_ms: float, per_forward: dict) -> dict:
+    """``tools.ablate``'s stages 0-11 of the main path's folded model on
+    its first BATCH tiles of the 2048^2 pair: stage 11's mask bit-equal to
+    the model's forward and to the served mask on those tiles, its
+    launches one forward's; each stage's ms (TOOL_ITERS calls) and its
+    delta.  Returns the phase's launches."""
+    from fabric_tpu_torch.tools.ablate import build_functional, time_stage
+
+    names = ("input", "+inc", "+down1", "+down2", "+down3", "+down4",
+             "+fusion", "+up1", "+up2", "+up3", "+up4", "+head/argmax")
+    rows = BATCH * PATCH // SCENE
+    t1, t2 = grid_tiles(d1, rows), grid_tiles(d2, rows)
+    served = torch.from_numpy(np.ascontiguousarray(mask[:rows * PATCH])) \
+        .reshape(rows, PATCH, SCENE // PATCH, PATCH).permute(0, 2, 1, 3) \
+        .reshape(BATCH, PATCH, PATCH).cuda()
+    stages = build_functional(model)
+    total = {}
+    with torch.inference_mode():
+        got, n = counted_tools(lambda: stages(t1, t2, 11, return_last=True))
+        forward = model(t1, t2).argmax(-1).to(torch.uint8)
+        add_counts(total, n)
+        print(f"ablate stage 11 on the first {BATCH} tiles: == the folded "
+              f"forward: {torch.equal(got, forward)}; == the served mask "
+              f"on those tiles: {torch.equal(got, served)}; launches {n} "
+              f"(one serving forward: {per_forward})", flush=True)
+        if not torch.equal(got, forward) or not torch.equal(got, served):
+            fail("ablate's stage 11 is not the serving forward")
+        if n != per_forward:
+            fail("ablate's stage 11 did not launch one forward's kernels")
+        ms = []
+        (_, n) = counted_tools(lambda: [ms.append(time_stage(
+            stages, t1, t2, s, TOOL_ITERS, torch.device("cuda"))[0])
+            for s in range(12)])
+        add_counts(total, n)
+    for s, name in enumerate(names):
+        delta = ms[s] - (ms[s - 1] if s else 0.0)
+        print(f"ablate stage {s:2d} {name:13s} {ms[s]:7.3f} ms  delta "
+              f"{delta:+7.3f} ms", flush=True)
+    print(f"ablate stage 11 (a {BATCH}-tile forward, batch {BATCH}, patch "
+          f"{PATCH}): {ms[11]:.3f} ms; the runner's forward "
+          f"{forward_ms:.3f} ms; kernels per forward {kernels_ms:.3f} ms",
+          flush=True)
+    print("ablate_stages " + json.dumps({
+        "batch": BATCH, "patch": PATCH, "iters": TOOL_ITERS,
+        "ms": [round(m, 4) for m in ms],
+        "delta_ms": [round(m - (ms[i - 1] if i else 0.0), 4)
+                     for i, m in enumerate(ms)]}), flush=True)
+    return total
+
+
+def ablate_train_phase() -> dict:
+    """``tools.ablate_train`` at patch T_PATCH, batch T_BATCH, bf16, full
+    width: the variants full, grad, fwd and eval_fwd (each launch count
+    checked: the fusion kernel in every forward, the eval-BatchNorm kernel
+    in eval_fwd's alone) and the step's split; the space_to_depth and
+    group_conv microbenches.  Returns the phase's launches."""
+    from fabric_tpu_torch.tools.ablate_train import (
+        microbench_group_conv, microbench_space_to_depth, time_variant)
+
+    total, recs = {}, {}
+    calls = TOOL_ITERS + 1
+    for variant in ("full", "grad", "fwd", "eval_fwd"):
+        recs[variant], n = counted_tools(lambda: time_variant(
+            variant, T_BATCH, T_PATCH, TOOL_ITERS, "bfloat16",
+            device="cuda"))
+        add_counts(total, n)
+        want = {"fused_mul_relu": 5 * calls}
+        if variant == "eval_fwd":
+            want["bn_relu_inference"] = 18 * calls
+        print(f"ablate_train {json.dumps(recs[variant])}; launches {n}",
+              flush=True)
+        if n != want:
+            fail(f"the {variant} variant launched {n}, expected {want}")
+    ms = {v: r["step_ms"] for v, r in recs.items()}
+    print(f"ablate_train split of the bf16 step (batch {T_BATCH}, patch "
+          f"{T_PATCH}): full {ms['full']:.2f} ms = optimizer + metrics "
+          f"(full - grad) {ms['full'] - ms['grad']:.2f} + backward (grad - "
+          f"fwd) {ms['grad'] - ms['fwd']:.2f} + train-mode BatchNorm "
+          f"(fwd - eval_fwd) {ms['fwd'] - ms['eval_fwd']:.2f} + the eval "
+          f"forward and loss {ms['eval_fwd']:.2f}", flush=True)
+    s2d = microbench_space_to_depth(T_BATCH, T_PATCH, TOOL_ITERS,
+                                    "bfloat16", 64, 64, "cuda")
+    group = microbench_group_conv(T_BATCH, T_PATCH, TOOL_ITERS, "bfloat16",
+                                  "cuda")
+    print(f"ablate_train {json.dumps(s2d)}", flush=True)
+    print(f"ablate_train {json.dumps(group)}", flush=True)
+    # bf16 outputs of ~0.5 at most: 4 ulps of 2^-8
+    if not s2d["max_abs_err"] <= 2.0 ** -6:
+        fail("the space-to-depth conv disagrees with the direct conv")
+    return total
+
+
+LANE_PACK_LOSS_RTOL = 1e-3   # bf16 loss, lane_pack against direct
+LANE_PACK_NOISE = 1.25       # bf16 gradients: at most this many times as
+                             # far from the fp32 step as direct bf16's
+LANE_PACK_FP32 = 0.02        # fp32 gradients: relative L2 to direct
+
+
+def lane_pack_phase() -> dict:
+    """One BiDateNet train step (tversky, full width, patch T_PATCH, batch
+    T_BATCH, seed-0 weights and batch) with ``lane_pack`` and with
+    ``lane_pack_bwd`` against the direct step: in fp32 the gradients
+    within LANE_PACK_FP32 relative L2 and the loss within 1e-5; in bf16 the
+    loss within LANE_PACK_LOSS_RTOL and the gradients no farther from the
+    fp32 direct step than LANE_PACK_NOISE times the bf16 direct step's
+    distance (bf16 gradients at initialisation sit far from fp32's either
+    way: the bound is relative to that floor).  The packed convs counted
+    (4 a forward: inc's and up4's; with lane_pack_bwd the dgrads the gate
+    admits too, 2 at base 64).  Then ``time_variant`` of full, full_lane_pack,
+    full_lane_pack_bwd and full again.  Returns the phase's launches."""
+    from fabric_tpu_torch import Config, weights
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.ops import s2d_conv
+    from fabric_tpu_torch.tools.ablate_train import _data, time_variant
+
+    variables = weights.init_variables(
+        13, 2, BASE, torch.Generator().manual_seed(SEED))
+    data = _data(T_BATCH, T_PATCH, "cuda")
+    packed_calls = [0]
+    direct_s2d = s2d_conv.s2d_conv3x3
+
+    def counting_s2d(*a, **k):
+        packed_calls[0] += 1
+        return direct_s2d(*a, **k)
+
+    def step(dtype, mode):
+        cfg = Config(model_base=BASE, patch_size=T_PATCH,
+                     batch_size=T_BATCH, dtype=dtype,
+                     lane_pack=mode != "direct",
+                     lane_pack_bwd=mode == "lane_pack_bwd")
+        model = build_model(cfg, "cuda", fold_bn=False, variables=variables,
+                            train=True)
+        packed_calls[0] = 0
+        s2d_conv.s2d_conv3x3 = counting_s2d
+        try:
+            loss = get_loss_fn(cfg)(model(data["img1"], data["img2"],
+                                          train=True), data["label"],
+                                    weights=data["weight"])
+            loss.backward()
+        finally:
+            s2d_conv.s2d_conv3x3 = direct_s2d
+        # the 4 forwards, and with lane_pack_bwd the dgrads of inc.conv2,
+        # up4.conv1 and up4.conv2 that the gate admits (at base 64 not
+        # up4.conv1's: 128 output channels); inc.conv1's is not needed,
+        # its input being the image
+        bwd = sum(s2d_conv.supports(T_PATCH, T_PATCH, 0, c)
+                  for c in (BASE, 2 * BASE, BASE))
+        want = {"direct": 0, "lane_pack": 4, "lane_pack_bwd": 4 + bwd}[mode]
+        if packed_calls[0] != want:
+            fail(f"{mode} ran {packed_calls[0]} packed convs, expected "
+                 f"{want}")
+        return loss.item(), {n: p.grad.float() for n, p in
+                             model.named_parameters()}
+
+    def dist(a, b):
+        num = sum(((a[k] - b[k]) ** 2).sum() for k in b)
+        return (num / sum((b[k] ** 2).sum() for k in b)).sqrt().item()
+
+    def run():
+        ref = step("float32", "direct")
+        bf = step("bfloat16", "direct")
+        floor = dist(bf[1], ref[1])
+        print(f"lane_pack: direct bf16 step against fp32: loss rel "
+              f"{abs(bf[0] - ref[0]) / abs(ref[0]):.3g}, gradients rel L2 "
+              f"{floor:.4f} (the bf16 floor)", flush=True)
+        for mode in ("lane_pack", "lane_pack_bwd"):
+            f32 = step("float32", mode)
+            got = step("bfloat16", mode)
+            loss32 = abs(f32[0] - ref[0]) / abs(ref[0])
+            loss16 = abs(got[0] - bf[0]) / abs(bf[0])
+            g32, g16 = dist(f32[1], ref[1]), dist(got[1], ref[1])
+            print(f"lane_pack {mode}: fp32 loss rel {loss32:.3g}, "
+                  f"gradients rel L2 {g32:.4g} (bound {LANE_PACK_FP32}); "
+                  f"bf16 loss rel to direct bf16 {loss16:.3g} (bound "
+                  f"{LANE_PACK_LOSS_RTOL}), gradients rel L2 to fp32 "
+                  f"{g16:.4f} (bound {LANE_PACK_NOISE} x {floor:.4f})",
+                  flush=True)
+            if (loss32 > 1e-5 or g32 > LANE_PACK_FP32
+                    or loss16 > LANE_PACK_LOSS_RTOL
+                    or g16 > LANE_PACK_NOISE * floor):
+                fail(f"the {mode} step disagrees with the direct step")
+        return [time_variant(v, T_BATCH, T_PATCH, TOOL_ITERS, "bfloat16",
+                             device="cuda")
+                for v in ("full", "full_lane_pack", "full_lane_pack_bwd",
+                          "full")]
+
+    recs, n = counted_tools(run)
+    for r in recs:
+        print(f"lane_pack {json.dumps(r)}", flush=True)
+    print(f"lane_pack step (bf16, batch {T_BATCH}, patch {T_PATCH}): direct "
+          f"{recs[0]['step_ms']:.2f}, {recs[3]['step_ms']:.2f} ms; lane_pack "
+          f"{recs[1]['step_ms']:.2f} ms; lane_pack_bwd "
+          f"{recs[2]['step_ms']:.2f} ms; launches {n}", flush=True)
+    return n
+
+
+def int8_shift_conv_phase() -> dict:
+    """``tools.ablate_train --microbench int8_shift_conv`` at batch
+    T_BATCH, patch T_PATCH, 128 -> 128 channels: the raw ``conv3x3_s8``
+    kernel against nine ``int8_matmul`` launches, exact, with both times
+    and the launches checked.  Returns them."""
+    from fabric_tpu_torch.tools.ablate_train import (
+        microbench_int8_shift_conv)
+
+    rec, n = counted_tools(lambda: microbench_int8_shift_conv(
+        T_BATCH, T_PATCH, TOOL_ITERS, 128, 128, "cuda"))
+    want = {"conv3x3_s8": TOOL_ITERS + 2, "int8_matmul": 9 * (TOOL_ITERS + 2)}
+    print(f"ablate_train {json.dumps(rec)}; launches {n} (expected {want})",
+          flush=True)
+    if rec["exact"] is not True or n != want:
+        fail("the int8 shift conv is not exact or did not run as planned")
+    return n
+
+
 _DP_WORKER = r"""
 import json, os, sys
 import numpy as np
@@ -3584,15 +3958,16 @@ def main() -> int:
     run = pred._get_runner(SCENE, SCENE)
     fwd_ms = device_ms(lambda: run(a1, a2), 3)
     mpx = SCENE * SCENE / 1e6
-    per_forward = {}
+    per_forward_ms = {}
     for row in rows:
-        per_forward[row["name"]] = per_forward.get(row["name"], 0) + row["ms"]
+        per_forward_ms[row["name"]] = (per_forward_ms.get(row["name"], 0)
+                                       + row["ms"])
     print(f"end to end {SCENE}^2: predict {wall * 1e3:.1f} ms median of "
           f"{[round(w * 1e3, 1) for w in walls]} = {mpx / wall:.2f} Mpx/s "
           f"(host pad/upload/read-back included); device-resident runner "
           f"{fwd_ms:.1f} ms = {mpx / fwd_ms * 1e3:.2f} Mpx/s; kernels per "
           f"{BATCH}-tile forward "
-          f"{sum(per_forward.values()):.2f} ms of "
+          f"{sum(per_forward_ms.values()):.2f} ms of "
           f"{fwd_ms / (SCENE * SCENE / (PATCH * PATCH) / BATCH):.2f} ms",
           flush=True)
 
@@ -3646,6 +4021,20 @@ def main() -> int:
             n[k] = n.get(k, 0) + v
         print(f"aot_serve phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+    # --- the tools: import_torch, ablate, ablate_train, lane_pack ---
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fabric_smoke_tools_") as root:
+        add_counts(n, import_torch_phase(root, d1, d2))
+    per_forward = {k: v // n_forwards for k, v in expected.items()}
+    add_counts(n, ablate_phase(pred.model, d1, d2, mask,
+                               fwd_ms * BATCH * PATCH * PATCH
+                               / (SCENE * SCENE),
+                               sum(per_forward_ms.values()), per_forward))
+    add_counts(n, ablate_train_phase())
+    add_counts(n, lane_pack_phase())
+    add_counts(n, int8_shift_conv_phase())
+    print(f"tool phases: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, v in n.items():  # both int8 conv modes count for row 5b
         key = "conv3x3_s8" if name == "conv3x3_s8_q" else name
         launches[key] = launches.get(key, 0) + v
@@ -3673,7 +4062,8 @@ def main() -> int:
         print(f"multi-date training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
     rows += bn_rows
-    launches["bn_relu_inference"] = t_launches["bn_relu_inference"]
+    launches["bn_relu_inference"] = (launches.get("bn_relu_inference", 0)
+                                     + t_launches["bn_relu_inference"])
 
     sources = {
         "conv3x3_bias_relu": ("cuda",
@@ -3716,17 +4106,18 @@ def main() -> int:
     print("per-kernel ms, plain_ms, bound_ms and library_ms are summed over "
           f"the kernel's launches in one forward: {BATCH} serving tiles at "
           f"patch {PATCH} for the conv and fusion kernels (launches: the "
-          f"serve and the sharded serve), {T_BATCH} eval tiles at patch "
-          f"{T_PATCH} in bf16 for "
-          f"bn_relu_inference (its conv-bias form; launches: the training "
-          f"run, {evals} eval forwards), one int8 forward of {BATCH} tiles "
-          "for conv3x3_s8 (its 18 fused sites; launches: the int8 serve "
-          "and the sharded int8 serve; no "
+          f"serve, the sharded serve, the bundle and AOT serves and the "
+          f"tool phases), {T_BATCH} eval tiles at patch {T_PATCH} in bf16 "
+          f"for bn_relu_inference (its conv-bias form; launches: the "
+          f"training run, {evals} eval forwards, and ablate_train's "
+          f"eval_fwd), one int8 forward of {BATCH} tiles "
+          "for conv3x3_s8 (its 18 fused sites; launches: the int8 serves "
+          "and the int8 shift-conv microbench's raw launches; no "
           "PyTorch call computes an int8 conv) and siamese_fuse_s8 (its 5 "
-          "levels; launches: the int8 serve and the sharded int8 serve; no "
-          "single PyTorch call "
+          "levels; launches: the int8 serves; no single PyTorch call "
           "computes it), the int8 form at 131072 x 512 x 512 for "
-          "int8_matmul (library: torch._int_mm; launches: the microbench)")
+          "int8_matmul (library: torch._int_mm; launches: its microbench "
+          "and the shift-conv microbench)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -45,6 +45,9 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     ``folded`` (instead of ``variables``): an already BatchNorm-folded
     params tree, a serving bundle's, loaded as it is into the folded
     model (``fold_bn`` must be True).
+    ``cfg.lane_pack`` / ``cfg.lane_pack_bwd`` (space-to-depth convs,
+    ``ops/s2d_conv.py``) reach BiDateNet only, as in ``fabric_tpu``; a
+    folded model serves on the conv kernels whatever they say.
     ``cfg.sync_batchnorm`` is never read: in data-parallel training the
     batch statistics are the global batch's whatever it says
     (``models/blocks.BatchNorm``), and it logs ``fabric_tpu``'s warning."""
@@ -73,7 +76,9 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
         model = BiDateNet(cfg.n_channels, cfg.n_classes, base,
                           fold_bn=fold_bn, dtype=dtype,
                           joint_date_batchnorm=not cfg.per_date_batchnorm,
-                          remat=cfg.remat, local_upsample=local_upsample)
+                          remat=cfg.remat, local_upsample=local_upsample,
+                          lane_pack=cfg.lane_pack,
+                          lane_pack_bwd=cfg.lane_pack_bwd)
     else:
         net = UNetLSTM if cfg.model == "unet_lstm" else UNet3D
         model = net(cfg.n_channels, cfg.n_classes, base, fold_bn=fold_bn,

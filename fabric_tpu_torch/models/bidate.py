@@ -20,6 +20,11 @@ stage again in the backward pass (``torch.utils.checkpoint``): activation
 memory for a third more convolution work.  The repeated forward leaves
 the BatchNorm running averages alone, so they move once a step, as
 without remat.
+
+``lane_pack`` / ``lane_pack_bwd`` reach every DoubleConv block
+(``models/blocks.py``): an unfolded model lane-packs the convs that
+``ops/s2d_conv.supports`` admits; a folded one serves on the conv
+kernels either way.
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ class BiDateNet(nn.Module):
                  base: int = 64, fold_bn: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
                  joint_date_batchnorm: bool = True, remat: bool = False,
-                 local_upsample: bool = False):
+                 local_upsample: bool = False, lane_pack: bool = False,
+                 lane_pack_bwd: bool = False):
         super().__init__()
         self.local_upsample = local_upsample
         self.fold_bn = fold_bn
@@ -68,15 +74,16 @@ class BiDateNet(nn.Module):
         self.joint_date_batchnorm = joint_date_batchnorm
         self.remat = remat
         b = base
-        self.inc = DoubleConv(n_channels, b, fold_bn)
-        self.down1 = Down(b, 2 * b, fold_bn)
-        self.down2 = Down(2 * b, 4 * b, fold_bn)
-        self.down3 = Down(4 * b, 8 * b, fold_bn)
-        self.down4 = Down(8 * b, 8 * b, fold_bn)
-        self.up1 = Up(16 * b, 4 * b, fold_bn, local_upsample)
-        self.up2 = Up(8 * b, 2 * b, fold_bn, local_upsample)
-        self.up3 = Up(4 * b, b, fold_bn, local_upsample)
-        self.up4 = Up(2 * b, b, fold_bn, local_upsample)
+        lp = dict(lane_pack=lane_pack, lane_pack_bwd=lane_pack_bwd)
+        self.inc = DoubleConv(n_channels, b, fold_bn, **lp)
+        self.down1 = Down(b, 2 * b, fold_bn, **lp)
+        self.down2 = Down(2 * b, 4 * b, fold_bn, **lp)
+        self.down3 = Down(4 * b, 8 * b, fold_bn, **lp)
+        self.down4 = Down(8 * b, 8 * b, fold_bn, **lp)
+        self.up1 = Up(16 * b, 4 * b, fold_bn, local_upsample, **lp)
+        self.up2 = Up(8 * b, 2 * b, fold_bn, local_upsample, **lp)
+        self.up3 = Up(4 * b, b, fold_bn, local_upsample, **lp)
+        self.up4 = Up(2 * b, b, fold_bn, local_upsample, **lp)
         self.outc = OutConv(b, n_classes)
 
     def _stage(self, stage: nn.Module, train: bool, *xs: torch.Tensor):

@@ -20,6 +20,15 @@ Their convs are ``F.conv2d`` (cuDNN on the card): ``fabric_tpu`` computes
 them with XLA's ``nn.Conv`` outside any Pallas kernel
 (``blocks.py:168-174``), a plain large product that stays a library call
 here, not an unported kernel.
+
+With ``lane_pack`` an unfolded block computes each conv that
+``ops/s2d_conv.supports`` admits (Cout < 128, even sides of at least 96)
+in space-to-depth layout (``fabric_tpu/models/blocks.py:154-166``): in
+training through ``conv3x3_lane_packed`` (the direct conv's gradients;
+``lane_pack_bwd`` packs the dgrad conv too), in eval as the packed conv
+followed by the eval BatchNorm kernel.  A folded block keeps the conv
+kernels whatever ``lane_pack`` says, as ``fabric_tpu``'s folded Pallas
+branch comes before its ``lane_pack`` one (``blocks.py:117-150``).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from fabric_tpu_torch.ops import bn_relu as bn_relu_ops
 from fabric_tpu_torch.parallel import distributed
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import double_conv as double_conv_ops
+from fabric_tpu_torch.ops import s2d_conv
 from fabric_tpu_torch.ops.resize import (pad_to_match,
                                         upsample2x_align_corners,
                                         upsample2x_local)
@@ -139,11 +149,16 @@ class BatchNorm(nn.Module):
 
 
 class DoubleConv(nn.Module):
-    """(3x3 conv -> BN -> ReLU) x 2, SAME padding; BN folded or not."""
+    """(3x3 conv -> BN -> ReLU) x 2, SAME padding; BN folded or not;
+    with ``lane_pack`` (unfolded only) the convs ``s2d_conv.supports``
+    admits are lane-packed."""
 
-    def __init__(self, cin: int, cout: int, fold_bn: bool = True):
+    def __init__(self, cin: int, cout: int, fold_bn: bool = True,
+                 lane_pack: bool = False, lane_pack_bwd: bool = False):
         super().__init__()
         self.fold_bn = fold_bn
+        self.lane_pack = lane_pack
+        self.lane_pack_bwd = lane_pack_bwd
         self.conv1 = Conv(cin, cout)
         self.conv2 = Conv(cout, cout)
         if not fold_bn:
@@ -179,8 +194,15 @@ class DoubleConv(nn.Module):
             return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias,
                                               packed[1])
         for c, bn in ((c1, self.bn1), (c2, self.bn2)):
+            packed = self.lane_pack and s2d_conv.supports(
+                x.shape[1], x.shape[2], x.shape[3], c.kernel.shape[-1])
             if train:
-                x = torch.relu(bn(c(x))).to(x.dtype)
+                y = s2d_conv.conv3x3_lane_packed(
+                    x, c.kernel.to(x.dtype), c.bias,
+                    self.lane_pack_bwd) if packed else c(x)
+                x = torch.relu(bn(y)).to(x.dtype)
+            elif packed:
+                x = bn.relu_eval(s2d_conv.s2d_conv3x3(x, c.kernel), c.bias)
             else:
                 # the conv bias rides in the kernel's prologue; the conv's
                 # NHWC output is contiguous (a channels-last cuDNN result
@@ -199,9 +221,10 @@ def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
 class Down(nn.Module):
     """2x2 max-pool then DoubleConv."""
 
-    def __init__(self, cin: int, cout: int, fold_bn: bool = True):
+    def __init__(self, cin: int, cout: int, fold_bn: bool = True,
+                 lane_pack: bool = False, lane_pack_bwd: bool = False):
         super().__init__()
-        self.conv = DoubleConv(cin, cout, fold_bn)
+        self.conv = DoubleConv(cin, cout, fold_bn, lane_pack, lane_pack_bwd)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.conv(max_pool2x2(x), train)
@@ -214,10 +237,11 @@ class Up(nn.Module):
     ``torch.cat([x2, x1], dim=1)``), DoubleConv."""
 
     def __init__(self, cin: int, cout: int, fold_bn: bool = True,
-                 local_upsample: bool = False):
+                 local_upsample: bool = False, lane_pack: bool = False,
+                 lane_pack_bwd: bool = False):
         super().__init__()
         self.local_upsample = local_upsample
-        self.conv = DoubleConv(cin, cout, fold_bn)
+        self.conv = DoubleConv(cin, cout, fold_bn, lane_pack, lane_pack_bwd)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
                 train: bool = False) -> torch.Tensor:

@@ -102,9 +102,6 @@ def _check_ported(cfg) -> None:
     """Raise for a config option of fabric_tpu's loop that is not ported
     (the model checks its own), and for a data axis that is not the
     process group's."""
-    for flag in ("lane_pack", "lane_pack_bwd"):
-        if getattr(cfg, flag):
-            raise _not_ported(flag, "12")
     if max(cfg.mesh_spatial, cfg.mesh_model) > 1:
         raise _not_ported("the spatial and model mesh axes",
                           "10c (the spatial and model mesh axes)")

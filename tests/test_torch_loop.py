@@ -289,7 +289,7 @@ def test_prune_keeps_the_newest_and_what_pointers_name(tmp_path):
         "periodic_epoch_3.msgpack")
 
 
-@pytest.mark.parametrize("kw", [dict(lane_pack=True),
+@pytest.mark.parametrize("kw", [dict(mesh_model=2),
                                 dict(mesh_spatial=2)])
 def test_unported_options_raise(kw, tmp_path):
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
@@ -309,12 +309,14 @@ def test_gs_resume_is_gated(tmp_path, monkeypatch):
         loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
 
 
-@pytest.mark.parametrize("flag,item", [("lane_pack", "12")])
+@pytest.mark.parametrize("flag,item", [
+    ("mesh_spatial", "10c"), ("mesh_model", "10c")])
 def test_unported_flag_names_its_roadmap_item(flag, item, tmp_path):
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
-                 **{flag: True})
+                 **{flag: 2})
     with pytest.raises(NotImplementedError,
-                       match=f"^{flag} is not ported .* queue 1 item {item}$"):
+                       match=f"^the spatial and model mesh axes is not "
+                             f"ported .* queue 1 item {item} "):
         loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
 
 

@@ -10,6 +10,7 @@ import json
 import os
 import random
 import shutil
+import subprocess
 from collections import namedtuple
 
 import numpy as np
@@ -44,6 +45,30 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _private_native_library(tmp_path_factory):
+    """fabric_tpu's native library, loadable in this process whatever the
+    other test workers do.  Each worker that imports tests/test_native.py
+    runs ``make -C csrc`` when the shared ``csrc/libfabric_host.so`` is
+    missing; a worker that loads the half-written file gets an OSError,
+    and ``fabric_tpu.native`` has already marked the library tried, so it
+    stays None in that process.  So this module compiles its own copy
+    with the Makefile's command into a private directory, points the
+    loader at it with ``_lib`` and ``_tried`` reset, and puts all three
+    back afterwards.  fabric_tpu itself is not touched."""
+    from fabric_tpu import native
+    so = str(tmp_path_factory.mktemp("native") / "libfabric_host.so")
+    subprocess.run(["g++", "-O3", "-march=native", "-fPIC", "-shared",
+                    "-std=c++17", "-o", so,
+                    os.path.join(native._CSRC, "fabric_host.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_SO", so)
+        mp.setattr(native, "_lib", None)
+        mp.setattr(native, "_tried", False)
+        yield
 
 
 def flat(tree, prefix=""):
@@ -82,7 +107,8 @@ def test_full_load_loads_num_dates_like_fabric_tpu(data_dir, data):
     native library is loaded first: its loader marks the library tried
     before it is loaded, so the threads of a process's first full_load
     that come in between fall back to numpy's (x - mean) / std, 1 ulp
-    off the native (x - mean) * (1 / std) that the port computes."""
+    off the native (x - mean) * (1 / std) that the port computes.  The
+    library is this module's private build (_private_native_library)."""
     from fabric_tpu import native
     assert native.available()
     dataset, _ = data
