@@ -121,6 +121,17 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   bounds, the ranks equal, rank 0 alone writing; the ranks' rate is
   printed as two ranks sharing one card; then one step over NCCL at world
   size 1 through ``parallel.distributed.maybe_initialize``;
+- the spatial and model mesh axes on the one card: ``train.loop.train``
+  over gloo ranks, each holding its half of every patch's height (the
+  convs' halo rows exchanged over the spatial group), fp32, tversky +
+  SGD, validation and rank 0's scene inference: BiDateNet base 64 at
+  patch 96, global batch 128, 3 steps, at mesh (1, 2, 1) and (2, 2, 1)
+  against data-parallel training's 1-process run, and UNetLSTM base 64
+  at T = 5, global batch 32, 2 steps, at (1, 2, 2) against its own; each
+  within the same bounds, the ranks equal, rank 0 alone writing; each
+  rank's launches of the fusion and eval-BatchNorm kernels (added to the
+  kernels line's counts), its peak memory against 1 process's and each
+  run's wall time;
 - multi-date training: writes a 5-date synthetic dataset of the same
   cities and runs ``train.loop.train`` for UNetLSTM (base 64, with
   ``local_upsample``, so that its eval gate conv is the signed conv-kernel
@@ -3600,13 +3611,14 @@ def int8_shift_conv_phase() -> dict:
 
 
 _DP_WORKER = r"""
-import json, os, sys
+import json, os, sys, time
 import numpy as np
 import torch
 import torch.distributed as tdist
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 from fabric_tpu_torch.config import Config
+from fabric_tpu_torch.ops import bn_relu, fused
 from fabric_tpu_torch.parallel import distributed
 from fabric_tpu_torch.train.loop import train
 from fabric_tpu_torch.weights import flatten_tree, variables_of
@@ -3616,14 +3628,23 @@ rank, world = int(os.environ["DP_RANK"]), int(os.environ["DP_WORLD"])
 if world > 1:  # NCCL refuses two ranks on one card: gloo
     tdist.init_process_group("gloo", init_method=os.environ["DP_INIT"],
                              world_size=world, rank=rank)
+counters = (fused.fused_mul_relu, bn_relu.bn_relu_inference)
+for fn in counters:
+    fn.launches = 0
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
 state, history = train(cfg, device="cuda:0", run_scene_inference=True)
+wall = time.perf_counter() - t0
+launches = {fn.__name__: fn.launches for fn in counters}
 params, stats = variables_of(state.model)
 np.savez(os.path.join(os.environ["DP_OUT"], f"vars_{rank}.npz"),
          **{"params/" + k: v for k, v in flatten_tree(params).items()},
          **{"stats/" + k: v for k, v in flatten_tree(stats).items()})
 with open(os.path.join(os.environ["DP_OUT"], f"history_{rank}.json"),
           "w") as f:
-    json.dump(history, f)
+    json.dump({"history": history, "launches": launches, "wall_s": wall,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20},
+              f)
 distributed.shutdown()
 """
 
@@ -3721,18 +3742,95 @@ def _run_workers(code: str, envs: list, timeout: int) -> list:
     return outs
 
 
-def dp_train_phase(root: str):
+def _loop_run(root: str, tag: str, cfg: dict, world: int) -> tuple:
+    """train.loop.train of ``cfg`` in ``world`` gloo ranks on the card
+    (``_DP_WORKER``, one process without a group for a world of 1):
+    (output dir, [(variables, record)] of each rank, the command's wall
+    seconds)."""
+    out = os.path.join(root, tag)
+    os.makedirs(out)
+    cfg = dict(cfg, weight_dir=os.path.join(out, "weights"),
+               log_dir=os.path.join(out, "logs"))
+    init = f"tcp://localhost:{_free_port()}"
+    t0 = time.perf_counter()
+    _run_workers(_DP_WORKER, [
+        {"DP_CFG": json.dumps(cfg), "DP_RANK": str(r),
+         "DP_WORLD": str(world), "DP_INIT": init, "DP_OUT": out}
+        for r in range(world)], timeout=300)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"history_{r}.json")) as f:
+            ranks.append((dict(np.load(os.path.join(out, f"vars_{r}.npz"))),
+                          json.load(f)))
+    return out, ranks, wall
+
+
+def _held(single: tuple, ranks: list, init: dict) -> dict:
+    """A mesh run's ranks against a 1-process run of the same global
+    batches, by card_vs_cpu_step's bounds for the loss and the
+    parameters: cuDNN picks its algorithms by shape and the ranks sum in
+    another order, so the train loss (the mean of the steps') within 1e-5
+    relative, every parameter within 1e-2 of the largest update of the
+    steps; the BatchNorm running statistics within 1e-4 of each
+    statistic's largest magnitude (a running mean near 0 after 3 steps
+    differs by a few 1e-6, which an element-relative bound reads as
+    1e-3).  ``init``: the weights train() drew from the seed."""
+    v1, h1 = single[0], single[1]["history"]
+    va, ha = ranks[0][0], ranks[0][1]["history"]
+    params = [k for k in v1 if k.startswith("params/")]
+    stats = [k for k in v1 if k.startswith("stats/")]
+    step_max = max(np.abs(v1[k] - init[k[len("params/"):]]).max()
+                   for k in params)
+    p_err = max(np.abs(va[k] - v1[k]).max() for k in params)
+    s_err = max(np.abs(va[k] - v1[k]).max() / np.abs(v1[k]).max()
+                for k in stats)
+    l1, l2 = (h["train"][0]["cd_losses"] for h in (h1, ha))
+    l_err = abs(l2 - l1) / abs(l1)
+    ranks_equal = all(np.array_equal(r[0][k], va[k]) for r in ranks[1:]
+                      for k in va)
+    return {"ok": (ranks_equal and l_err <= 1e-5
+                   and p_err <= 1e-2 * step_max and s_err <= 1e-4),
+            "l1": l1, "l2": l2, "l_err": l_err, "p_err": p_err,
+            "s_err": s_err, "step_max": step_max,
+            "ranks_equal": ranks_equal,
+            "val": [h["val"][0]["cd_losses"] for h in (h1, ha)]}
+
+
+def _rank0_alone(out: str, single_out: str, ranks: list) -> bool:
+    """One tracker run, the 1-process run's checkpoints, and the scene
+    inference of the validation city on rank 0 alone."""
+    logs = os.listdir(os.path.join(out, "logs"))
+    wrote = sorted(os.listdir(os.path.join(out, "weights")))
+    return (len(logs) == 1
+            and wrote == sorted(os.listdir(os.path.join(single_out,
+                                                        "weights")))
+            and "val_scene_f1" in ranks[0][1]["history"]["val"][0]
+            and all("val_scene_f1" not in r[1]["history"]["val"][0]
+                    for r in ranks[1:]))
+
+
+def _examples_per_s(out: str) -> float:
+    run_dir = os.path.join(out, "logs", os.listdir(
+        os.path.join(out, "logs"))[0])
+    return next(json.loads(x)["train_examples_per_sec"]
+                for x in open(os.path.join(run_dir, "metrics.jsonl"))
+                if "train_examples_per_sec" in x)
+
+
+def dp_train_phase(root: str) -> dict:
     """Data-parallel training on the one card: train.loop.train in 2 ranks
     over gloo (NCCL refuses two ranks on one card), full-width BiDateNet,
     patch 96, global batch 128 (64 a rank), tversky + SGD, fp32, 3 steps,
     validation and the validation city's scene inference, against the
     same run in 1 process on the card on the same global batches: loss,
-    parameters and running statistics within the bounds of the card-vs-
-    CPU step (stated below), the ranks equal; rank 0 alone wrote.  The
-    1-process run is made twice, and its difference from itself (cuDNN's
-    backward is not deterministic) is printed beside the bounds.  Then
-    one step at world size 1 over NCCL through maybe_initialize against
-    the same step without a group."""
+    parameters and running statistics within ``_held``'s bounds, the
+    ranks equal; rank 0 alone wrote.  The 1-process run is made twice,
+    and its difference from itself (cuDNN's backward is not
+    deterministic) is printed beside the bounds.  Then one step at world
+    size 1 over NCCL through maybe_initialize against the same step
+    without a group.  Returns the base config and the first 1-process
+    run, which sp_train_phase reuses."""
     from fabric_tpu_torch.weights import flatten_tree, init_variables
 
     base = dict(dataset_dir=os.path.join(root, "data"), patch_size=T_PATCH,
@@ -3741,95 +3839,39 @@ def dp_train_phase(root: str):
                 loss_function="tversky", optimizer="sgd", dtype="float32",
                 model_base=BASE, validation_cities=["val"], num_workers=2,
                 seed=SEED + 7)
-    runs = {}
-    t_run = {}
-    for tag, world in (("once", 1), ("again", 1), ("ranks", DP_RANKS)):
-        out = os.path.join(root, f"dp_{tag}")
-        os.makedirs(out)
-        cfg = dict(base, weight_dir=os.path.join(out, "weights"),
-                   log_dir=os.path.join(out, "logs"))
-        init = f"tcp://localhost:{_free_port()}"
-        t0 = time.perf_counter()
-        _run_workers(_DP_WORKER, [
-            {"DP_CFG": json.dumps(cfg), "DP_RANK": str(r),
-             "DP_WORLD": str(world), "DP_INIT": init, "DP_OUT": out}
-            for r in range(world)], timeout=300)
-        t_run[tag] = time.perf_counter() - t0
-        runs[tag] = out
-    loaded = {}
-    for tag, out in runs.items():
-        for r in range(DP_RANKS if tag == "ranks" else 1):
-            with open(os.path.join(out, f"history_{r}.json")) as f:
-                loaded[tag, r] = (dict(np.load(os.path.join(
-                    out, f"vars_{r}.npz"))), json.load(f))
-    (v1, h1), (vr, _), (va, ha), (vb, hb) = (
-        loaded["once", 0], loaded["again", 0], loaded["ranks", 0],
-        loaded["ranks", 1])
-    ranks_equal = all(np.array_equal(va[k], vb[k]) for k in va)
-    # the weights train() drew from the seed: the updates' scale
+    runs = {tag: _loop_run(root, f"dp_{tag}", base, world)
+            for tag, world in (("once", 1), ("again", 1),
+                               ("ranks", DP_RANKS))}
     init = flatten_tree(init_variables(
         13, 2, BASE, torch.Generator().manual_seed(base["seed"]))[0])
-    params = [k for k in v1 if k.startswith("params/")]
-    stats = [k for k in v1 if k.startswith("stats/")]
-    step_max = max(np.abs(v1[k] - init[k[len("params/"):]]).max()
-                   for k in params)
-
-    def diffs(v):
-        """(largest parameter difference from the first 1-process run,
-        largest statistic difference over the statistic's magnitude)"""
-        return (max(np.abs(v[k] - v1[k]).max() for k in params),
-                max(np.abs(v[k] - v1[k]).max() / np.abs(v1[k]).max()
-                    for k in stats))
-    p_err, s_err = diffs(va)
-    p_noise, s_noise = diffs(vr)
-    l1, l2 = (h["train"][0]["cd_losses"] for h in (h1, ha))
-    l_err = abs(l2 - l1) / abs(l1)
-    v1l, v2l = (h["val"][0]["cd_losses"] for h in (h1, ha))
-    # card_vs_cpu_step's bounds for the loss and the parameters: cuDNN
-    # picks its algorithms by shape (batch 64 a rank against 128) and the
-    # ranks sum in another order, so the train loss (the mean of the 3
-    # steps') within 1e-5 relative, every parameter within 1e-2 of the
-    # largest update of the 3 steps.  The BatchNorm running statistics
-    # within 1e-4 of each statistic's largest magnitude (a running mean
-    # near 0 after 3 steps differs by a few 1e-6, which an element-relative
-    # bound reads as 1e-3; the 1-process run's difference from itself is
-    # printed for the scale)
-    ok = (ranks_equal and l_err <= 1e-5 and p_err <= 1e-2 * step_max
-          and s_err <= 1e-4)
-    logs = os.listdir(os.path.join(runs["ranks"], "logs"))
-    wrote = sorted(os.listdir(os.path.join(runs["ranks"], "weights")))
-    wrote1 = sorted(os.listdir(os.path.join(runs["once"], "weights")))
-    only_rank0 = (len(logs) == 1 and wrote == wrote1
-                  and "val_scene_f1" in ha["val"][0]
-                  and "val_scene_f1" not in hb["val"][0])
-    rate = {}
-    for tag, out in runs.items():
-        run_dir = os.path.join(out, "logs", os.listdir(
-            os.path.join(out, "logs"))[0])
-        rate[tag] = next(json.loads(x)["train_examples_per_sec"]
-                           for x in open(os.path.join(run_dir,
-                                                      "metrics.jsonl"))
-                           if "train_examples_per_sec" in x)
+    once = runs["once"][1][0]
+    held = _held(once, runs["ranks"][1], init)
+    noise = _held(once, runs["again"][1], init)
+    only_rank0 = _rank0_alone(runs["ranks"][0], runs["once"][0],
+                              runs["ranks"][1])
     print(f"dp_train: {DP_RANKS} ranks over gloo on one card vs 1 process, "
           f"BiDateNet base {BASE}, patch {T_PATCH}, global batch {DP_BATCH}"
-          f", {DP_STEPS} steps fp32: train loss {l2:.7f} vs {l1:.7f} (rel "
-          f"{l_err:.3g}, bound 1e-5), val loss {v2l:.7f} vs {v1l:.7f}; "
-          f"params max diff {p_err:.3g} (bound 1e-2 x largest update "
-          f"{step_max:.4g}); BN stats max diff {s_err:.3g} of the "
-          f"statistic's largest magnitude (bound 1e-4); 1 process against "
-          f"itself: params {p_noise:.3g}, stats {s_noise:.3g}; ranks' "
-          f"parameters "
-          f"and statistics equal: {ranks_equal}; "
-          f"rank 0 alone wrote ({len(logs)} tracker run, checkpoints "
-          f"{wrote}, scene inference on rank 0 only): {only_rank0}; "
-          f"{'ok' if ok and only_rank0 else 'MISMATCH'}", flush=True)
+          f", {DP_STEPS} steps fp32: train loss {held['l2']:.7f} vs "
+          f"{held['l1']:.7f} (rel {held['l_err']:.3g}, bound 1e-5), val "
+          f"loss {held['val'][1]:.7f} vs {held['val'][0]:.7f}; params max "
+          f"diff {held['p_err']:.3g} (bound 1e-2 x largest update "
+          f"{held['step_max']:.4g}); BN stats max diff {held['s_err']:.3g} "
+          f"of the statistic's largest magnitude (bound 1e-4); 1 process "
+          f"against itself: params {noise['p_err']:.3g}, stats "
+          f"{noise['s_err']:.3g}; ranks' parameters and statistics equal: "
+          f"{held['ranks_equal']}; rank 0 alone wrote (tracker run, "
+          f"checkpoints, scene inference on rank 0 only): {only_rank0}; "
+          f"{'ok' if held['ok'] and only_rank0 else 'MISMATCH'}",
+          flush=True)
+    rate = {tag: _examples_per_s(out) for tag, (out, _, _) in runs.items()}
+    t_run = {tag: wall for tag, (_, _, wall) in runs.items()}
     print(f"dp_train: two ranks sharing one card: {rate['ranks']:.1f} "
           f"train examples/s of the global batch, 1 process "
           f"{rate['once']:.1f} and {rate['again']:.1f} (the {DP_STEPS}-step "
           f"epoch, its first step included; not a scaling figure); the "
           f"whole 2-rank command {t_run['ranks']:.1f} s, the 1-process "
           f"ones {t_run['once']:.1f} and {t_run['again']:.1f} s", flush=True)
-    if not (ok and only_rank0):
+    if not (held["ok"] and only_rank0):
         fail("data-parallel training differs from the 1-process run")
     out = _run_workers(_NCCL_WORKER, [{
         "FABRIC_COORDINATOR": f"localhost:{_free_port()}",
@@ -3837,6 +3879,91 @@ def dp_train_phase(root: str):
         timeout=240)[0]
     print(next(x for x in out.splitlines() if x.startswith("NCCL_STEP")),
           flush=True)
+    return {"base": base, "once": runs["once"], "init": init}
+
+
+# sp_train: (run, model, mesh); UNetLSTM's global batch and 5-date cities
+SP_RUNS = (("a", "bidate", (1, 2, 1)), ("b", "bidate", (2, 2, 1)),
+           ("c", "unet_lstm", (1, 2, 2)))
+SP_MD_BATCH, SP_MD_STEPS = 32, 2
+SP_MD_CITIES = {"alpha": (384, 384), "val": (288, 288)}
+
+
+def sp_train_phase(root: str, dp: dict, smi: str) -> dict:
+    """The spatial and model mesh axes on the one card: train.loop.train
+    over gloo ranks (each holding its data slice's rows and its half of
+    each patch's height, the halo exchanges summed over the spatial group)
+    at full width, tversky + SGD, fp32, with validation and rank 0's scene
+    inference: (a) BiDateNet at mesh (1, 2, 1) and (b) at (2, 2, 1), global
+    batch 128, 3 steps, against dp_train's 1-process run of the same
+    settings; (c) UNetLSTM base 64, T = 5, at (1, 2, 2), global batch 32,
+    2 steps, on a small 5-date dataset, against its own 1-process run.
+    Each held to dp_train's bounds (``_held``), the ranks equal, rank 0
+    alone writing.  Prints each rank's launches of rows 3 and 4 and peak
+    allocated memory against the 1-process run's, and each run's wall
+    time; returns the launches summed over every rank.  Ranks sharing one
+    card give no scaling figure."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from fabric_tpu_torch.weights import flatten_tree, init_variables
+
+    md_data = os.path.join(root, "sp_md_data")
+    generate_synthetic_dataset(md_data, Config(), cities=list(SP_MD_CITIES),
+                               sizes=list(SP_MD_CITIES.values()),
+                               seed=SEED + 9, num_dates=MD_T)
+    md_cfg = dict(dp["base"], dataset_dir=md_data, model="unet_lstm",
+                  num_dates=MD_T, batch_size=SP_MD_BATCH,
+                  eval_batch_size=SP_MD_BATCH, steps_per_epoch=SP_MD_STEPS)
+    md_init = flatten_tree(init_variables(
+        13, 2, BASE, torch.Generator().manual_seed(md_cfg["seed"]),
+        "unet_lstm")[0])
+    md_once = _loop_run(root, "sp_md_once", md_cfg, 1)
+    total = {"fused_mul_relu": 0, "bn_relu_inference": 0}
+    failed = []
+    for run, name, (d, s, m) in SP_RUNS:
+        base, single, init = ((dp["base"], dp["once"], dp["init"])
+                              if name == "bidate"
+                              else (md_cfg, md_once, md_init))
+        cfg = dict(base, mesh_data=d, mesh_spatial=s, mesh_model=m)
+        out, ranks, wall = _loop_run(root, f"sp_{run}", cfg, d * s * m)
+        held = _held(single[1][0], ranks, init)
+        only_rank0 = _rank0_alone(out, single[0], ranks)
+        one = single[1][0][1]
+        counts = [r[1]["launches"] for r in ranks]
+        for c in counts:
+            for k, v in c.items():
+                total[k] += v
+        # rows 3 (the Siamese fusion, bi-date only) and 4 (the eval
+        # BatchNorm of validation and rank 0's scene inference) on every
+        # rank; the ranks past 0 alike
+        launched = all(c["bn_relu_inference"] > 0
+                       and (name != "bidate" or c["fused_mul_relu"] > 0)
+                       and c == counts[-1] for c in counts[1:]) \
+            and counts[0]["bn_relu_inference"] > 0
+        good = held["ok"] and only_rank0 and launched
+        print(f"sp_train ({run}): {name} base {BASE}, patch {T_PATCH}, "
+              f"mesh {d}x{s}x{m} in {d * s * m} gloo ranks on one card, "
+              f"global batch {cfg['batch_size']}, "
+              f"{cfg['steps_per_epoch']} steps fp32: train loss "
+              f"{held['l2']:.7f} vs {held['l1']:.7f} of 1 process (rel "
+              f"{held['l_err']:.3g}, bound 1e-5); params max diff "
+              f"{held['p_err']:.3g} (bound 1e-2 x largest update "
+              f"{held['step_max']:.4g}); BN stats max diff "
+              f"{held['s_err']:.3g} (bound 1e-4); ranks equal: "
+              f"{held['ranks_equal']}; rank 0 alone wrote: {only_rank0}; "
+              f"launches by rank {counts} (1 process: {one['launches']}); "
+              f"peak allocated MiB by rank "
+              f"{[round(r[1]['peak_mib']) for r in ranks]} against "
+              f"{round(one['peak_mib'])} in 1 process; the command "
+              f"{wall:.1f} s (1 process {single[2]:.1f} s; ranks sharing "
+              f"one card: no scaling figure); {smi}; "
+              f"{'ok' if good else 'MISMATCH'}", flush=True)
+        if not good:
+            failed.append(run)
+    if failed:
+        fail(f"sp_train runs {failed} differ from their 1-process runs or "
+             f"missed a kernel")
+    return total
 
 
 def _free_port() -> int:
@@ -4054,8 +4181,12 @@ def main() -> int:
         store_phase(cfg_t, root)
         evaluate_phase(cfg_t, root, smi)
         t0 = time.perf_counter()
-        dp_train_phase(root)
+        dp = dp_train_phase(root)
         print(f"dp_train phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        sp_launches = sp_train_phase(root, dp, smi)
+        print(f"sp_train phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
         multidate_train_phase(root, smi)
@@ -4064,6 +4195,7 @@ def main() -> int:
     rows += bn_rows
     launches["bn_relu_inference"] = (launches.get("bn_relu_inference", 0)
                                      + t_launches["bn_relu_inference"])
+    add_counts(launches, sp_launches)
 
     sources = {
         "conv3x3_bias_relu": ("cuda",
@@ -4107,10 +4239,12 @@ def main() -> int:
           f"the kernel's launches in one forward: {BATCH} serving tiles at "
           f"patch {PATCH} for the conv and fusion kernels (launches: the "
           f"serve, the sharded serve, the bundle and AOT serves and the "
-          f"tool phases), {T_BATCH} eval tiles at patch {T_PATCH} in bf16 "
+          f"tool phases; fused_mul_relu also every sp_train rank's), "
+          f"{T_BATCH} eval tiles at patch {T_PATCH} in bf16 "
           f"for bn_relu_inference (its conv-bias form; launches: the "
-          f"training run, {evals} eval forwards, and ablate_train's "
-          f"eval_fwd), one int8 forward of {BATCH} tiles "
+          f"training run, {evals} eval forwards, ablate_train's "
+          f"eval_fwd and every sp_train rank's), one int8 forward of "
+          f"{BATCH} tiles "
           "for conv3x3_s8 (its 18 fused sites; launches: the int8 serves "
           "and the int8 shift-conv microbench's raw launches; no "
           "PyTorch call computes an int8 conv) and siamese_fuse_s8 (its 5 "

@@ -7,7 +7,9 @@ Standalone checkpoint evaluation (counterpart of
 reference's mean of per-batch cd_precisions / recalls / f1scores and the
 global confusion-matrix P/R/F1) and each city's whole-scene F1 against its
 label, printed as JSON.  For a run directory it evaluates the best-metric
-save.  On the card unless ``--device cpu``.
+save.  On the card unless ``--device cpu``; over the processes of a group
+that the environment describes (as ``cli.train``), on the config's
+(data, spatial, model) mesh of them.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ def main(argv=None) -> int:
     from fabric_tpu_torch import checkpoint as ckpt
     from fabric_tpu_torch.config import load_config
     from fabric_tpu_torch.evaluate import evaluate
+    from fabric_tpu_torch.parallel import distributed
 
     cfg = load_config(argv=rest)
     if not cfg.resume:
@@ -49,9 +52,15 @@ def main(argv=None) -> int:
             cfg.resume = best
             logging.info("using best-metric checkpoint %s", best)
 
-    result = evaluate(cfg, cities=own.city,
-                      run_scene_inference=not own.no_scene,
-                      device=own.device)
+    joined = not distributed.active() and distributed.maybe_initialize(
+        own.device)
+    try:
+        result = evaluate(cfg, cities=own.city,
+                          run_scene_inference=not own.no_scene,
+                          device=own.device)
+    finally:
+        if joined:
+            distributed.shutdown()
     if own.output:
         with open(own.output, "w") as f:
             json.dump(result, f, indent=2, sort_keys=True)

@@ -26,8 +26,10 @@ halo-extended bands of N pixel rows instead of tiles, with
 ``--mesh_data`` devices, grid or with ``--fullconv_band_rows`` seamless
 fullconv).  The serving path builds the mesh as ``fabric_tpu`` does
 (``parallel/mesh.make_mesh_from_config``: the visible cards, or with
-``--device cpu`` ``--mesh_data`` CPU "devices"); without
-``--shard_scene`` it splits each tile batch over it.  Unless
+``--device cpu`` as many CPU "devices" as ``--mesh_data`` x
+``--mesh_spatial`` x ``--mesh_model``); without ``--shard_scene`` it
+splits each tile batch over its data axis, and its spatial and model
+axes hold replicas.  Unless
 ``--no_tracker``, every scene writes a ``serve_*`` record to
 ``<log_dir>/<run>/metrics.jsonl``.  On the card unless ``--device cpu``.
 """
@@ -94,10 +96,6 @@ def main(argv=None) -> int:
     from fabric_tpu_torch.track import Tracker
 
     cfg = load_config(argv=rest)
-    if max(cfg.mesh_spatial, cfg.mesh_model) > 1:
-        raise NotImplementedError(
-            "the spatial and model mesh axes are not ported to "
-            "fabric_tpu_torch yet: ROADMAP.md queue 1 item 10c")
     if not cfg.resume and not own.bundle:
         print("error: --resume <checkpoint> is required (or --bundle for "
               "the serving path)", file=sys.stderr)
@@ -137,7 +135,8 @@ def _serve(own, cfg, tracker) -> None:
             on_card = resolve_device(own.device).type == "cuda"
             mesh = make_mesh_from_config(
                 cfg, None if on_card else
-                ["cpu"] * (cfg.mesh_data if cfg.mesh_data > 0 else 1))
+                ["cpu"] * (max(cfg.mesh_data, 1) * cfg.mesh_spatial
+                           * cfg.mesh_model))
         pred = ScenePredictor(cfg, checkpoint=cfg.resume or None,
                               bundle=own.bundle, bucket=own.bucket,
                               device=own.device, quant=own.quant,

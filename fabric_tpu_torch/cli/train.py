@@ -11,7 +11,8 @@ describes a process group (``parallel/distributed.maybe_initialize``):
 
 or one process per card with ``FABRIC_COORDINATOR=host:port
 FABRIC_NUM_PROCESSES=N FABRIC_PROCESS_ID=K`` set; ``batch_size`` is the
-global batch.
+global batch, and ``--mesh_spatial`` / ``--mesh_model`` lay a (data,
+spatial, model) mesh over the processes (``mesh_data`` -1 takes the rest).
 """
 
 from __future__ import annotations

@@ -54,9 +54,11 @@ cannot share: ``compat_reference`` training keeps the thread of
 
 In data-parallel training each rank runs a loader of its own over its
 ``batch_size / process_count`` rows of every global batch
-(``process_index``, as ``batch_iterator`` takes them), so its ring holds
-that many rows a slot, and each rank reckons its blocks, as it allocates
-them, against the one ``/dev/shm`` that the ranks of a host share.
+(``process_index``, as ``batch_iterator`` takes them), and on a spatial
+mesh axis over its ``spatial_index``-th slice of each patch's height, so
+its ring holds that many rows a slot, each of its rows of a patch, and
+each rank reckons its blocks, as it allocates them, against the one
+``/dev/shm`` that the ranks of a host share.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_shapes,
-                                            make_batch, plan_epoch)
+                                            height_slice, make_batch,
+                                            plan_epoch)
 
 SHM = "/dev/shm"
 
@@ -137,9 +140,10 @@ def share_dataset(dataset: dict) -> SharedArrays:
 
 
 def _batch_specs(slots: int, batch_size: int, patch_size: int,
-                 dates: int, channels: int, multi_date: bool) -> dict:
+                 dates: int, channels: int, multi_date: bool,
+                 rows: int | None = None) -> dict:
     shapes = batch_shapes(batch_size, patch_size, dates, channels,
-                          multi_date)
+                          multi_date, rows)
     return {(slot, k): spec for slot in range(slots)
             for k, spec in shapes.items()}
 
@@ -151,12 +155,13 @@ def ring_slots(num_workers: int, prefetch: int) -> int:
 
 def ring_bytes(num_workers: int, prefetch: int, batch_size: int,
                patch_size: int, dates: int, channels: int,
-               multi_date: bool) -> int:
+               multi_date: bool, rows: int | None = None) -> int:
     """Shared-memory bytes of a loader's ring (what :class:`BatchLoader`
-    reckons against ``/dev/shm`` before it allocates)."""
+    reckons against ``/dev/shm`` before it allocates), ``rows`` of each
+    patch's height a row (default: all)."""
     return _layout(_batch_specs(ring_slots(num_workers, prefetch),
                                 batch_size, patch_size, dates, channels,
-                                multi_date))[1]
+                                multi_date, rows))[1]
 
 
 class _EpochKeys(torch.utils.data.Sampler):
@@ -181,7 +186,8 @@ class _Batches(torch.utils.data.Dataset):
                  metadata: list, patch_size: int, augment: bool,
                  batch_size: int, shuffle: bool, pad_mode: str,
                  multi_date: bool, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, spatial_index: int = 0,
+                 spatial_count: int = 1):
         self.dataset, self.ring = dataset, ring
         self.metadata = list(metadata)
         self.patch_size = patch_size
@@ -192,6 +198,8 @@ class _Batches(torch.utils.data.Dataset):
         self.multi_date = multi_date
         self.process_index = process_index
         self.process_count = process_count
+        self.spatial_index = spatial_index
+        self.spatial_count = spatial_count
         self._sampler = self._slots = self._plan = None
 
     def __getitem__(self, key: tuple[int, int, int]) -> int:
@@ -211,7 +219,9 @@ class _Batches(torch.utils.data.Dataset):
                                     self.shuffle, self.pad_mode, seed)
         make_batch(self._sampler, self._plan, b, out=self._slots[slot],
                    process_index=self.process_index,
-                   process_count=self.process_count)
+                   process_count=self.process_count,
+                   spatial_index=self.spatial_index,
+                   spatial_count=self.spatial_count)
         return slot
 
 
@@ -248,7 +258,8 @@ class BatchLoader:
     ``prefetch`` batches in flight; ``multi_date`` batches carry every
     date of the dataset as ``imgs``; ``process_index`` of
     ``process_count`` builds that rank's rows of each global batch of
-    ``batch_size``.  The ring (:func:`ring_bytes`) must
+    ``batch_size``, and ``spatial_index`` of ``spatial_count`` its slice
+    of each patch's height.  The ring (:func:`ring_bytes`) must
     fit ``/dev/shm`` beside the dataset, or the constructor raises a
     RuntimeError before it allocates anything.  Use as a context manager,
     or call :meth:`close`, to stop the workers and release the ring."""
@@ -257,12 +268,14 @@ class BatchLoader:
                  patch_size: int, augment: bool, batch_size: int, *,
                  shuffle: bool, pad_mode: str = "wrap", num_workers: int,
                  device, prefetch: int = 2, multi_date: bool = False,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1,
+                 spatial_index: int = 0, spatial_count: int = 1):
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         if batch_size % process_count:
             raise ValueError(f"global batch_size {batch_size} not divisible "
                              f"by process_count {process_count}")
+        rows = height_slice(patch_size, spatial_index, spatial_count)
         self.device = torch.device(device)
         self.batch_size = batch_size
         self._n = len(metadata)
@@ -272,7 +285,8 @@ class BatchLoader:
                                 _ in dataset.layout if key == "images"),
                                (0, 0))
         specs = _batch_specs(self._k, batch_size // process_count,
-                             patch_size, dates, channels, multi_date)
+                             patch_size, dates, channels, multi_date,
+                             rows.stop - rows.start)
         ring = SharedArrays(specs, (
             f"the batch ring of {self._k} slots ({num_workers} workers x "
             f"prefetch {prefetch} + 2), beside the shared "
@@ -294,7 +308,8 @@ class BatchLoader:
         self._loader = torch.utils.data.DataLoader(
             _Batches(dataset, ring, metadata, patch_size, augment,
                      batch_size, shuffle, pad_mode, multi_date,
-                     process_index, process_count),
+                     process_index, process_count, spatial_index,
+                     spatial_count),
             batch_size=None, sampler=self._keys, num_workers=num_workers,
             multiprocessing_context=_worker_context(),
             persistent_workers=True, prefetch_factor=prefetch)

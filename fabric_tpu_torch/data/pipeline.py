@@ -25,7 +25,10 @@
   each derives the same global order from the seed and materialises only
   its own ``batch_size / process_count`` rows, whose augmentation is
   keyed by the global row, so the ranks' rows concatenate to the
-  1-process batch byte for byte.
+  1-process batch byte for byte.  On a mesh's spatial axis a rank keeps
+  its ``spatial_index``-th of ``spatial_count`` slices of each patch's
+  height, cut on the host after the augmentation: the same rows of the
+  unsharded batch (the ranks of one data slice draw the same patches).
 - ``prefetch_to_device`` assembles batches in a background thread, copies
   them into pinned host memory and starts non-blocking copies to the card,
   ``size`` batches ahead of the consumer.
@@ -120,9 +123,21 @@ def plan_epoch(n: int, batch_size: int, shuffle: bool,
     return EpochPlan(order, weights, batch_size, seed, num_batches)
 
 
+def height_slice(patch_size: int, spatial_index: int,
+                  spatial_count: int) -> slice:
+    """The rows of a patch that spatial rank ``spatial_index`` of
+    ``spatial_count`` holds."""
+    if patch_size % spatial_count:
+        raise ValueError(f"patch_size {patch_size} does not split over the "
+                         f"{spatial_count} ranks of the spatial axis")
+    h = patch_size // spatial_count
+    return slice(spatial_index * h, (spatial_index + 1) * h)
+
+
 def make_batch(sampler: PatchSampler, plan: EpochPlan, b: int,
                out: dict | None = None, process_index: int = 0,
-               process_count: int = 1) -> dict:
+               process_count: int = 1, spatial_index: int = 0,
+               spatial_count: int = 1) -> dict:
     """Batch ``b`` of ``plan`` as {'img1', 'img2', 'label', 'weight'}
     numpy arrays ({'imgs', 'label', 'weight'} for a ``multi_date``
     sampler), written into ``out``'s arrays when given (a full batch's
@@ -130,41 +145,46 @@ def make_batch(sampler: PatchSampler, plan: EpochPlan, b: int,
     r), so the batch does not depend on the ones before.  With
     ``process_count`` > 1 only rank ``process_index``'s slice of the
     global batch, its ``batch_size / process_count`` rows in order (the
-    RNG keys stay those of the rows' global positions)."""
+    RNG keys stay those of the rows' global positions); with
+    ``spatial_count`` > 1 only the ``spatial_index``-th slice of each
+    patch's height, cut after the augmentation."""
     full_lo = b * plan.batch_size
     local = min(plan.batch_size,
                 len(plan.order) - full_lo) // process_count
     lo = full_lo + process_index * local
     rows = plan.order[lo:lo + local]
+    cut = height_slice(sampler.patch_size, spatial_index, spatial_count)
     if out is None:
         shape = sampler.dataset[sampler.metadata[0][0]]["images"].shape
         out = {k: np.empty(s, dtype) for k, (dtype, s) in batch_shapes(
             len(rows), sampler.patch_size, shape[0], shape[-1],
-            sampler.multi_date).items()}
+            sampler.multi_date, cut.stop - cut.start).items()}
     keys = ("imgs",) if sampler.multi_date else ("img1", "img2")
     for row, i in enumerate(rows):
         rng = np.random.RandomState(
             (plan.seed * 1_000_003 + lo + row) % (2 ** 31))
         *imgs, label = sampler.sample(int(i), rng)
         for k, img in zip(keys, imgs):
-            out[k][row] = img
-        out["label"][row] = label
+            out[k][row] = img[..., cut, :, :]
+        out["label"][row] = label[cut]
     out["weight"][:] = plan.weights[lo:lo + len(rows)]
     return out
 
 
 def batch_shapes(n: int, patch_size: int, dates: int, channels: int,
-                 multi_date: bool) -> dict:
+                 multi_date: bool, rows: int | None = None) -> dict:
     """{key: (dtype, shape)} of an ``n``-row batch of patches cut from
-    (dates, H, W, channels) images: ``imgs`` (n, dates, ps, ps, C) for a
-    multi-date model, else ``img1`` / ``img2`` (n, ps, ps, C)."""
+    (dates, H, W, channels) images: ``imgs`` (n, dates, rows, ps, C) for a
+    multi-date model, else ``img1`` / ``img2`` (n, rows, ps, C); ``rows``
+    of each patch's height (default: all ``ps``)."""
     ps = patch_size
+    h = ps if rows is None else rows
     if multi_date:
-        images = {"imgs": (n, dates, ps, ps, channels)}
+        images = {"imgs": (n, dates, h, ps, channels)}
     else:
-        images = {k: (n, ps, ps, channels) for k in ("img1", "img2")}
+        images = {k: (n, h, ps, channels) for k in ("img1", "img2")}
     return {**{k: (np.float32, s) for k, s in images.items()},
-            "label": (np.int32, (n, ps, ps)),
+            "label": (np.int32, (n, h, ps)),
             "weight": (np.float32, (n,))}
 
 
@@ -172,13 +192,16 @@ def batch_iterator(sampler: PatchSampler, batch_size: int, shuffle: bool,
                    pad_mode: str = "wrap", seed: int = 0,
                    max_batches: int = 0, skip_batches: int = 0,
                    ragged_tail: bool = False, process_index: int = 0,
-                   process_count: int = 1) -> Iterator[dict]:
+                   process_count: int = 1, spatial_index: int = 0,
+                   spatial_count: int = 1) -> Iterator[dict]:
     """Yield {'img1', 'img2', 'label', 'weight'} (or with a
     ``multi_date`` sampler {'imgs', 'label', 'weight'}) numpy batches of
     fixed shape (the last one short with ``ragged_tail``);
     ``max_batches`` caps the epoch, ``skip_batches`` starts at that batch
     without materialising the ones before; ``process_index`` of
-    ``process_count`` takes that rank's rows of each global batch."""
+    ``process_count`` takes that rank's rows of each global batch, and
+    ``spatial_index`` of ``spatial_count`` its slice of each patch's
+    height."""
     n = len(sampler)
     if n == 0:
         return
@@ -216,7 +239,9 @@ def batch_iterator(sampler: PatchSampler, batch_size: int, shuffle: bool,
                       ragged_tail)
     for b in range(skip_batches, plan.num_batches):
         yield make_batch(sampler, plan, b, process_index=process_index,
-                         process_count=process_count)
+                         process_count=process_count,
+                         spatial_index=spatial_index,
+                         spatial_count=spatial_count)
 
 
 def replay_aug_draws(stream, rows: int) -> None:

@@ -12,12 +12,15 @@ the mask-padded fixed-shape eval batches through the loop's own
 ``_epoch``, the reference's mean of per-batch figures beside the global
 confusion-matrix ones, and each city's scene through
 ``infer/runner.infer_city``.  So its numbers are the ones the loop
-reported for the same weights.  In a process group each rank evaluates
-its rows of every global batch and the confusion counts are summed over
-the ranks (an ``eval_batch_size`` that does not divide over them raises,
-as ``fabric_tpu``'s multi-process pipeline does); the scenes are
-evaluated on every rank, as ``fabric_tpu`` replicates them per process,
-so every rank returns the same result.
+reported for the same weights.  In a process group the config's (data,
+spatial, model) mesh is laid over the ranks, as the loop lays it: each
+rank evaluates its data slice's rows of every global batch, on a spatial
+axis its rows of each patch (``parallel/spatial.py``), and the confusion
+counts and the loss are summed over the ranks of a model replica (an
+``eval_batch_size`` that does not divide over the data axis raises, as
+``fabric_tpu``'s multi-process pipeline does); the scenes are evaluated
+on every rank, as ``fabric_tpu`` replicates them per process, so every
+rank returns the same result.
 """
 
 from __future__ import annotations
@@ -59,10 +62,11 @@ def evaluate(cfg, dataset: dict | None = None,
     from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
     from fabric_tpu_torch.models import build_model
     from fabric_tpu_torch.parallel.mesh import indexed_device
-    from fabric_tpu_torch.train.loop import EpochBatches, _epoch
+    from fabric_tpu_torch.train.loop import EpochBatches, _epoch, set_mesh
     from fabric_tpu_torch.train.state import create_state
     from fabric_tpu_torch.train.steps import make_eval_step
 
+    set_mesh(cfg)
     device = indexed_device(resolve_device(device))
     cities = list(cities or cfg.validation_cities)
     if dataset is None:

@@ -191,11 +191,13 @@ def _on_device(program, device: torch.device):
     return move_to_device_pass(program, str(device))
 
 
-def load_serialized_runner(data, device="cpu", ops: dict | None = None):
+def load_serialized_runner(data, device=None, ops: dict | None = None):
     """An exported forward (the bytes or path of a ``.pt2``) -> a
-    ``(*inputs) -> logits`` callable on ``device``.  Raises unless the
-    graph's kernel ops are ``ops`` (when given) and there is at least
-    one."""
+    ``(*inputs) -> logits`` callable on ``device`` (None means the card,
+    raising without one).  Raises unless the graph's kernel ops are
+    ``ops`` (when given) and there is at least one."""
+    from fabric_tpu_torch.infer.service import resolve_device
+    device = resolve_device(device)
     _register_ops()
     program = torch.export.load(io.BytesIO(data) if isinstance(data, bytes)
                                 else data)
@@ -205,7 +207,7 @@ def load_serialized_runner(data, device="cpu", ops: dict | None = None):
             f"the artifact's graph holds kernel ops {found}, not the "
             f"{ops} it was exported with: its kernels would not run as "
             f"the port's (re-export it with infer/aot.export_aot)")
-    module = _on_device(program, torch.device(device)).module()
+    module = _on_device(program, device).module()
 
     @torch.inference_mode()
     def forward(*inputs):
@@ -236,9 +238,10 @@ def save_aot(directory: str, runners: dict, meta: dict) -> None:
         json.dump(meta, fout, indent=1)
 
 
-def load_aot(directory: str, h: int, w: int, pack: int = 0, device="cpu"):
+def load_aot(directory: str, h: int, w: int, pack: int = 0, device=None):
     """The frozen forward of bucket (h, w) (``pack`` > 0: of the
-    fleet-packed bucket) on ``device``; None when the artifact has none.  Raises when the meta
+    fleet-packed bucket) on ``device`` (None means the card, raising
+    without one); None when the artifact has none.  Raises when the meta
     records no kernel ops for the file or the graph's differ."""
     name = _runner_name(h, w, pack)
     path = os.path.join(directory, name)

@@ -15,8 +15,10 @@ same-bucket scenes into one chunked forward.  ``fullconv_band_rows``
 replaces tiling: the network runs over halo-extended bands of the scene
 (``infer/fullconv.py``), in device memory or, with ``fullconv_stream``,
 streamed band by band from host arrays.  With a ``mesh``
-(``parallel/mesh.py``) each tile batch is split over its devices, and
-with ``shard_scene`` the scene itself is split into H-bands over them,
+(``parallel/mesh.py``) each tile batch is split over the devices of its
+data axis, the model replicated over its ``spatial`` and ``model`` axes
+(as ``fabric_tpu``'s tile shardings name "data" alone), and with
+``shard_scene`` the scene itself is split into H-bands over them,
 grid (``infer/sharded_scene.py``) or fullconv
 (``fullconv.make_sharded_fullconv_infer``).  The folded forward runs on
 the port's hand-written kernels; with ``fold_bn=False`` the eval-BN
@@ -75,11 +77,6 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to fabric_tpu_torch "
-                               f"yet: ROADMAP.md queue 1 item {item}")
-
-
 class ScenePredictor:
     """Checkpoint-backed whole-scene change-map server.
 
@@ -131,7 +128,8 @@ class ScenePredictor:
         packed scene and, for int8, the worst clip site and ratio).
       mesh: a ``parallel.mesh.Mesh``: split each tile batch over its data
         axis's devices (a model replica on each; the grid and overlap
-        modes, bi-date and multi-date), or with ``shard_scene`` the scene.
+        modes, bi-date and multi-date), or with ``shard_scene`` the scene;
+        its ``spatial`` and ``model`` axes hold replicas.
       shard_scene: with a mesh, serve each scene as H-bands over its data
         axis (memory per device ~1/n): grid mode (buckets aligned to ``n
         * patch``), or with ``fullconv_band_rows`` seamless sharded
@@ -166,10 +164,6 @@ class ScenePredictor:
         if bundle is not None:
             folded, scales, cfg, quant = self._read_bundle(bundle, cfg,
                                                            quant, fold_bn)
-        if mesh is not None and max(mesh.shape["spatial"],
-                                    mesh.shape["model"]) > 1:
-            raise _not_ported("the spatial and model mesh axes",
-                              "10c (the spatial and model mesh axes)")
         self.multi_date = cfg.model in MULTI_DATE
         if fullconv_stream:
             if not fullconv_band_rows:

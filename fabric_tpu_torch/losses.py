@@ -8,13 +8,16 @@ class) ratios.  ``weights`` is an optional per-sample (N,) vector: weight
 0 excludes a padded row exactly.  ``bce`` is mean softmax cross-entropy
 and ``wbce`` adds a weight on the change class, as in ``fabric_tpu``.
 
-In data-parallel training (a process group, ``parallel/distributed.py``)
-every loss is the global batch's, as under ``fabric_tpu``'s jit SPMD:
-the sums it is made of (the soft counts of dice, jaccard and Tversky,
-the weighted log-likelihood and the weight of cross-entropy and focal)
-are all-reduced with their gradient before the ratio, so every rank holds
-the 1-process loss.  The mean of per-rank losses would be another
-function, with another gradient.
+In training over a process group (``parallel/distributed.py``) every
+loss is the global batch's, as under ``fabric_tpu``'s jit SPMD: the sums
+it is made of (the soft counts of dice, jaccard and Tversky, the weighted
+log-likelihood and the weight of cross-entropy and focal) are
+all-reduced with their gradient before the ratio, over the batch group
+(the ranks of one model replica, which between them hold every row of
+the batch once: on a spatial axis, the rows of each patch too, so
+``compat_reference``'s sums over batch and H are summed there as well),
+so every rank holds the 1-process loss.  The mean of per-rank losses
+would be another function, with another gradient.
 """
 
 from __future__ import annotations

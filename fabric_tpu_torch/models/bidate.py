@@ -25,6 +25,13 @@ without remat.
 (``models/blocks.py``): an unfolded model lane-packs the convs that
 ``ops/s2d_conv.supports`` admits; a folded one serves on the conv
 kernels either way.
+
+Inside ``parallel/spatial.sharded`` (a step on a mesh's spatial axis)
+each stage runs at its level (:func:`parallel.spatial.at`; inc and
+down1-4 are levels 0-4, up1-4 levels 3-0), on the rank's rows of a split
+level; the fusion and the head are pointwise, so they run on whatever
+rows the rank holds.  A rematerialised stage re-enters its level, and
+reruns its collectives, in its recompute.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from fabric_tpu_torch.models.blocks import (BatchNorm, DoubleConv, Down,
                                             OutConv, Up)
 from fabric_tpu_torch.ops import fused as fused_ops
+from fabric_tpu_torch.parallel import spatial
 
 
 def fuse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -47,14 +55,15 @@ def fuse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _stats_frozen(stage: nn.Module):
-    """The BatchNorm layers of ``stage`` leave their running averages
-    alone inside the block."""
+def _recompute(stage: nn.Module, lv):
+    """A rematerialised ``stage``'s recompute: at its level ``lv``, its
+    BatchNorm layers leaving their running averages alone."""
     layers = [m for m in stage.modules() if isinstance(m, BatchNorm)]
     for bn in layers:
         bn.update_stats = False
     try:
-        yield
+        with spatial.use(lv):
+            yield
     finally:
         for bn in layers:
             bn.update_stats = True
@@ -86,21 +95,25 @@ class BiDateNet(nn.Module):
         self.up4 = Up(2 * b, b, fold_bn, local_upsample, **lp)
         self.outc = OutConv(b, n_classes)
 
-    def _stage(self, stage: nn.Module, train: bool, *xs: torch.Tensor):
-        """``stage(*xs, train)``, rematerialised in the backward pass
-        when training with ``remat``."""
-        if not (self.remat and train):
-            return stage(*xs, train)
-        return checkpoint(stage, *xs, train, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(),
-                                              _stats_frozen(stage)))
+    def _stage(self, stage: nn.Module, levels: tuple[int, int],
+               train: bool, *xs: torch.Tensor):
+        """``stage(*xs, train)`` at its (level, source level),
+        rematerialised in the backward pass when training with
+        ``remat``."""
+        lv = spatial.level(*levels)
+        with spatial.use(lv):
+            if not (self.remat and train):
+                return stage(*xs, train)
+            return checkpoint(stage, *xs, train, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  _recompute(stage, lv)))
 
     def _encode(self, x: torch.Tensor, train: bool):
-        x1 = self._stage(self.inc, train, x)
-        x2 = self._stage(self.down1, train, x1)
-        x3 = self._stage(self.down2, train, x2)
-        x4 = self._stage(self.down3, train, x3)
-        return x1, x2, x3, x4, self._stage(self.down4, train, x4)
+        x1 = self._stage(self.inc, (0, 0), train, x)
+        x2 = self._stage(self.down1, (1, 0), train, x1)
+        x3 = self._stage(self.down2, (2, 1), train, x2)
+        x4 = self._stage(self.down3, (3, 2), train, x3)
+        return x1, x2, x3, x4, self._stage(self.down4, (4, 3), train, x4)
 
     def forward(self, x_d1: torch.Tensor, x_d2: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
@@ -117,8 +130,8 @@ class BiDateNet(nn.Module):
             d1 = self._encode(x_d1.to(self.dtype), train)
             d2 = self._encode(x_d2.to(self.dtype), train)
         f1, f2, f3, f4, f5 = (fuse(a, b) for a, b in zip(d1, d2))
-        y = self._stage(self.up1, train, f5, f4)
-        y = self._stage(self.up2, train, y, f3)
-        y = self._stage(self.up3, train, y, f2)
-        y = self._stage(self.up4, train, y, f1)
+        y = self._stage(self.up1, (3, 4), train, f5, f4)
+        y = self._stage(self.up2, (2, 3), train, y, f3)
+        y = self._stage(self.up3, (1, 2), train, y, f2)
+        y = self._stage(self.up4, (0, 1), train, y, f1)
         return self.outc(y).float()

@@ -29,6 +29,12 @@ training through ``conv3x3_lane_packed`` (the direct conv's gradients;
 followed by the eval BatchNorm kernel.  A folded block keeps the conv
 kernels whatever ``lane_pack`` says, as ``fabric_tpu``'s folded Pallas
 branch comes before its ``lane_pack`` one (``blocks.py:117-150``).
+
+On a mesh's spatial axis (``parallel/spatial.py``) the blocks of a
+split level hold the rank's rows: a conv reads a halo and is VALID in H,
+BatchNorm sums over the ranks whose rows the level spans, a Down block
+into a gathered level gathers its input, and an Up block computes its
+rows of the global upsample.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fabric_tpu_torch.ops import bn_relu as bn_relu_ops
-from fabric_tpu_torch.parallel import distributed
+from fabric_tpu_torch.parallel import distributed, spatial
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import double_conv as double_conv_ops
 from fabric_tpu_torch.ops import s2d_conv
@@ -71,10 +77,13 @@ class Conv(nn.Module):
         self.bias = _weight(cout)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
-        """SAME conv in x's dtype, NHWC, without the bias."""
+        """SAME conv in x's dtype, NHWC, without the bias (on a split
+        level: the rank's rows, from a halo)."""
+        k = self.kernel.shape[0] // 2
+        x, pad_h = spatial.halo_rows(x, k)
         y = F.conv2d(x.permute(0, 3, 1, 2),
                      self.kernel.to(x.dtype).permute(3, 2, 0, 1),
-                     padding=self.kernel.shape[0] // 2)
+                     padding=(pad_h, k))
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,12 +104,14 @@ class BatchNorm(nn.Module):
     averages where they are: the rematerialised forward of a checkpointed
     stage (``BiDateNet.remat``) repeats a forward whose update was made.
 
-    In data-parallel training (a process group,
-    ``parallel/distributed.py``) the statistics are the global batch's,
-    as under ``fabric_tpu``'s jit SPMD: the per-channel sums of x and x^2
-    are all-reduced with their gradient, and n is the global count (the
-    ranks hold equal rows).  Every rank runs these collectives in the same
-    order, the rematerialised forward's included."""
+    In training over a process group (``parallel/distributed.py``) the
+    statistics are the global batch's, as under ``fabric_tpu``'s jit
+    SPMD: the per-channel sums of x and x^2 are all-reduced with their
+    gradient over the ranks whose rows the level spans
+    (``parallel/spatial.stats_group``: the batch group, or the data group
+    at a level every spatial rank holds whole), and n is the global count
+    (the ranks hold equal rows).  Every rank runs these collectives in the
+    same order, the rematerialised forward's included."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -118,10 +129,11 @@ class BatchNorm(nn.Module):
         xf = x.float()
         axes = tuple(range(x.dim() - 1))
         n = x.numel() // x.shape[-1]
-        if distributed.active():
+        group = spatial.stats_group()
+        if group.collective:
             sums = distributed.all_reduce_sum(
-                torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
-            n *= distributed.world_size()
+                torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), group)
+            n *= group.size
             mean, sq = sums[0] / n, sums[1] / n
         else:
             mean, sq = xf.mean(axes), (xf * xf).mean(axes)
@@ -193,6 +205,12 @@ class DoubleConv(nn.Module):
             x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias, packed[0])
             return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias,
                                               packed[1])
+        lv = spatial.current()
+        if self.lane_pack and lv is not None and lv.split:
+            raise NotImplementedError(
+                "lane_pack on a level split over the spatial mesh axis is "
+                "not ported to fabric_tpu_torch yet: ROADMAP.md queue 1 "
+                "item 10d")
         for c, bn in ((c1, self.bn1), (c2, self.bn2)):
             packed = self.lane_pack and s2d_conv.supports(
                 x.shape[1], x.shape[2], x.shape[3], c.kernel.shape[-1])
@@ -219,7 +237,8 @@ def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 class Down(nn.Module):
-    """2x2 max-pool then DoubleConv."""
+    """2x2 max-pool then DoubleConv (into a gathered level: of the
+    gathered rows)."""
 
     def __init__(self, cin: int, cout: int, fold_bn: bool = True,
                  lane_pack: bool = False, lane_pack_bwd: bool = False):
@@ -227,7 +246,7 @@ class Down(nn.Module):
         self.conv = DoubleConv(cin, cout, fold_bn, lane_pack, lane_pack_bwd)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.conv(max_pool2x2(x), train)
+        return self.conv(max_pool2x2(spatial.pool_input(x)), train)
 
 
 class Up(nn.Module):
@@ -245,9 +264,18 @@ class Up(nn.Module):
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        up = upsample2x_local if self.local_upsample \
-            else upsample2x_align_corners
-        x1 = pad_to_match(up(x1), x2.shape[1], x2.shape[2])
+        lv = spatial.current()
+        if lv is not None and lv.input_split:
+            x1 = lv.upsample2x(x1, self.local_upsample)
+        else:
+            up = upsample2x_local if self.local_upsample \
+                else upsample2x_align_corners
+            x1 = up(x1)
+        if lv is not None and lv.split and not lv.input_split:
+            # from a gathered level: the rank's rows of the whole upsample
+            x1 = lv.local_rows(pad_to_match(x1, x2.shape[1] * lv.count,
+                                            x2.shape[2]))
+        x1 = pad_to_match(x1, x2.shape[1], x2.shape[2])
         return self.conv(torch.cat([x2, x1], dim=-1), train)
 
 

@@ -16,6 +16,11 @@ train=True)``) each 3-D conv adds its bias in the compute dtype, then
 BatchNorm takes its batch statistics in float32 over N*T*H*W and ReLU
 casts back to the compute dtype (``fabric_tpu/models/unet3d.py:38-52``),
 all under autograd.
+
+Inside ``parallel/spatial.sharded`` each block runs at its level, as in
+BiDateNet: a 3-D conv of a split level reads a halo of H (axis 2 of
+NTHWC; T is never split), and the pool into a gathered level gathers its
+input.
 """
 
 from __future__ import annotations
@@ -26,18 +31,24 @@ from torch import nn
 
 from fabric_tpu_torch.models.blocks import (BatchNorm, OutConv, Up, _weight,
                                             max_pool2x2)
+from fabric_tpu_torch.parallel import spatial
 
 
 def conv3d_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """SAME 3x3x3 conv of an NDHWC tensor by a DHWIO kernel, in x's dtype,
-    without bias; the output is contiguous NDHWC."""
+    without bias; the output is contiguous NDHWC (on a split level: the
+    rank's rows, from a halo)."""
+    x, pad_h = spatial.halo_rows(x, 1, axis=2)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3),
-                 kernel.to(x.dtype).permute(4, 3, 0, 1, 2), padding=1)
+                 kernel.to(x.dtype).permute(4, 3, 0, 1, 2),
+                 padding=(1, pad_h, 1))
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 def spatial_pool(x: torch.Tensor) -> torch.Tensor:
-    """2x2 max-pool over H and W of an (N, T, H, W, C) tensor; T kept."""
+    """2x2 max-pool over H and W of an (N, T, H, W, C) tensor; T kept
+    (into a gathered level: of the gathered rows)."""
+    x = spatial.pool_input(x, axis=2)
     n, t = x.shape[:2]
     y = max_pool2x2(x.reshape((n * t,) + x.shape[2:]))
     return y.reshape((n, t) + y.shape[1:])
@@ -109,14 +120,23 @@ class UNet3D(nn.Module):
                 ) -> torch.Tensor:
         """seq: (N, T, H, W, n_channels).  Returns float32 logits (N, H, W,
         n_classes); ``train`` uses (and moves) batch statistics."""
-        x1 = self.inc(seq.to(self.dtype), train)
-        x2 = self.down1(spatial_pool(x1), train)
-        x3 = self.down2(spatial_pool(x2), train)
-        x4 = self.down3(spatial_pool(x3), train)
-        x5 = self.down4(spatial_pool(x4), train)
+        with spatial.at(0):
+            x1 = self.inc(seq.to(self.dtype), train)
+        with spatial.at(1, 0):
+            x2 = self.down1(spatial_pool(x1), train)
+        with spatial.at(2, 1):
+            x3 = self.down2(spatial_pool(x2), train)
+        with spatial.at(3, 2):
+            x4 = self.down3(spatial_pool(x3), train)
+        with spatial.at(4, 3):
+            x5 = self.down4(spatial_pool(x4), train)
         s1, s2, s3, s4 = (v.amax(dim=1) for v in (x1, x2, x3, x4))
-        y = self.up1(x5.mean(dim=1), s4, train)
-        y = self.up2(y, s3, train)
-        y = self.up3(y, s2, train)
-        y = self.up4(y, s1, train)
+        with spatial.at(3, 4):
+            y = self.up1(x5.mean(dim=1), s4, train)
+        with spatial.at(2, 3):
+            y = self.up2(y, s3, train)
+        with spatial.at(1, 2):
+            y = self.up3(y, s2, train)
+        with spatial.at(0, 1):
+            y = self.up4(y, s1, train)
         return self.outc(y).float()

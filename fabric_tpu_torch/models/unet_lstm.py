@@ -39,6 +39,12 @@ eval forward after an optimizer step takes the signed weights anew
 The conv kernel takes bf16 only, so the signed route is a bf16 eval
 forward's, on the card and (on its plain version) on the CPU alike: an
 fp32 or fp64 eval forward computes the gate conv with ``self.gates``.
+
+Inside ``parallel/spatial.sharded`` each block runs at its level, as in
+BiDateNet; the ConvLSTM at the bottleneck's (4), its gate conv reading a
+halo when that level is split (the signed route: the kernel's SAME conv
+of the halo-extended rows, less its first and last rows), and the T-date
+fusion on the rank's rows.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from torch import nn
 from fabric_tpu_torch.models.blocks import (Conv, DoubleConv, Down, OutConv,
                                             Up, weights_key)
 from fabric_tpu_torch.ops import conv as conv_ops
+from fabric_tpu_torch.parallel import spatial
 
 
 def multi_date_fuse(feats: torch.Tensor) -> torch.Tensor:
@@ -110,7 +117,13 @@ class ConvLSTMCell(nn.Module):
         # the card and (its plain version) on the CPU alike
         signed = (self.exact_crops and not train
                   and xh.dtype == torch.bfloat16)
-        z = signed_conv(xh, *self.signed_gates()) if signed else self.gates(xh)
+        if not signed:
+            z = self.gates(xh)
+        else:
+            ext, pad = spatial.halo_rows(xh, 1)
+            z = signed_conv(ext, *self.signed_gates())
+            if not pad:  # the kernel's rows of the halo-extended input
+                z = z[:, 1:-1]
         return self.step(z, c)
 
 
@@ -144,19 +157,29 @@ class UNetLSTM(nn.Module):
         n_classes); ``train`` uses (and moves) batch statistics."""
         n, t = seq.shape[:2]
         x = seq.reshape((n * t,) + seq.shape[2:]).to(self.dtype)
-        x1 = self.inc(x, train)
-        x2 = self.down1(x1, train)
-        x3 = self.down2(x2, train)
-        x4 = self.down3(x3, train)
-        x5 = self.down4(x4, train)
+        with spatial.at(0):
+            x1 = self.inc(x, train)
+        with spatial.at(1, 0):
+            x2 = self.down1(x1, train)
+        with spatial.at(2, 1):
+            x3 = self.down2(x2, train)
+        with spatial.at(3, 2):
+            x4 = self.down3(x3, train)
+        with spatial.at(4, 3):
+            x5 = self.down4(x4, train)
         s1, s2, s3, s4, bott = (v.reshape((n, t) + v.shape[1:])
                                 for v in (x1, x2, x3, x4, x5))
         h = bott.new_zeros(bott.shape[:1] + bott.shape[2:])
         c = torch.zeros_like(h)
-        for step in range(t):
-            h, c = self.bottleneck_lstm(bott[:, step], h, c, train)
-        y = self.up1(h, multi_date_fuse(s4), train)
-        y = self.up2(y, multi_date_fuse(s3), train)
-        y = self.up3(y, multi_date_fuse(s2), train)
-        y = self.up4(y, multi_date_fuse(s1), train)
+        with spatial.at(4):
+            for step in range(t):
+                h, c = self.bottleneck_lstm(bott[:, step], h, c, train)
+        with spatial.at(3, 4):
+            y = self.up1(h, multi_date_fuse(s4), train)
+        with spatial.at(2, 3):
+            y = self.up2(y, multi_date_fuse(s3), train)
+        with spatial.at(1, 2):
+            y = self.up3(y, multi_date_fuse(s2), train)
+        with spatial.at(0, 1):
+            y = self.up4(y, multi_date_fuse(s1), train)
         return self.outc(y).float()

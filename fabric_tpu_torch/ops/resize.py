@@ -8,6 +8,15 @@ The shift-invariant local upsample (:func:`upsample2x_local`), which the
 fullconv serving mode needs, interleaves each input with the midpoint of
 its next neighbour.  These are plain PyTorch ops; ``fabric_tpu`` left them
 to XLA, outside any Pallas kernel.
+
+A rank that holds rows of a height-split image (``parallel/spatial.py``)
+computes its rows of either upsample from its rows and one row of halo:
+:func:`upsample2x_align_corners_rows` takes the rank's rows of the
+*global* image's interpolation matrix (a matrix built from the rank's
+own height would be another resize), and every output row of a shard
+reads input rows within one row of the shard (the source row of output
+o is o (h-1)/(2h-1), within half a row of o/2);
+:func:`upsample2x_local` takes the next shard's first row.
 """
 
 from __future__ import annotations
@@ -79,28 +88,61 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     return resize_align_corners(x, 2 * x.shape[1], 2 * x.shape[2])
 
 
-def _up1d_local(x: torch.Tensor, axis: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=128)
+def _band_tensor(height: int, first: int, rows: int, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Rows [2 first, 2 (first + rows)) of the (2 height, height)
+    align-corners matrix, over the input rows [first - 1, first + rows +
+    1) (a zero column for a row past the image's edge), on ``device``
+    once (as :func:`_interp_tensor`)."""
+    m = np.zeros((2 * height, height + 2), np.float32)
+    m[:, 1:-1] = _interp_matrix(2 * height, height)
+    m = np.ascontiguousarray(
+        m[2 * first:2 * (first + rows), first:first + rows + 2])
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device, dtype)
+
+
+def upsample2x_align_corners_rows(x: torch.Tensor, first: int,
+                                  height: int) -> torch.Tensor:
+    """Rows [2 first, 2 (first + h)) of the 2x align-corners upsample of a
+    ``height``-row (N, height, W, C) image, from ``x``: its rows [first -
+    1, first + h + 1) (N, h + 2, W, C), zeros past the image's edges.  The
+    same products and roundings as :func:`upsample2x_align_corners`."""
+    wh = _band_tensor(height, first, x.shape[1] - 2, x.device, x.dtype)
+    ww = _interp(2 * x.shape[2], x.shape[2], x.device, x.dtype)
+    y = torch.einsum("nhwc,Hh->nHwc", x, wh)
+    return torch.einsum("nhwc,Ww->nhWc", y, ww).contiguous()
+
+
+def _up1d_local(x: torch.Tensor, axis: int,
+                after: torch.Tensor | None = None) -> torch.Tensor:
     """Shift-invariant 2x upsample along ``axis``: even outputs copy the
     inputs, odd outputs are the midpoints ``(x[i] + x[i+1]) * 0.5`` taken
-    in float32 and rounded once to x's dtype (the last one clamps to the
-    edge: x[-1] twice)."""
+    in float32 and rounded once to x's dtype; the last one reads
+    ``after``, the row past x's end (default: clamped to the edge, x[-1]
+    twice)."""
     n = x.shape[axis]
-    nxt = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)],
-                    dim=axis)
+    if after is None:
+        after = x.narrow(axis, n - 1, 1)
+    nxt = torch.cat([x.narrow(axis, 1, n - 1), after], dim=axis)
     mid = ((x.float() + nxt.float()) * 0.5).to(x.dtype)
     shape = list(x.shape)
     shape[axis] *= 2
     return torch.stack([x, mid], dim=axis + 1).reshape(shape)
 
 
-def upsample2x_local(x: torch.Tensor) -> torch.Tensor:
+def upsample2x_local(x: torch.Tensor,
+                     after: torch.Tensor | None = None) -> torch.Tensor:
     """Shift-invariant bilinear 2x upsample of an (N, H, W, C) or (H, W, C)
     tensor: ``out[2i] = x[i]``, ``out[2i+1] = (x[i] + x[i+1]) / 2`` along
-    each spatial axis, edge-clamped at the far end.  Unlike the
-    align-corners grid it commutes with crops at even offsets, which lets
-    ``infer/fullconv.py`` run the network over halo-extended scene bands
-    and reproduce a whole-scene forward exactly.  Differentiable."""
-    return _up1d_local(_up1d_local(x, x.dim() - 3), x.dim() - 2)
+    each spatial axis, edge-clamped at the far end; ``after`` is the row
+    that follows x's last in H (a height-split image's next shard's first
+    row; default: the edge clamp).  Unlike the align-corners grid it
+    commutes with crops at even offsets, which lets ``infer/fullconv.py``
+    run the network over halo-extended scene bands and reproduce a
+    whole-scene forward exactly.  Differentiable."""
+    return _up1d_local(_up1d_local(x, x.dim() - 3, after), x.dim() - 2)
 
 
 def pad_to_match(x: torch.Tensor, target_h: int,

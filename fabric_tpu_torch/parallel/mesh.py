@@ -14,13 +14,18 @@ There is no ``NamedSharding``.  What stands in for it:
   devices of the list: each shard's H-band of a scene
   (``infer/sharded_scene.py``, ``infer/fullconv.make_sharded_fullconv_infer``)
   or its slice of a tile batch (``infer/device_tiling.make_scene_infer``);
-- training puts the data axis over the processes of a
-  ``torch.distributed`` group, one card each (``parallel/distributed.py``):
-  each rank materialises its own row slice of every global batch
-  (``data/pipeline.batch_iterator``'s ``process_index``).
-
-Only the data axis is ported; ``spatial`` and ``model`` above 1 wait for
-ROADMAP.md queue 1 item 10c.
+  serving replicates the model over the ``spatial`` and ``model`` axes,
+  as ``fabric_tpu``'s ``ScenePredictor`` does;
+- training and evaluation lay the mesh over the processes of a
+  ``torch.distributed`` group, one card each
+  (``parallel/distributed.set_mesh``: rank r at (d, s, m), r = (d*S +
+  s)*M + m): each rank materialises the rows of its data slice of every
+  global batch (``data/pipeline.batch_iterator``'s ``process_index``),
+  and of those its S-th of each patch's height (``spatial_index``), as
+  ``fabric_tpu``'s ``batch_shardings`` place a batch over ("data",
+  "spatial"); the ``model`` axis holds replicas (``fabric_tpu`` places
+  nothing over it).  The forward's halo exchanges, which XLA's
+  partitioner makes for ``fabric_tpu``, are ``parallel/spatial.py``'s.
 """
 
 from __future__ import annotations
@@ -60,16 +65,20 @@ def indexed_device(device: torch.device) -> torch.device:
 
 
 def visible_devices() -> list[torch.device]:
-    """The visible cards, or the CPU when there is none."""
+    """The visible cards; raises when there is none (a mesh of CPU
+    "devices" is asked for by passing ``devices``)."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return ([torch.device("cuda", i) for i in range(n)]
-            or [torch.device("cpu")])
+    if not n:
+        raise RuntimeError("no CUDA device is visible; pass devices=['cpu'] "
+                           "* n to lay a mesh over the CPU")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def make_mesh(data: int = -1, spatial: int = 1, model: int = 1,
               devices=None) -> Mesh:
     """A (data, spatial, model) mesh over ``devices`` (default: the visible
-    cards); ``data`` -1 takes all the devices that remain."""
+    cards, raising without one); ``data`` -1 takes all the devices that
+    remain."""
     devices = list(devices) if devices is not None else visible_devices()
     n = len(devices)
     if data == -1:

@@ -1,9 +1,9 @@
 """Multi-GPU check on a host with several cards: sharded serving over every
-visible card against one card, and data-parallel training in one NCCL rank
-per card against one process.
+visible card against one card, and training in one NCCL rank per card,
+on (data, spatial, model) meshes of them, against one process.
 
     python -m fabric_tpu_torch.tools.multigpu_check [--scene 4096]
-        [--steps 10]
+        [--steps 10] [--meshes nx1x1,1xnx1,2x(n/2)x1] [--train_only]
 
 Serving: a ``--scene``^2 bi-date pair (BiDateNet base 64, patch 64, batch
 256, weights from seed 0) through ``ScenePredictor`` on ``cuda:0``, then
@@ -16,11 +16,15 @@ clock, every card synchronised).
 
 Training: ``train.loop.train`` on a synthetic dataset (four ~1024^2
 cities, patch 96, global batch 128, tversky + SGD) in one process per card
-over NCCL (``FABRIC_*`` variables, ``maybe_initialize``) against one
-process on ``cuda:0``, on the same global batches: fp32 for 3 steps, the
-loss, parameters and running statistics held to ``chip_smoke.py``'s
-``dp_train`` bounds, the ranks equal; then bf16 for 2 epochs of
-``--steps`` steps, the steady (second) epoch's train examples/s of both.
+over NCCL (``FABRIC_*`` variables, ``maybe_initialize``), the cards laid
+out as each mesh of ``--meshes`` (n the card count; default: data-parallel
+n x 1 x 1, the height split over every card 1 x n x 1, and 2 x n/2 x 1),
+against one process on ``cuda:0``, on the same global batches: fp32 for 3
+steps, the loss, parameters and running statistics held to
+``chip_smoke.py``'s ``dp_train`` bounds, the ranks equal, each card's peak
+allocated memory beside one card's; then bf16 for 2 epochs of ``--steps``
+steps, the steady (second) epoch's train examples/s of each.
+``--train_only`` skips the serving check.
 
 Exits non-zero on any mismatch.  A rank runs as ``--rank_run <json>``.
 """
@@ -149,6 +153,7 @@ def rank_run(spec: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     distributed.maybe_initialize()
     try:
+        torch.cuda.reset_peak_memory_stats()
         state, history = train(Config(**spec["cfg"]),
                                run_scene_inference=False)
         params, stats = variables_of(state.model)
@@ -157,7 +162,8 @@ def rank_run(spec: dict) -> None:
                  **{"params/" + k: v for k, v in flatten_tree(params).items()},
                  **{"stats/" + k: v for k, v in flatten_tree(stats).items()})
         with open(os.path.join(spec["out"], f"history_{r}.json"), "w") as f:
-            json.dump(history, f)
+            json.dump({"history": history, "peak_mib":
+                       torch.cuda.max_memory_allocated() / 2 ** 20}, f)
     finally:
         distributed.shutdown()
 
@@ -199,7 +205,19 @@ def _load(out: str, r: int = 0):
         return dict(np.load(os.path.join(out, f"vars_{r}.npz"))), json.load(f)
 
 
-def train_check(steps: int) -> bool:
+def _mesh_shapes(spec: str | None, n: int) -> list[tuple[int, int, int]]:
+    """The (data, spatial, model) meshes of ``--meshes`` ("DxSxM,...")."""
+    if spec is None:
+        return [(n, 1, 1), (1, n, 1)] + ([(2, n // 2, 1)]
+                                         if n >= 4 and n % 2 == 0 else [])
+    shapes = [tuple(int(v) for v in m.split("x")) for m in spec.split(",")]
+    for shape in shapes:
+        if int(np.prod(shape)) != n:
+            raise SystemExit(f"mesh {shape} does not lay out {n} cards")
+    return shapes
+
+
+def train_check(steps: int, meshes: list[tuple[int, int, int]]) -> bool:
     from fabric_tpu_torch.config import Config
     from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
     from fabric_tpu_torch.weights import flatten_tree, init_variables
@@ -215,45 +233,57 @@ def train_check(steps: int) -> bool:
                     loss_function="tversky", optimizer="sgd", model_base=BASE,
                     validation_cities=["val"], num_workers=2, seed=7)
         parity = dict(base, dtype="float32", epochs=1, steps_per_epoch=3)
-        (v1, h1), (vr, hr) = (_load(_train(root, "fp32_1", 1, parity)),
-                              _load(_train(root, "fp32_n", n, parity)))
-        others = [_load(os.path.join(root, "fp32_n"), r)[0]
-                  for r in range(1, n)]
-        ranks_equal = all(np.array_equal(vr[k], o[k]) for o in others
-                          for k in vr)
-        params = [k for k in v1 if k.startswith("params/")]
-        stats = [k for k in v1 if k.startswith("stats/")]
         init = flatten_tree(init_variables(
             13, 2, BASE, torch.Generator().manual_seed(base["seed"]))[0])
+        v1, r1 = _load(_train(root, "fp32_1", 1, parity))
+        h1 = r1["history"]
+        params = [k for k in v1 if k.startswith("params/")]
+        stats = [k for k in v1 if k.startswith("stats/")]
         step_max = max(np.abs(v1[k] - init[k[len("params/"):]]).max()
                        for k in params)
-        p_err = max(np.abs(vr[k] - v1[k]).max() for k in params)
-        s_err = max(np.abs(vr[k] - v1[k]).max() / np.abs(v1[k]).max()
-                    for k in stats)
-        l1, ln = (h["train"][0]["cd_losses"] for h in (h1, hr))
-        l_err = abs(ln - l1) / abs(l1)
-        # chip_smoke.py's dp_train bounds
-        good = (ranks_equal and l_err <= 1e-5 and p_err <= 1e-2 * step_max
-                and s_err <= 1e-4)
-        ok &= good
-        print(f"train fp32, {n} NCCL ranks vs 1 process, 3 steps of 128: "
-              f"loss rel {l_err:.3g} (bound 1e-5), params max diff "
-              f"{p_err:.3g} (bound 1e-2 x largest update {step_max:.4g}), "
-              f"BN stats "
-              f"{s_err:.3g} of their largest magnitude (bound 1e-4), ranks "
-              f"equal {ranks_equal}: {'ok' if good else 'MISMATCH'}",
-              flush=True)
+        for d, s, m in meshes:
+            tag = f"fp32_{d}x{s}x{m}"
+            cfg = dict(parity, mesh_data=d, mesh_spatial=s, mesh_model=m)
+            out = _train(root, tag, n, cfg)
+            loaded = [_load(out, r) for r in range(n)]
+            vr, hr = loaded[0][0], loaded[0][1]["history"]
+            ranks_equal = all(np.array_equal(vr[k], o[0][k])
+                              for o in loaded[1:] for k in vr)
+            p_err = max(np.abs(vr[k] - v1[k]).max() for k in params)
+            s_err = max(np.abs(vr[k] - v1[k]).max() / np.abs(v1[k]).max()
+                        for k in stats)
+            l1, ln = (h["train"][0]["cd_losses"] for h in (h1, hr))
+            l_err = abs(ln - l1) / abs(l1)
+            # chip_smoke.py's dp_train bounds
+            good = (ranks_equal and l_err <= 1e-5
+                    and p_err <= 1e-2 * step_max and s_err <= 1e-4)
+            ok &= good
+            print(f"train fp32, mesh {d}x{s}x{m} of {n} NCCL ranks vs 1 "
+                  f"process, 3 steps of 128: loss rel {l_err:.3g} (bound "
+                  f"1e-5), params max diff {p_err:.3g} (bound 1e-2 x "
+                  f"largest update {step_max:.4g}), BN stats {s_err:.3g} "
+                  f"of their largest magnitude (bound 1e-4), ranks equal "
+                  f"{ranks_equal}; peak allocated per card "
+                  f"{[round(o[1]['peak_mib']) for o in loaded]} MiB against "
+                  f"{round(r1['peak_mib'])} on one card: "
+                  f"{'ok' if good else 'MISMATCH'}", flush=True)
         rate = dict(base, dtype="bfloat16", epochs=2, steps_per_epoch=steps)
-        for tag, world in (("bf16_1", 1), ("bf16_n", n)):
-            out = _train(root, tag, world, rate)
+        for tag, world, (d, s, m) in [("bf16_1", 1, (1, 1, 1))] + [
+                (f"bf16_{d}x{s}x{m}", n, (d, s, m)) for d, s, m in meshes]:
+            out = _train(root, tag, world, dict(
+                rate, mesh_data=d, mesh_spatial=s, mesh_model=m))
             run = os.path.join(out, "l", os.listdir(os.path.join(out,
                                                                  "l"))[0])
             recs = [json.loads(x) for x in open(os.path.join(
                 run, "metrics.jsonl")) if "train_examples_per_sec" in x]
-            print(f"train bf16, {world} process(es), global batch 128: "
-                  f"steady epoch {recs[-1]['train_examples_per_sec']:.1f} "
-                  f"train examples/s, step p50 "
-                  f"{recs[-1]['train_p50_step_s'] * 1e3:.1f} ms", flush=True)
+            peaks = [round(_load(out, r)[1]["peak_mib"])
+                     for r in range(world)]
+            print(f"train bf16, mesh {d}x{s}x{m} ({world} process(es)), "
+                  f"global batch 128: steady epoch "
+                  f"{recs[-1]['train_examples_per_sec']:.1f} train "
+                  f"examples/s, step p50 "
+                  f"{recs[-1]['train_p50_step_s'] * 1e3:.1f} ms; peak "
+                  f"allocated per card {peaks} MiB", flush=True)
     return ok
 
 
@@ -261,6 +291,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--meshes", default=None,
+                    help="training meshes DxSxM,... of the cards (default: "
+                         "nx1x1,1xnx1,2x(n/2)x1)")
+    ap.add_argument("--train_only", action="store_true",
+                    help="skip the serving check")
     ap.add_argument("--rank_run", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank_run:
@@ -273,8 +308,12 @@ def main(argv=None) -> int:
     _build.build()
     print(", ".join(torch.cuda.get_device_name(i)
                     for i in range(torch.cuda.device_count())), flush=True)
-    ok = serve(args.scene)
-    ok &= train_check(args.steps)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    n = torch.cuda.device_count()
+    ok = True if args.train_only else serve(args.scene)
+    ok &= train_check(args.steps, _mesh_shapes(args.meshes, n))
     print("multigpu_check:", "ok" if ok else "FAILED", flush=True)
     return 0 if ok else 1
 

@@ -21,25 +21,32 @@ periodic checkpoint.  Each train step is timed on the host clock
 ``cfg.profile_steps`` train steps are traced there (``torch.profiler``,
 the card's kernels included).
 
-Data-parallel training runs one process per card in a
+Training on several cards runs one process per card in a
 ``torch.distributed`` group (``parallel/distributed.maybe_initialize``,
-as ``cli.train`` calls it): the data axis of the mesh is the processes
-(``cfg.mesh_data`` -1 or the world size; more raises, as ``fabric_tpu``
-raises for missing devices).  Every rank derives the same global batch
-order and materialises its own ``batch_size / world size`` rows (an
-indivisible batch raises, as ``fabric_tpu``'s multi-process pipeline
-does), the BatchNorm statistics, the loss and the confusion counts are
-the global batch's, and the update takes the mean of the ranks'
+as ``cli.train`` calls it), with the config's (data, spatial, model)
+mesh laid over the processes (``parallel/distributed.set_mesh``;
+``cfg.mesh_data`` -1 takes the processes the other axes leave; a mesh of
+another size raises, as ``fabric_tpu`` raises for missing devices).
+Every rank derives the same global batch order and materialises the
+``batch_size / D`` rows of its data slice (an indivisible batch raises,
+as ``fabric_tpu``'s multi-process pipeline does) and, on a spatial axis
+of S, its S-th of each patch's height, as ``fabric_tpu``'s
+``batch_shardings`` place a batch over ("data", "spatial"); the ranks of
+the ``model`` axis hold replicas, since ``fabric_tpu`` places nothing
+over it.  The BatchNorm statistics, the loss and the confusion counts are
+the global batch's, the forward's halo exchanges are
+``parallel/spatial.py``'s, and the update takes the mean of the ranks'
 gradients, so the run computes what one process computes on the same
 global batches.  The parameters and buffers are broadcast from rank 0
 after the start or a resume.  Only rank 0 writes (the tracker; the
 others get a ``NullTracker``), checkpoints, mirrors to the store, traces
 and runs the scene inference of the validation cities (no collective
-runs there, so the other ranks go on to the next epoch); the ranks agree
-on a preemption request every step (a host all-reduce), so that all of
-them unwind at the same step.  ``compat_reference``'s sequential
-augmentation stream and ragged last batch are single-process, as in
-``fabric_tpu``: several ranks keep the keyed augmentation and whole
+runs there, so the other ranks go on to the next epoch); the validation
+previews gather their rows over the spatial group first.  The ranks
+agree on a preemption request every step (a host all-reduce), so that
+all of them unwind at the same step.  ``compat_reference``'s sequential
+augmentation stream and ragged last batch need one data slice, as in
+``fabric_tpu``: several data ranks keep the keyed augmentation and whole
 batches.
 
 The batches come from ``cfg.num_workers`` worker processes
@@ -53,7 +60,8 @@ directory, is mirrored to the store (``store.py``), and ``cfg.resume``
 may name a store URI.
 
 Options of ``fabric_tpu``'s loop that the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``NotImplementedError`` naming their ROADMAP.md item (``lane_pack`` on a
+split level, item 10d, raises in ``models/blocks.py``).
 """
 
 from __future__ import annotations
@@ -78,11 +86,11 @@ from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_iterator,
                                             prefetch_to_device,
                                             replay_aug_draws)
 from fabric_tpu_torch.infer.runner import infer_city
-from fabric_tpu_torch.infer.service import _not_ported, resolve_device
+from fabric_tpu_torch.infer.service import resolve_device
 from fabric_tpu_torch.losses import get_loss_fn
 from fabric_tpu_torch.metrics import MetricAccumulator, prf1_from_counts
 from fabric_tpu_torch.models import MULTI_DATE, build_model
-from fabric_tpu_torch.parallel import distributed
+from fabric_tpu_torch.parallel import distributed, spatial
 from fabric_tpu_torch.parallel.mesh import indexed_device
 from fabric_tpu_torch.store import open_store
 from fabric_tpu_torch.track import NullTracker, Tracker
@@ -98,22 +106,18 @@ _STAT_KEYS = ("loss", "tp", "fp", "fn", "tn")
 _COUNT_KEYS = ("tp", "fp", "fn", "tn")
 
 
-def _check_ported(cfg) -> None:
-    """Raise for a config option of fabric_tpu's loop that is not ported
-    (the model checks its own), and for a data axis that is not the
-    process group's."""
-    if max(cfg.mesh_spatial, cfg.mesh_model) > 1:
-        raise _not_ported("the spatial and model mesh axes",
-                          "10c (the spatial and model mesh axes)")
+def set_mesh(cfg) -> None:
+    """Lay ``cfg``'s (data, spatial, model) mesh over the process group,
+    one process a device (``mesh_data`` -1 takes the processes that the
+    other axes leave); a ValueError for a mesh of another size."""
     world = distributed.world_size()
-    if cfg.mesh_data > world:
-        raise ValueError(f"mesh {cfg.mesh_data}x{cfg.mesh_spatial}x"
-                         f"{cfg.mesh_model} needs {cfg.mesh_data} devices, "
-                         f"have {world} (the data axis spans the "
-                         f"processes, one card each)")
-    if cfg.mesh_data not in (-1, world):
-        raise ValueError(f"mesh_data={cfg.mesh_data}: the data axis spans "
-                         f"the {world} processes (-1 or {world})")
+    s, m = cfg.mesh_spatial, cfg.mesh_model
+    d = max(world // (s * m), 1) if cfg.mesh_data == -1 else cfg.mesh_data
+    if d * s * m != world:
+        raise ValueError(f"mesh {d}x{s}x{m} needs {d * s * m} devices, "
+                         f"have {world} (the mesh spans the processes, one "
+                         f"card each)")
+    distributed.set_mesh(d, s, m)
 
 
 class _ProfileCapture:
@@ -214,18 +218,23 @@ def _denorm_rgb(img: np.ndarray) -> np.ndarray:
 
 def _log_val_patches(tracker, epoch: int, batch, stats) -> None:
     """Comparison figures of every 10th sample of the first val batch (a
-    multi-date batch shows its first and last dates as the pair)."""
+    multi-date batch shows its first and last dates as the pair).  Every
+    rank calls it: the samples' rows are gathered over the spatial group
+    (a collective), and the primary alone logs."""
     if "imgs" in batch:
         first, last = batch["imgs"][:, 0], batch["imgs"][:, -1]
     else:
         first, last = batch["img1"], batch["img2"]
-    imgs1, imgs2, labels, preds = (t.cpu().numpy() for t in (
+    first, last, label, preds = (spatial.gather_rows(t[::10]) for t in (
         first, last, batch["label"], stats["preds"]))
-    for sample in range(0, imgs1.shape[0], 10):
-        tracker.log_figure(f"epoch_{epoch}_cd_sample_{sample}",
-                           _denorm_rgb(imgs1[sample]),
-                           _denorm_rgb(imgs2[sample]),
-                           labels[sample], preds[sample])
+    if not distributed.is_primary():
+        return
+    imgs1, imgs2, labels, preds = (t.cpu().numpy() for t in (
+        first, last, label, preds))
+    for i in range(imgs1.shape[0]):
+        tracker.log_figure(f"epoch_{epoch}_cd_sample_{10 * i}",
+                           _denorm_rgb(imgs1[i]), _denorm_rgb(imgs2[i]),
+                           labels[i], preds[i])
 
 
 def _log_scene_figure(tracker, cfg, city: str, epoch: int,
@@ -254,8 +263,8 @@ class EpochBatches:
     ``cfg.num_workers`` worker processes (``data/loader.py``), started at
     the first epoch that asks and kept for the run, or with 0 workers, or
     under ``compat_reference`` in one process, from the prefetch thread.
-    In data-parallel training each rank's batches are its rows of the
-    global batch.
+    On a mesh each rank's batches are its data slice's rows of the global
+    batch, and of each patch its spatial slice's rows.
 
     Under ``compat_reference`` in one process the training batches draw
     their augmentation from one ``random.Random(cfg.seed)`` stream,
@@ -268,7 +277,10 @@ class EpochBatches:
         self.cfg, self.train_md, self.val_md = cfg, train_md, val_md
         self.device = device
         self.multi_date = cfg.model in MULTI_DATE
-        self.rank = (distributed.rank(), distributed.world_size())
+        d, s, _ = distributed.coords()
+        shape = distributed.mesh_shape()
+        # (data index, data count, spatial index, spatial count)
+        self.rank = (d, shape["data"], s, shape["spatial"])
         single = self.rank[1] == 1
         self.ragged = cfg.compat_reference and single
         self.compat_aug = None
@@ -299,8 +311,13 @@ class EpochBatches:
                 shuffle=shuffle, pad_mode=pad_mode,
                 num_workers=self.workers, device=self.device,
                 prefetch=self.cfg.prefetch, multi_date=self.multi_date,
-                process_index=self.rank[0], process_count=self.rank[1])
+                **self._slices())
         return self._loaders[name]
+
+    def _slices(self) -> dict:
+        d, dn, s, sn = self.rank
+        return dict(process_index=d, process_count=dn, spatial_index=s,
+                    spatial_count=sn)
 
     def train(self, epoch: int, skip: int = 0):
         """Epoch ``epoch``'s shuffled, augmented, wrap-padded batches from
@@ -321,8 +338,7 @@ class EpochBatches:
                            pad_mode="wrap", seed=cfg.seed + epoch,
                            max_batches=cfg.steps_per_epoch,
                            skip_batches=skip, ragged_tail=self.ragged,
-                           process_index=self.rank[0],
-                           process_count=self.rank[1]),
+                           **self._slices()),
             self.device, size=cfg.prefetch)
 
     def val(self):
@@ -338,8 +354,7 @@ class EpochBatches:
                                         multi_date=self.multi_date),
                            cfg.eval_batch_size, shuffle=False,
                            pad_mode="mask", max_batches=cfg.steps_per_epoch,
-                           process_index=self.rank[0],
-                           process_count=self.rank[1]),
+                           **self._slices()),
             self.device, size=cfg.prefetch)
 
     def close(self) -> None:
@@ -360,7 +375,7 @@ def train(cfg, dataset: dict | None = None, tracker=None,
     loaded, fetched by rank 0 if need be); ``metadata`` the (train, val)
     patch lists; ``preemption_guard`` a pre-built guard (else one is
     installed on SIGTERM when ``cfg.handle_preemption``)."""
-    _check_ported(cfg)
+    set_mesh(cfg)
     device = indexed_device(resolve_device(device))
     if dataset is None:
         cfg.dataset_dir = ensure_dataset(cfg)
@@ -574,9 +589,8 @@ def _run_epochs(cfg, state, batches, tracker, device, train_step,
                  {k: round(v, 4) for k, v in mean_train.items()})
 
         _epoch(eval_step, state, batches.val(), val_acc, train=False,
-               on_first_batch=(lambda b, s: _log_val_patches(tracker, epoch,
-                                                             b, s))
-               if primary else None,
+               on_first_batch=lambda b, s: _log_val_patches(tracker, epoch,
+                                                            b, s),
                tracker=tracker, log_every=cfg.log_every,
                prefix="batch_validate_")
         mean_val = val_acc.means()

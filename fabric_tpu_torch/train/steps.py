@@ -7,12 +7,16 @@ as device scalars and never waits for the device, so a loop of steps
 syncs only where the caller reads them.  A multi-date batch carries its
 (N, T, H, W, C) stack as ``imgs``, a bi-date one ``img1`` and ``img2``.
 
-In data-parallel training (a process group) a batch is the rank's rows
-of the global batch: the loss and the BatchNorm statistics are global
-already (``losses.py``, ``models/blocks.BatchNorm``), the train step
-takes the mean of the ranks' gradients before the update, and both steps
-sum the confusion counts over the ranks, so every rank returns the
-1-process stats.
+In training over a (data, spatial, model) mesh of ranks (a process
+group, ``parallel/distributed.set_mesh``) a batch is the rank's rows of
+the global batch, and with a spatial axis the rank's rows of each
+patch's height, which the forward and backward run on
+(``parallel/spatial.sharded``): the loss and the BatchNorm statistics are
+global already (``losses.py``, ``models/blocks.BatchNorm``), the train
+step takes the mean of the ranks' gradients before the update, and both
+steps sum the confusion counts over the batch group (the ranks of one
+model replica), so every rank returns the 1-process stats;
+``stats["preds"]`` holds the rank's rows.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Callable
 import torch
 
 from fabric_tpu_torch.metrics import confusion_counts
-from fabric_tpu_torch.parallel import distributed
+from fabric_tpu_torch.parallel import distributed, spatial
 
 
 def _counts(preds, batch) -> dict:
@@ -43,6 +47,11 @@ def _logits(model, batch: dict, train: bool = False) -> torch.Tensor:
     return model(batch["img1"], batch["img2"], train=train)
 
 
+def _rows(batch: dict) -> int:
+    """The rows of each patch that the batch holds (its labels' H)."""
+    return batch["label"].shape[1]
+
+
 def make_train_step(model, loss_fn: Callable):
     """``train_step(state, batch) -> (state, stats)``: one optimizer
     update of ``state`` in place (batch-statistics BatchNorm, whose
@@ -51,9 +60,11 @@ def make_train_step(model, loss_fn: Callable):
     def train_step(state, batch):
         for p in state.tx.params.values():
             p.grad = None
-        logits = _logits(state.model, batch, train=True)
-        loss = loss_fn(logits, batch["label"], weights=batch.get("weight"))
-        loss.backward()
+        with spatial.sharded(_rows(batch)):
+            logits = _logits(state.model, batch, train=True)
+            loss = loss_fn(logits, batch["label"],
+                           weights=batch.get("weight"))
+            loss.backward()
         distributed.mean_gradients(state.tx.params.values())
         state.apply_gradients()
         stats = _counts(logits.detach().argmax(-1), batch)
@@ -69,7 +80,8 @@ def make_eval_step(model, loss_fn: Callable):
 
     @torch.no_grad()
     def eval_step(state, batch):
-        logits = _logits(state.model, batch)
+        with spatial.sharded(_rows(batch)):
+            logits = _logits(state.model, batch)
         loss = loss_fn(logits, batch["label"], weights=batch.get("weight"))
         preds = logits.argmax(-1)
         stats = _counts(preds, batch)

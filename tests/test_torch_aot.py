@@ -20,7 +20,8 @@ from fabric_tpu.infer.service import ScenePredictor as JaxPredictor
 from fabric_tpu_torch import Config
 from fabric_tpu_torch.infer import aot
 from fabric_tpu_torch.infer.aot import (export_aot, export_runners, load_aot,
-                                        read_meta, save_aot)
+                                        load_serialized_runner, read_meta,
+                                        save_aot)
 from fabric_tpu_torch.infer.service import ScenePredictor
 from test_torch_export import save_checkpoint
 
@@ -83,8 +84,8 @@ def test_roundtrip_and_bit_identity(tmp_path):
     assert list(runners) == [(64, 64)]  # keyed by the padded bucket
     save_aot(str(tmp_path), runners, {"model": "bidate", "quant": "none",
                                       "fullconv_band_rows": 0})
-    assert load_aot(str(tmp_path), 64, 64) is not None
-    assert load_aot(str(tmp_path), 96, 96) is None
+    assert load_aot(str(tmp_path), 64, 64, device="cpu") is not None
+    assert load_aot(str(tmp_path), 96, 96, device="cpu") is None
     served = _pred(aot_dir=str(tmp_path))
     np.testing.assert_array_equal(served.predict(d1, d2),
                                   base.predict(d1, d2))
@@ -330,8 +331,8 @@ def test_packed_aot_bit_identity_and_fallback(grid, caplog):
     (pack=2) from the artifact gives the in-process packed masks; pack 3
     falls back with a warning; packs= is refused outside grid mode."""
     base, d = grid
-    assert load_aot(d, 64, 64, pack=2) is not None
-    assert load_aot(d, 64, 64, pack=3) is None
+    assert load_aot(d, 64, 64, pack=2, device="cpu") is not None
+    assert load_aot(d, 64, 64, pack=3, device="cpu") is None
     pairs = [(_scene(SHAPE, 20 + i), _scene(SHAPE, 30 + i))
              for i in range(3)]  # 3 scenes: one full pack and one partial
     served = _pred(aot_dir=d)
@@ -434,9 +435,23 @@ def test_load_aot_refuses_graph_without_ops(grid, tmp_path):
     shutil.copytree(grid[1], d)
     torch.export.save(plain, str(d / "runner_64x64.pt2"))
     with pytest.raises(ValueError, match="holds kernel ops"):
-        load_aot(str(d), 64, 64)
+        load_aot(str(d), 64, 64, device="cpu")
     meta = json.loads((d / "aot_meta.json").read_text())
     del meta["ops"]["runner_64x64.pt2"]
     (d / "aot_meta.json").write_text(json.dumps(meta))
     with pytest.raises(ValueError, match="records no kernel ops"):
-        load_aot(str(d), 64, 64)
+        load_aot(str(d), 64, 64, device="cpu")
+
+
+def test_loaders_default_to_the_card(grid):
+    """load_aot and load_serialized_runner without a device load onto the
+    card: on a host without one they raise rather than serve on the CPU
+    (with device="cpu" the same artifact loads)."""
+    if torch.cuda.is_available():
+        pytest.skip("holds the refusal on a host without a card")
+    d = grid[1]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_aot(d, 64, 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_serialized_runner(f"{d}/runner_64x64.pt2")
+    assert load_aot(d, 64, 64, device="cpu") is not None

@@ -180,17 +180,22 @@ def test_rank_batch_errors_as_fabric_tpu(sampler_data, kw, match):
 
 
 def test_single_process_is_not_distributed(tmp_path, caplog):
-    """Without a group: maybe_initialize is a no-op, rank 0 is primary;
-    the loop refuses a data axis beyond the world size, and names item 10c
-    for the spatial and model axes; sync_batchnorm logs fabric_tpu's
-    warning and changes nothing."""
+    """Without a group: maybe_initialize is a no-op, rank 0 is primary,
+    the mesh is (1, 1, 1); the loop refuses a data, spatial or model axis
+    beyond the world size (the spatial and model axes are ported, item
+    10c: a ValueError, not a refusal naming the item); sync_batchnorm
+    logs fabric_tpu's warning and changes nothing."""
     assert not distributed.maybe_initialize("cpu")
     assert distributed.is_primary() and distributed.world_size() == 1
     assert not distributed.any_rank(False) and distributed.any_rank(True)
-    cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
-                 mesh_data=2)
-    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
-        loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
+    assert distributed.mesh_shape() == {"data": 1, "spatial": 1, "model": 1}
+    assert distributed.coords() == (0, 0, 0)
+    for kw in (dict(mesh_data=2), dict(mesh_spatial=2),
+               dict(mesh_data=1, mesh_model=2)):
+        cfg = Config(log_dir=str(tmp_path / "l"),
+                     weight_dir=str(tmp_path / "w"), **kw)
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
     cfg = Config(model_base=8, sync_batchnorm=True)
     with caplog.at_level("WARNING", logger="fabric_tpu_torch"):
         build_model(cfg, "cpu")

@@ -55,6 +55,7 @@ def test_port_imports_no_jax_or_fabric_tpu():
             "fabric_tpu_torch.parallel",
             "fabric_tpu_torch.parallel.distributed",
             "fabric_tpu_torch.parallel.mesh",
+            "fabric_tpu_torch.parallel.spatial",
             "fabric_tpu_torch.utils.profiling",
             "fabric_tpu_torch.tools.export",
             "fabric_tpu_torch.infer.aot",

@@ -292,9 +292,13 @@ def test_prune_keeps_the_newest_and_what_pointers_name(tmp_path):
 @pytest.mark.parametrize("kw", [dict(mesh_model=2),
                                 dict(mesh_spatial=2)])
 def test_unported_options_raise(kw, tmp_path):
+    """The spatial and model axes are ported (item 10c): in one process a
+    mesh of 2 is larger than the world, and raises a ValueError
+    (tests/test_torch_spatial.py trains on such meshes over process
+    groups of their size)."""
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
                  **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
 
 
@@ -312,12 +316,16 @@ def test_gs_resume_is_gated(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,item", [
     ("mesh_spatial", "10c"), ("mesh_model", "10c")])
 def test_unported_flag_names_its_roadmap_item(flag, item, tmp_path):
+    """Item ``item`` is done: the flag at 2 in one process is a mesh
+    larger than the world, a ValueError that names the mesh and no
+    ROADMAP.md item."""
     cfg = Config(log_dir=str(tmp_path / "l"), weight_dir=str(tmp_path / "w"),
                  **{flag: 2})
-    with pytest.raises(NotImplementedError,
-                       match=f"^the spatial and model mesh axes is not "
-                             f"ported .* queue 1 item {item} "):
+    shape = "1x2x1" if flag == "mesh_spatial" else "1x1x2"
+    with pytest.raises(ValueError,
+                       match=f"^mesh {shape} needs 2 devices, have 1 ") as e:
         loop_mod.train(cfg, dataset={}, device="cpu", metadata=([], []))
+    assert "ROADMAP" not in str(e.value) and item not in str(e.value)
 
 
 def test_infer_city_matches_fabric_tpu(data_root):

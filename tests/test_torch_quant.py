@@ -478,15 +478,23 @@ def test_cli_infer_writes_masks_and_records(dataset, tmp_path, quant):
                                   ["--aot_dir", "a"],
                                   ["--shard_scene", "--mesh_spatial", "2"]])
 def test_cli_infer_unported_options_raise(flag, dataset, tmp_path):
-    """--mesh_spatial > 1 is not ported (item 10c) and raises naming it;
-    --bundle and --aot_dir are (item 11): they reach the serving path,
-    which here finds no bundle and no artifact there
-    (tests/test_torch_export.py and tests/test_torch_aot.py serve real
-    ones)."""
+    """--mesh_spatial > 1 is ported (item 10c): on a CPU mesh of matching
+    size the scene is sharded over the data axis, the spatial axis holding
+    replicas, and the mask is the data-only mesh's; --bundle and
+    --aot_dir are (item 11): they reach the serving path, which here finds
+    no bundle and no artifact there (tests/test_torch_export.py and
+    tests/test_torch_aot.py serve real ones)."""
     from fabric_tpu_torch.cli.infer import main
+    from fabric_tpu_torch.data.image import read_png_gray
     if "--mesh_spatial" in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(flag + ["--resume", "x"])
+        masks = []
+        for run, extra in (("spatial", flag), ("data", flag[:1])):
+            out = tmp_path / run
+            assert main(_cli_args(dataset) + [
+                "--log_dir", str(tmp_path / "logs"), "--no_tracker",
+                "--output_dir", str(out)] + extra) == 0
+            masks.append(read_png_gray(str(out / "alpha_mask.png")))
+        np.testing.assert_array_equal(masks[0], masks[1])
         return
     args = _cli_args(dataset) + ["--log_dir", str(tmp_path / "logs"),
                                  flag[0], str(tmp_path / flag[1])]

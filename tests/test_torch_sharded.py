@@ -266,6 +266,17 @@ def test_sharded_guards(variables):
         "data": 4, "spatial": 1, "model": 1}
 
 
+def test_make_mesh_without_devices_needs_a_card():
+    """make_mesh() lays the mesh over the visible cards: on a host without
+    one it raises instead of building a mesh of the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("holds the refusal on a host without a card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1, spatial=2)
+
+
 def _cfg(**kw):
     return Config(patch_size=PATCH, eval_batch_size=BATCH, model_base=BASE,
                   **kw)
@@ -294,9 +305,11 @@ def test_predictor_sharded_guards_and_buckets():
     with pytest.raises(ValueError, match="bidate"):
         ScenePredictor(_cfg(model="unet3d", num_dates=3), device="cpu",
                        mesh=mesh, shard_scene=True, fullconv_band_rows=96)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        ScenePredictor(_cfg(), device="cpu",
-                       mesh=Mesh(["cpu"] * 2, {"data": 1, "spatial": 2}))
+    # the spatial and model axes hold replicas: one data shard here
+    spatial = ScenePredictor(_cfg(), device="cpu",
+                             mesh=Mesh(["cpu"] * 2, {"data": 1,
+                                                     "spatial": 2}))
+    assert spatial.mesh.data_devices() == [torch.device("cpu")]
     for bucket, fullconv, want in ((0, 0, 32), (50, 0, 64), (512, 0, 512),
                                    (0, 96, 512), (300, 96, 512),
                                    (600, 96, 1024)):
@@ -356,7 +369,9 @@ def dataset(variables, tmp_path_factory):
 def test_cli_infer_shard_scene(dataset, tmp_path):
     """cli.infer --shard_scene --mesh_data 2 --device cpu: the masks of
     ScenePredictor(shard_scene) on the same mesh, sharded_grid records;
-    the spatial and model axes are refused, naming item 10c."""
+    with --mesh_model 2 (item 10c, ported) the model axis holds replicas
+    and the scene is sharded over the one data device: the masks of the
+    data-only mesh of 1."""
     from fabric_tpu_torch.cli.infer import main
     from fabric_tpu_torch.data.image import read_png_gray
     data, resume = dataset
@@ -378,5 +393,11 @@ def test_cli_infer_shard_scene(dataset, tmp_path):
     recs = [json.loads(x) for x in (run / "metrics.jsonl").read_text()
             .splitlines()]
     assert {r["serve_mode"] for r in recs} == {"sharded_grid"}
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        main(args + ["--shard_scene", "--mesh_model", "2"])
+    model = tmp_path / "model"
+    assert main([str(model) if a == str(out) else a for a in args]
+                + ["--shard_scene", "--mesh_model", "2"]) == 0
+    one = ScenePredictor(cfg, checkpoint=resume, device="cpu",
+                         mesh=_mesh(1), shard_scene=True)
+    for city in ("alpha", "beta"):
+        mask = read_png_gray(str(model / f"{city}_mask.png")) // 255
+        np.testing.assert_array_equal(mask, one.predict_city(city))
