@@ -89,6 +89,22 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   step (fp32 and bf16 bounds, the packed convs counted) and their step
   times; the int8 shift-conv microbench (the raw int8 conv kernel against
   nine int8 GEMM launches, exact);
+- float32 serving, with cuDNN's TF32 on (PyTorch's default) for the
+  phase, put back after: the fp32 forms of the conv kernels (rows 1, 2)
+  at the fp32 path's shapes against their plain versions (relative L2 <=
+  1e-5, max |diff| <= 1e-4 of the largest output), timed beside cuDNN's
+  fp32 conv with TF32 off and the bound at the 67 TFLOP/s FFMA rate, each
+  fused level also as two fp32 conv launches (bit-equal; the ``gate f32``
+  lines); the int8 conv's float32 modes at the 18 sites and the fusion
+  kernel in fp32 at its 5 levels (identical); what the TF32 repair costs
+  an fp32 BiDateNet train step (batch 128, patch 96; the ``tf32 repair
+  cost`` line: its convs through ``ops/fp32_conv.py`` against plain
+  ``F.conv2d`` in TF32); the 2048^2 pair served grid exact (launches
+  against the fp32 gate's count, no bf16 launch, flips only within 1e-4
+  of the logit scale, predict and runner Mpx/s) and int8 (identical to
+  the plain int8 forward), fullconv at band 512 (banded = whole),
+  UNetLSTM (base 64) and UNet3D (base 32) at T = 3 on a 512^2 stack, and
+  from an fp32 bundle (= the fp32 serve);
 - training: writes a synthetic OSCD-layout dataset (four ~1024^2 cities,
   one for validation) and runs ``train.loop.train`` (tversky + SGD, patch
   96, batch 128, bf16) for 2 epochs of 20 steps with validation, scene
@@ -111,8 +127,9 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   equal, peak memory), four micro steps at ``grad_accum_steps=2``; a
   short run mirrored to a ``file://`` ``output_store`` and resumed from
   the store URI bit-exactly; and ``cli.evaluate`` on the training run's
-  best checkpoint, its dataset given as a ``.tar.gz``, which must
-  reproduce the loop's validation metrics for that checkpoint;
+  best checkpoint, its dataset given as a ``.tar.gz`` of the validation
+  city, which must reproduce the loop's validation metrics for that
+  checkpoint;
 - data-parallel training on the one card: ``train.loop.train`` in 2
   ranks over gloo (NCCL refuses two ranks on one card), BiDateNet base
   64, patch 96, global batch 128, tversky + SGD, fp32, 3 steps with
@@ -133,11 +150,12 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   kernels line's counts), its peak memory against 1 process's and each
   run's wall time;
 - multi-date training: writes a 5-date synthetic dataset of the same
-  cities and runs ``train.loop.train`` for UNetLSTM (base 64, with
-  ``local_upsample``, so that its eval gate conv is the signed conv-kernel
-  launch) and UNet3D (base 32) at T = 5 (tversky + SGD, bf16, patch 96,
-  batch 128 unless the memory reckoning it prints says otherwise, 2
-  epochs of 10 steps, validation, scene inference of the validation city,
+  cities (while the two phases above wait on their ranks) and runs
+  ``train.loop.train`` for UNetLSTM (base 64, with ``local_upsample``,
+  so that its eval gate conv is the signed conv-kernel launch) and
+  UNet3D (base 32) at T = 5 (tversky + SGD, bf16, patch 96, batch 128
+  unless the memory reckoning it prints says otherwise, 2 epochs of 10
+  steps, validation, scene inference of the validation city,
   a checkpoint, worker loaders sized to ``/dev/shm`` by a printed
   reckoning, and a ``profile_dir`` trace of the first 3 steps, whose top
   device kernels it prints); the launch counters must show the
@@ -156,6 +174,7 @@ Any failed check exits non-zero.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import hashlib
 import json
@@ -421,9 +440,10 @@ def plain_versions():
          fused.fused_mul_relu, bn_relu.bn_relu_inference) = saved
 
 
-def plain_mask_and_margin(model, d1, d2):
+def plain_mask_and_margin(model, d1, d2, dtype=torch.bfloat16):
     """Mask and fp32 logit margin |l1 - l0| of the forward on the plain
-    versions, over the same grid and stitch as the predictor."""
+    versions, over the same grid and stitch as the predictor (tiles in
+    ``dtype``, the compute dtype)."""
     from fabric_tpu_torch.infer.device_tiling import (_gather_tiles,
                                                       _plan_grid, _stitch)
 
@@ -431,8 +451,8 @@ def plain_mask_and_margin(model, d1, d2):
     ys, xs, k, pad, n_chunks = _plan_grid(h, w, PATCH, PATCH, BATCH)
     if pad:
         fail("the main scene should tile into whole chunks")
-    t1, t2 = (_gather_tiles(torch.from_numpy(d).cuda().to(torch.bfloat16),
-                            ys, xs, PATCH) for d in (d1, d2))
+    t1, t2 = (_gather_tiles(torch.from_numpy(d).cuda().to(dtype), ys, xs,
+                            PATCH) for d in (d1, d2))
     masks, margins, first = [], [], None
     with plain_versions(), torch.inference_mode():
         for i in range(n_chunks):
@@ -1528,20 +1548,20 @@ def fleet_phase(cfg):
               flush=True)
 
 
-def plain_multidate(model, a):
+def plain_multidate(model, a, side: int = MD_SCENE, dtype=torch.bfloat16):
     """Mask, fp32 logit margin |l1 - l0| and logit scale of the forward on
-    the plain versions over the stack's grid."""
+    the plain versions over the grid of the side x side stack (tiles in
+    ``dtype``)."""
     from fabric_tpu_torch.infer import device_tiling as tdt
 
-    ys, xs, k, _, _ = tdt._plan_grid(MD_SCENE, MD_SCENE, PATCH, PATCH, BATCH)
-    tiles = tdt._multidate_tiles(a.to(torch.bfloat16), ys, xs, PATCH)
+    ys, xs, k, _, _ = tdt._plan_grid(side, side, PATCH, PATCH, BATCH)
+    tiles = tdt._multidate_tiles(a.to(dtype), ys, xs, PATCH)
     with plain_versions(), torch.inference_mode():
         logits = torch.cat([model(tiles[i:i + BATCH])
                             for i in range(0, k, BATCH)])
 
     def stitch(o):
-        return tdt._stitch(o, ys, xs, k, MD_SCENE, MD_SCENE,
-                           PATCH).cpu().numpy()
+        return tdt._stitch(o, ys, xs, k, side, side, PATCH).cpu().numpy()
     return (stitch(logits.argmax(-1).to(torch.uint8)),
             stitch((logits[..., 1] - logits[..., 0]).abs()),
             logits.abs().max().item())
@@ -2396,8 +2416,10 @@ def store_phase(cfg, root):
 
 def evaluate_phase(cfg, root, smi):
     """cli.evaluate's main on the training run's best checkpoint over the
-    validation city, the dataset given as a .tar.gz of the synthetic
-    cities (ensure_dataset extracts it): its patch metrics and scene F1
+    validation city, the dataset given as a .tar.gz of that city's
+    synthetic images and labels (ensure_dataset extracts it; the training
+    cities stay out, as evaluate never reads them): its patch metrics and
+    scene F1
     equal what the loop recorded with that checkpoint.  Returns the
     kernel launches it made."""
     import tarfile
@@ -2409,8 +2431,12 @@ def evaluate_phase(cfg, root, smi):
 
     t0 = time.perf_counter()
     archive = os.path.join(root, "cities.tar.gz")
+
+    def val_only(info):  # onera/{images,labels}/<city>/...
+        parts = info.name.split("/")
+        return None if len(parts) > 2 and parts[2] != "val" else info
     with tarfile.open(archive, "w:gz", compresslevel=1) as tf:
-        tf.add(cfg.dataset_dir, arcname="onera")
+        tf.add(cfg.dataset_dir, arcname="onera", filter=val_only)
     tar_s = time.perf_counter() - t0
     path = ckpt.read_pointer(cfg.weight_dir, "best")
     epoch = int(path.rsplit("_", 1)[1].split(".")[0])
@@ -2708,7 +2734,21 @@ def md_evaluate(cfg, root: str, smi: str) -> None:
         fail(f"cli.evaluate of {cfg.model} disagrees with the loop")
 
 
-def multidate_train_phase(root: str, smi: str) -> dict:
+def md_dataset(root: str) -> tuple[str, float]:
+    """Write the multi-date phase's 5-date synthetic dataset (T_CITIES,
+    MD_T dates) under ``root``: (its directory, the seconds it took)."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    data_dir = os.path.join(root, "md_data")
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(data_dir, Config(), cities=list(T_CITIES),
+                               sizes=list(T_CITIES.values()), seed=SEED + 5,
+                               num_dates=MD_T)
+    return data_dir, time.perf_counter() - t0
+
+
+def multidate_train_phase(root: str, smi: str, md_data) -> dict:
     """UNetLSTM (base 64, with local_upsample: its eval gate conv is the
     signed row-1 launch) and UNet3D (base 32) at T = 5 through
     train.loop.train on a 5-date synthetic dataset (four ~1024^2 cities,
@@ -2716,25 +2756,22 @@ def multidate_train_phase(root: str, smi: str) -> dict:
     MD_STEPS steps with validation, scene inference of the validation
     city, a checkpoint and a profile_dir trace of the first 3 steps;
     then the trained eval forward on the kernels against their plain
-    versions (md_eval_vs_plain).  Returns {family: launches}."""
+    versions (md_eval_vs_plain).  ``md_data``: the future of
+    :func:`md_dataset`, written while the phases before wait on their
+    ranks.  Returns {family: launches}."""
     from fabric_tpu_torch.config import Config
     from fabric_tpu_torch.data.oscd import patch_grid
-    from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
     from fabric_tpu_torch.losses import get_loss_fn
     from fabric_tpu_torch.ops import bn_relu, conv, double_conv, fused
     from fabric_tpu_torch.train.loop import train
     from fabric_tpu_torch.train.steps import make_train_step
 
-    data_dir = os.path.join(root, "md_data")
-    t0 = time.perf_counter()
-    generate_synthetic_dataset(data_dir, Config(), cities=list(T_CITIES),
-                               sizes=list(T_CITIES.values()), seed=SEED + 5,
-                               num_dates=MD_T)
+    data_dir, data_s = md_data.result()
     data_bytes = sum(MD_T * h * w * 13 * 4 + h * w
                      for h, w in T_CITIES.values())
     print(f"multi-date synthetic dataset, {MD_T} dates, {T_CITIES}, written "
-          f"in {time.perf_counter() - t0:.1f} s ({data_bytes / 1e9:.2f} GB "
-          f"in memory)", flush=True)
+          f"in {data_s:.1f} s while dp_train and sp_train ran "
+          f"({data_bytes / 1e9:.2f} GB in memory)", flush=True)
     counters = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
                 fused.fused_mul_relu, bn_relu.bn_relu_inference)
     n_val = len(patch_grid(T_CITIES["val"], T_PATCH, 32))
@@ -3825,9 +3862,7 @@ def dp_train_phase(root: str) -> dict:
     validation and the validation city's scene inference, against the
     same run in 1 process on the card on the same global batches: loss,
     parameters and running statistics within ``_held``'s bounds, the
-    ranks equal; rank 0 alone wrote.  The 1-process run is made twice,
-    and its difference from itself (cuDNN's backward is not
-    deterministic) is printed beside the bounds.  Then one step at world
+    ranks equal; rank 0 alone wrote.  Then one step at world
     size 1 over NCCL through maybe_initialize against the same step
     without a group.  Returns the base config and the first 1-process
     run, which sp_train_phase reuses."""
@@ -3840,13 +3875,11 @@ def dp_train_phase(root: str) -> dict:
                 model_base=BASE, validation_cities=["val"], num_workers=2,
                 seed=SEED + 7)
     runs = {tag: _loop_run(root, f"dp_{tag}", base, world)
-            for tag, world in (("once", 1), ("again", 1),
-                               ("ranks", DP_RANKS))}
+            for tag, world in (("once", 1), ("ranks", DP_RANKS))}
     init = flatten_tree(init_variables(
         13, 2, BASE, torch.Generator().manual_seed(base["seed"]))[0])
     once = runs["once"][1][0]
     held = _held(once, runs["ranks"][1], init)
-    noise = _held(once, runs["again"][1], init)
     only_rank0 = _rank0_alone(runs["ranks"][0], runs["once"][0],
                               runs["ranks"][1])
     print(f"dp_train: {DP_RANKS} ranks over gloo on one card vs 1 process, "
@@ -3856,9 +3889,8 @@ def dp_train_phase(root: str) -> dict:
           f"loss {held['val'][1]:.7f} vs {held['val'][0]:.7f}; params max "
           f"diff {held['p_err']:.3g} (bound 1e-2 x largest update "
           f"{held['step_max']:.4g}); BN stats max diff {held['s_err']:.3g} "
-          f"of the statistic's largest magnitude (bound 1e-4); 1 process "
-          f"against itself: params {noise['p_err']:.3g}, stats "
-          f"{noise['s_err']:.3g}; ranks' parameters and statistics equal: "
+          f"of the statistic's largest magnitude (bound 1e-4); ranks' "
+          f"parameters and statistics equal: "
           f"{held['ranks_equal']}; rank 0 alone wrote (tracker run, "
           f"checkpoints, scene inference on rank 0 only): {only_rank0}; "
           f"{'ok' if held['ok'] and only_rank0 else 'MISMATCH'}",
@@ -3867,10 +3899,10 @@ def dp_train_phase(root: str) -> dict:
     t_run = {tag: wall for tag, (_, _, wall) in runs.items()}
     print(f"dp_train: two ranks sharing one card: {rate['ranks']:.1f} "
           f"train examples/s of the global batch, 1 process "
-          f"{rate['once']:.1f} and {rate['again']:.1f} (the {DP_STEPS}-step "
-          f"epoch, its first step included; not a scaling figure); the "
-          f"whole 2-rank command {t_run['ranks']:.1f} s, the 1-process "
-          f"ones {t_run['once']:.1f} and {t_run['again']:.1f} s", flush=True)
+          f"{rate['once']:.1f} (the {DP_STEPS}-step epoch, its first step "
+          f"included; not a scaling figure); the whole 2-rank command "
+          f"{t_run['ranks']:.1f} s, the 1-process one {t_run['once']:.1f} s",
+          flush=True)
     if not (held["ok"] and only_rank0):
         fail("data-parallel training differs from the 1-process run")
     out = _run_workers(_NCCL_WORKER, [{
@@ -3973,6 +4005,488 @@ def _free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+# --- float32 serving: the fp32 forms of rows 1, 2 and 5b ---
+F32_T, F32_MD_SCENE = 3, 512   # the multi-date models' dates and side
+F32_MD_BASE = {"unet_lstm": 64, "unet3d": 32}
+F32_KERNELS = {  # name in the kernels line -> its launch counter
+    "conv3x3_bias_relu_f32": "conv3x3_bias_relu_f32",
+    "double_conv3x3_bias_relu_f32": "double_conv3x3_bias_relu_f32",
+    "conv3x3_s8_f32": "conv3x3_s8_q_f32",
+}
+
+
+def f32_counters():
+    """The wrappers of rows 1, 2 and 5b: each counts its bf16 form's
+    launches on ``launches`` and its fp32 form's on ``launches_f32``."""
+    from fabric_tpu_torch.ops import conv, conv_s8, double_conv
+
+    return (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+            conv_s8.conv3x3_s8_q)
+
+
+def f32_counted(fn):
+    """(fn(), the fp32 forms' launches, the bf16 forms' launches), the
+    counts zeroed just before."""
+    fns = f32_counters()
+    zero_counts(fns)
+    for f in fns:
+        f.launches_f32 = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {f.__name__ + "_f32": f.launches_f32 for f in fns},
+            read_counts(fns))
+
+
+def f32_calls(n_channels: int):
+    """The fp32 conv kernel calls of one forward of BATCH tiles, each
+    DoubleConv block where the fp32 gate sends it."""
+    from fabric_tpu_torch.ops.double_conv import supports
+
+    calls = []
+    for level, n, s, cin, cout in level_shapes(n_channels):
+        if supports(s, s, cin, cout, cout, torch.float32):
+            calls.append(("double_conv3x3_bias_relu_f32",
+                          (n, s, s, cin, cout, cout), level))
+        else:
+            calls.append(("conv3x3_bias_relu_f32", (n, s, s, cin, cout),
+                          level))
+            calls.append(("conv3x3_bias_relu_f32", (n, s, s, cout, cout),
+                          level))
+    return calls
+
+
+def f32_close(got, ref) -> tuple[float, float, bool]:
+    """(relative L2, max |diff| over the largest output, ok) of an fp32
+    form against its plain version: fp32 sums in another order, TF32 off
+    on both sides, so relative L2 <= 1e-5 and max |diff| <= 1e-4 of the
+    largest output."""
+    d = (got.double() - ref.double())
+    rel = d.norm().item() / max(ref.double().norm().item(), 1e-30)
+    mx = d.abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    return rel, mx, (rel <= 1e-5 and mx <= 1e-4
+                     and bool(torch.isfinite(got).all()))
+
+
+def check_f32_kernels(calls, reps: int = 3):
+    """Each fp32 conv form against its plain version on the card at the
+    fp32 path's shapes, timed beside the plain version, cuDNN's fp32
+    F.conv2d + ReLU with TF32 off (twice for the double conv) and the
+    bound at the 67 TFLOP/s FFMA rate; each double-conv level also as two
+    fp32 conv launches (bit-equal: the fused kernel sums in the conv
+    kernel's order).  Inputs drawn on the card."""
+    from fabric_tpu_torch.ops import conv, double_conv, fp32_conv
+
+    g = torch.Generator("cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    def lib_conv(x, w, b):  # cuDNN, full fp32, on a channels-last view
+        with fp32_conv.no_tf32():
+            return torch.relu_(F.conv2d(x.permute(0, 3, 1, 2), w, b,
+                                        padding=1))
+
+    def lib_weight(k):
+        return k.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    rows = []
+    for name, shape, level in calls:
+        two_ms, two_equal = None, None
+        if name == "conv3x3_bias_relu_f32":
+            n, h, w, cin, cout = shape
+            x = randn(n, h, w, cin)
+            k, b = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5), randn(
+                cout, scale=0.1)
+            pk = conv.pack_weight_f32(k)
+            kern = lambda: conv.conv3x3_bias_relu(x, k, b, pk)  # noqa
+            plain = lambda: conv.conv3x3_bias_relu_reference(x, k, b)  # noqa
+            wl = lib_weight(k)
+            lib = lambda: lib_conv(x, wl, b)  # noqa: E731
+            macs = n * h * w * 9 * cin * cout
+            nbytes = 4 * (n * h * w * (cin + cout) + 9 * cin * cout + cout)
+        else:
+            n, h, w, cin, cmid, cout = shape
+            x = randn(n, h, w, cin)
+            w1, b1 = randn(3, 3, cin, cmid, scale=(9 * cin) ** -.5), randn(
+                cmid, scale=0.1)
+            w2, b2 = randn(3, 3, cmid, cout, scale=(9 * cmid) ** -.5), \
+                randn(cout, scale=0.1)
+            p1, p2 = conv.pack_weight_f32(w1), conv.pack_weight_f32(w2)
+            kern = lambda: double_conv.double_conv3x3_bias_relu(  # noqa
+                x, w1, b1, w2, b2, (p1, p2))
+            plain = lambda: double_conv.double_conv3x3_bias_relu_reference(  # noqa
+                x, w1, b1, w2, b2)
+            wl1, wl2 = lib_weight(w1), lib_weight(w2)
+            lib = lambda: lib_conv(lib_conv(  # noqa: E731
+                x, wl1, b1).permute(0, 2, 3, 1), wl2, b2)
+            two = lambda: conv.conv3x3_bias_relu(  # noqa: E731
+                conv.conv3x3_bias_relu(x, w1, b1, p1), w2, b2, p2)
+            two_ms = device_ms(two, reps)
+            two_equal = torch.equal(kern(), two())
+            macs = n * h * w * 9 * (cin * cmid + cmid * cout)
+            nbytes = 4 * (n * h * w * (cin + cout) + 9 * (
+                cin * cmid + cmid * cout) + cmid + cout)
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        torch.cuda.synchronize()
+        rel, mx, ok = f32_close(got, ref)
+        ok = ok and two_equal is not False
+        err = (got - ref).abs().max().item()
+        kms = device_ms(kern, reps)
+        pms = device_ms(plain, 1)
+        lms = device_ms(lib, reps)
+        t_ops, t_bytes = bound(2 * macs, nbytes, PEAK_ELEMENTWISE)
+        two_txt = ("" if two_ms is None else
+                   f", as two fp32 conv launches {two_ms:.3f} ms "
+                   f"({'bit-equal' if two_equal else 'DIFFERENT'})")
+        print(f"kernel {name} {level} {shape}: rel_l2 {rel:.3g} max_rel "
+              f"{mx:.3g} (bounds 1e-5, 1e-4) {'ok' if ok else 'MISMATCH'} "
+              f"| {kms:.3f} ms, {2 * macs / kms / 1e9:.1f} TFLOP/s, plain "
+              f"{pms:.3f} ms, library {lms:.3f} ms (cuDNN fp32, TF32 off), "
+              f"bound {max(t_ops, t_bytes):.3f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}){two_txt}",
+              flush=True)
+        if not ok:
+            fail(f"{name} {shape} disagrees with its plain version")
+        rows.append(dict(name=name, level=level, err=err, ms=kms,
+                         plain_ms=pms, library_ms=lms, t_ops=t_ops,
+                         t_bytes=t_bytes, two_conv_ms=two_ms))
+        del x, got, ref
+    return rows
+
+
+def check_s8_f32_kernels(reps: int = 5):
+    """The int8 conv's float32 epilogue modes at the 18 sites of one int8
+    forward (the site's bf16 mode -> float32 out, int8 -> int8 from the
+    fp32 h, split -> split from the fp32 h) against the plain version at
+    float32: identical."""
+    from fabric_tpu_torch.ops import conv_s8
+
+    g = torch.Generator().manual_seed(SEED + 15)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).cuda()
+
+    rows = []
+    for site, (n, h, w, cin, cout), mode in int8_site_shapes():
+        split = mode == "split"
+        x, wq = s8(n, h, w, cin), s8(3, 3, cin, cout)
+        packed = conv_s8.pack_weight(wq)
+
+        def scale(f):
+            return ((torch.rand(cout, generator=g) + 0.5) * f / (
+                (9 * cin) ** 0.5 * 5400)).cuda()
+        k, bias = scale(2.0), torch.randn(cout, generator=g).cuda()
+        up = None
+        if split:
+            wq2 = s8(3, 3, cin, cout)
+            up = (s8(n, h, w, cin), wq2, scale(0.7), conv_s8.pack_weight(wq2))
+        s_out = None if mode == "bf16" else 3.0 / 127
+        args = (x, wq, k, bias, s_out)
+        got = conv_s8.conv3x3_s8_q(*args, packed, up, torch.float32)
+        torch.cuda.synchronize()
+        ref = conv_s8.conv3x3_s8_q_reference(*args, up, torch.float32)
+        same = torch.equal(got, ref)
+        n_diff = int((got != ref).sum())
+        kms = device_ms(lambda: conv_s8.conv3x3_s8_q(
+            *args, packed, up, torch.float32), reps)
+        pms = device_ms(lambda: conv_s8.conv3x3_s8_q_reference(
+            *args, up, torch.float32), 1)
+        k_in = cin * (2 if split else 1)
+        out_b = 1 if s_out is not None else 4
+        ops = 2 * n * h * w * 9 * k_in * cout
+        t_ops, t_bytes = bound(ops, n * h * w * (k_in + out_b * cout)
+                               + 9 * k_in * cout
+                               + 4 * cout * (3 if split else 2),
+                               PEAK_INT8_TENSOR)
+        form = {"bf16": "float32", "int8": "int8_f32",
+                "split": "split_f32"}[mode]
+        print(f"kernel conv3x3_s8 {form} {site} {(n, h, w, cin, cout)}: "
+              f"{'identical' if same else 'DIFFERENT'} to its plain version "
+              f"({n_diff} of {got.numel()} differ) | {kms:.4f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}), plain "
+              f"{pms:.3f} ms", flush=True)
+        if not same:
+            fail(f"conv3x3_s8 {form} {site} differs from its plain version")
+        rows.append(dict(name="conv3x3_s8_f32", err=(
+            got.float() - ref.float()).abs().max().item(), ms=kms,
+            plain_ms=pms, library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+        del x, wq, packed, got, ref, up, args
+    return rows
+
+
+def check_f32_fused(reps: int = 5) -> None:
+    """Row 3 (``ops/fused.py``, Triton) takes float32 as it is: its
+    launches at the 5 fusion levels of one fp32 forward against the plain
+    version, exactly (one product and one max, one rounding)."""
+    from fabric_tpu_torch.ops import fused
+
+    g = torch.Generator("cuda").manual_seed(SEED + 3)
+    for i, c in enumerate((BASE, 2 * BASE, 4 * BASE, 8 * BASE, 8 * BASE)):
+        s = PATCH >> i
+        a, b = (torch.randn(BATCH, s, s, c, generator=g, device="cuda")
+                for _ in range(2))
+        got = fused.fused_mul_relu(a, b)
+        torch.cuda.synchronize()
+        same = torch.equal(got, fused.fused_mul_relu_reference(a, b))
+        kms = device_ms(lambda: fused.fused_mul_relu(a, b), reps)
+        pms = device_ms(lambda: fused.fused_mul_relu_reference(a, b), reps)
+        t_ops, t_bytes = bound(2 * a.numel(), 3 * 4 * a.numel(),
+                               PEAK_ELEMENTWISE)
+        print(f"kernel fused_mul_relu fp32 f{i + 1} {tuple(a.shape)}: "
+              f"{'identical' if same else 'DIFFERENT'} to its plain version "
+              f"| {kms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'})",
+              flush=True)
+        if not same:
+            fail("fused_mul_relu in fp32 differs from its plain version")
+
+
+def tf32_repair_cost(smi: str) -> None:
+    """What the TF32 repair costs a float32 trainer: one fp32 train step
+    of full-width BiDateNet (batch T_BATCH, patch T_PATCH, tversky + SGD)
+    under PyTorch's default flags (cuDNN's TF32 on), its convs through
+    ``ops/fp32_conv.py`` (full fp32, as the port runs them) and as plain
+    ``F.conv2d`` (TF32 under these flags, as before the repair); the same
+    weights and batch, CUDA events."""
+    from fabric_tpu_torch.config import Config
+    from fabric_tpu_torch.losses import get_loss_fn
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.ops import fp32_conv
+    from fabric_tpu_torch.train.state import create_state
+    from fabric_tpu_torch.train.steps import make_train_step
+    from fabric_tpu_torch.weights import init_variables
+
+    cfg = Config(model_base=BASE, patch_size=T_PATCH, batch_size=T_BATCH,
+                 dtype="float32", loss_function="tversky", optimizer="sgd")
+    variables = init_variables(13, 2, BASE,
+                               torch.Generator().manual_seed(SEED + 2))
+    batch = _step_batch(SEED + 2)
+    repaired = fp32_conv.conv
+
+    def plain(x, weight, bias=None, padding=0, groups=1):
+        op = F.conv2d if x.dim() == 4 else F.conv3d
+        return op(x, weight, bias, padding=padding, groups=groups)
+
+    ms = {}
+    try:
+        for label, conv in (("fp32_conv.conv", repaired),
+                            ("F.conv2d", plain)):
+            fp32_conv.conv = conv
+            model = build_model(cfg, "cuda", fold_bn=False,
+                                variables=variables, train=True)
+            state = create_state(cfg, model)
+            step = make_train_step(model, get_loss_fn(cfg))
+            ms[label] = device_ms(lambda: step(state, batch), 3)
+            del model, state, step
+    finally:
+        fp32_conv.conv = repaired
+    print(f"tf32 repair cost ({smi}): fp32 BiDateNet train step, batch "
+          f"{T_BATCH}, patch {T_PATCH}, PyTorch's default flags (cuDNN TF32 "
+          f"on): convs through fp32_conv.conv (full fp32) "
+          f"{ms['fp32_conv.conv']:.1f} ms, as F.conv2d (TF32) "
+          f"{ms['F.conv2d']:.1f} ms: "
+          f"{ms['fp32_conv.conv'] / ms['F.conv2d']:.2f}x", flush=True)
+
+
+def f32_margin_rule(label: str, mask, plain, margin, scale: float) -> None:
+    """An fp32 mask against the same forward on the plain versions: a flip
+    only where the plain fp32 logit margin is within 1e-4 of the logit
+    scale (the two sum in other orders over 19 layers)."""
+    flips = mask != plain
+    worst = float(margin[flips].max()) if flips.any() else 0.0
+    print(f"{label} vs the plain-version forward: {int(flips.sum())} flips, "
+          f"largest plain margin at a flip {worst:.4g} (bound "
+          f"{1e-4 * scale:.4g}); change share {mask.mean():.4f}", flush=True)
+    if worst > 1e-4 * scale or not np.isfinite(margin).all():
+        fail(f"{label}: the fp32 kernel forward disagrees with the plain one")
+
+
+def f32_phase(root: str, d1, d2, smi: str) -> tuple[list, dict]:
+    """Float32 serving on the card, with cuDNN's TF32 left on (PyTorch's
+    default) for the phase's duration: the fp32 forms of rows 1, 2 and 5b
+    against their plain versions at the fp32 path's shapes (timed, with
+    bounds and cuDNN's fp32 time); the 2048^2 pair served grid exact
+    (launches against the fp32 gate's count, no bf16 launch; the margin
+    rule against the plain versions; predict and runner Mpx/s) and int8
+    (identical to the plain int8 forward); one fullconv fp32 serve of the
+    pair, banded = whole-scene; UNetLSTM and UNet3D at T = 3 on a 512^2
+    stack; one fp32 bundle, equal to the checkpoint path.  Returns (the
+    kernel rows, the fp32 forms' launches over the phase's serves)."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch import checkpoint as ckpt
+    from fabric_tpu_torch.infer import fullconv
+    from fabric_tpu_torch.infer.device_tiling import make_scene_infer
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.models import build_model
+    from fabric_tpu_torch.ops import fused
+    from fabric_tpu_torch.tools.export import export_bundle
+    from fabric_tpu_torch.train.state import create_state
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def no_bf16(label, bf16):
+        if any(bf16.values()):
+            fail(f"{label}: a bf16 kernel ran on the fp32 path: {bf16}")
+
+    try:
+        calls = f32_calls(13)
+        rows = check_f32_kernels(calls)
+        for r in rows:
+            if r["two_conv_ms"] is not None:
+                print(f"gate f32 {r['level']}: fused {r['ms']:.3f} ms, two "
+                      f"conv launches {r['two_conv_ms']:.3f} ms -> "
+                      f"{'fused' if r['ms'] < r['two_conv_ms'] else 'two convs'}"
+                      f" faster; on the path: fused", flush=True)
+        rows += check_s8_f32_kernels()
+        check_f32_fused()
+        tf32_repair_cost(smi)
+        per = {}
+        for r in rows:
+            per[r["name"]] = per.get(r["name"], 0) + r["ms"]
+        print(f"fp32 kernels per {BATCH}-tile forward: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in per.items()) + f"; bound (rows 1-2)"
+            f" {sum(max(r['t_ops'], r['t_bytes']) for r in rows if 'conv3x3_s8' not in r['name']):.3f} ms",
+            flush=True)
+
+        # the main fp32 path: the 2048^2 pair, grid, exact
+        cfg = Config(patch_size=PATCH, eval_batch_size=BATCH,
+                     dtype="float32", model_base=BASE)
+        pred = ScenePredictor(cfg, checkpoint=None, bucket=512,
+                              device="cuda")
+        fused.fused_mul_relu.launches = 0
+        (mask, wall, peak), f32, bf16 = f32_counted(
+            lambda: timed(lambda: pred.predict(d1, d2)))
+        f32["fused_mul_relu"] = fused.fused_mul_relu.launches
+        want = {}
+        for name, _, _ in calls:
+            want[name] = want.get(name, 0) + 4  # 4 forwards of BATCH tiles
+        want["conv3x3_s8_q_f32"] = 0
+        want["fused_mul_relu"] = 5 * 4  # row 3 in fp32, 5 a forward
+        print(f"fp32 serve of the {SCENE}^2 pair: launches {f32} (expected "
+              f"{want}), bf16 forms {bf16}; first predict {wall:.2f} s, "
+              f"peak {peak / 2**20:.0f} MiB", flush=True)
+        no_bf16("fp32 grid serve", bf16)
+        if f32 != want:
+            fail("the fp32 serve did not go through the fp32 kernels as "
+                 "planned")
+        del f32["fused_mul_relu"]
+        add(f32)
+        plain, margin, plain_logits, _ = plain_mask_and_margin(
+            pred.model, d1, d2, torch.float32)
+        f32_margin_rule(f"fp32 {SCENE}^2 mask", mask, plain, margin,
+                        plain_logits.abs().max().item())
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pred.predict(d1, d2)
+            walls.append(time.perf_counter() - t0)
+        a1, a2 = (torch.from_numpy(d).cuda() for d in (d1, d2))
+        run = pred._get_runner(SCENE, SCENE)
+        fwd_ms = device_ms(lambda: run(a1, a2), 2)
+        mpx = SCENE * SCENE / 1e6
+        wall = statistics.median(walls)
+        print(f"fp32 end to end {SCENE}^2 ({smi}): predict "
+              f"{wall * 1e3:.1f} ms of {[round(w * 1e3, 1) for w in walls]} "
+              f"= {mpx / wall:.2f} Mpx/s; device-resident runner "
+              f"{fwd_ms:.1f} ms = {mpx / fwd_ms * 1e3:.2f} Mpx/s", flush=True)
+
+        # int8 with the float32 compute dtype
+        pred8 = ScenePredictor(cfg, checkpoint=None, bucket=512,
+                               device="cuda", quant="int8")
+        pred8.predict(d1, d2)  # calibrates on the fp32 conv kernels
+        mask8, f32, bf16 = f32_counted(lambda: pred8.predict(d1, d2))
+        print(f"fp32 int8 serve of the {SCENE}^2 pair: launches {f32} "
+              f"(conv3x3_s8_q_f32 expected {18 * 4}; the clip probe's fp32 "
+              f"calibration forward the rest), bf16 forms {bf16}",
+              flush=True)
+        no_bf16("fp32 int8 serve", bf16)
+        if f32["conv3x3_s8_q_f32"] != 18 * 4:
+            fail("the fp32 int8 serve did not run the float32 int8 sites")
+        add(f32)
+        with plain_int8(), torch.inference_mode():
+            plain8 = make_scene_infer(pred8._forward, PATCH, (SCENE, SCENE),
+                                      batch_size=BATCH,
+                                      dtype=torch.float32)(a1, a2)
+        int8_identical(f"fp32 int8 {SCENE}^2 mask", mask8,
+                       plain8.cpu().numpy(), False)
+
+        # fullconv: banded = whole-scene
+        predfc = ScenePredictor(cfg, checkpoint=None, bucket=512,
+                                device="cuda", fullconv_band_rows=FC_BAND)
+        (mask_fc, wall_fc, peak_fc), f32, bf16 = f32_counted(
+            lambda: timed(lambda: predfc.predict(d1, d2)))
+        no_bf16("fp32 fullconv serve", bf16)
+        add(f32)
+        with torch.inference_mode():
+            whole = fullconv.make_fullconv_scene_infer(
+                predfc._forward, (SCENE, SCENE), band_rows=SCENE,
+                dtype=torch.float32)(a1, a2).cpu().numpy()
+        same = np.array_equal(mask_fc, whole)
+        print(f"fp32 fullconv serve of the {SCENE}^2 pair (band {FC_BAND}): "
+              f"banded == whole-scene: {same} ({int((mask_fc != whole).sum())}"
+              f" pixels differ); launches {f32}; {wall_fc:.2f} s with its "
+              f"first call, peak {peak_fc / 2**20:.0f} MiB", flush=True)
+        if not same or not f32["conv3x3_bias_relu_f32"]:
+            fail("fp32 fullconv: banded differs from the whole scene")
+        del a1, a2, run
+
+        # the multi-date families at T = F32_T
+        rng = np.random.RandomState(SEED + 15)
+        stack = rng.randn(F32_T, F32_MD_SCENE, F32_MD_SCENE,
+                          13).astype(np.float32)
+        for name, base in F32_MD_BASE.items():
+            mcfg = Config(model=name, num_dates=F32_T, patch_size=PATCH,
+                          eval_batch_size=BATCH, dtype="float32",
+                          model_base=base)
+            mp = ScenePredictor(mcfg, checkpoint=None, bucket=512,
+                                device="cuda")
+            mmask, f32, bf16 = f32_counted(lambda: mp.predict_multidate(stack))
+            no_bf16(f"fp32 {name}", bf16)
+            if not (f32["conv3x3_bias_relu_f32"]
+                    or f32["double_conv3x3_bias_relu_f32"]):
+                fail(f"fp32 {name}: no fp32 conv kernel ran")
+            add(f32)
+            pm, margin, scale = plain_multidate(
+                mp.model, torch.from_numpy(stack).cuda(), F32_MD_SCENE,
+                torch.float32)
+            print(f"fp32 {name} (base {base}, T = {F32_T}, "
+                  f"{F32_MD_SCENE}^2): launches {f32}", flush=True)
+            f32_margin_rule(f"fp32 {name} mask", mmask, pm, margin, scale)
+
+        # one fp32 bundle
+        run_dir = os.path.join(root, "f32_run")
+        ckpt.save(create_state(cfg, build_model(cfg, "cpu", fold_bn=False,
+                                                train=True)), run_dir,
+                  epoch=0)
+        path = os.path.join(root, "bundle_f32.npz")
+        export_bundle(cfg, run_dir, path, quant="none")
+        served = ScenePredictor(cfg, bundle=path, bucket=512, device="cuda")
+        got, f32, bf16 = f32_counted(lambda: served.predict(d1, d2))
+        no_bf16("fp32 bundle serve", bf16)
+        add(f32)
+        same = np.array_equal(got, mask)
+        print(f"fp32 bundle serve of the {SCENE}^2 pair: == the fp32 "
+              f"checkpoint-free serve (the same seed-0 weights): {same}; "
+              f"launches {f32}", flush=True)
+        if not same:
+            fail("the fp32 bundle does not serve as the fp32 model")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return rows, total
 
 
 def main() -> int:
@@ -4166,6 +4680,15 @@ def main() -> int:
         key = "conv3x3_s8" if name == "conv3x3_s8_q" else name
         launches[key] = launches.get(key, 0) + v
 
+    # --- float32 serving, with cuDNN's TF32 on for the phase ---
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fabric_smoke_f32_") as root:
+        f32_rows, f32_launches = f32_phase(root, d1, d2, smi)
+    print(f"f32 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    rows += f32_rows
+    for name, counter in F32_KERNELS.items():
+        launches[name] = f32_launches.get(counter, 0)
+
     # --- the training path, then its kernel and cross checks ---
     with tempfile.TemporaryDirectory(prefix="fabric_smoke_") as root:
         cfg_t, state, history, t_launches, evals, records = train_phase(
@@ -4180,16 +4703,20 @@ def main() -> int:
         remat_accum_phase(smi)
         store_phase(cfg_t, root)
         evaluate_phase(cfg_t, root, smi)
-        t0 = time.perf_counter()
-        dp = dp_train_phase(root)
-        print(f"dp_train phase: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        sp_launches = sp_train_phase(root, dp, smi)
-        print(f"sp_train phase: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        multidate_train_phase(root, smi)
+        # the multi-date dataset is written while dp_train and sp_train
+        # wait on their ranks' processes
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            md_data = pool.submit(md_dataset, root)
+            t0 = time.perf_counter()
+            dp = dp_train_phase(root)
+            print(f"dp_train phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t0 = time.perf_counter()
+            sp_launches = sp_train_phase(root, dp, smi)
+            print(f"sp_train phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t0 = time.perf_counter()
+            multidate_train_phase(root, smi, md_data)
         print(f"multi-date training phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
     rows += bn_rows
@@ -4216,6 +4743,15 @@ def main() -> int:
         # replaces XLA's fusion of fuse_q / f5 and the int8 pool
         "siamese_fuse_s8": ("cuda", "fabric_tpu_torch/csrc/siamese_s8.cu",
                             "fabric_tpu/infer/quant.py:336"),
+        # the float32 forms of rows 1, 2 and 5b
+        "conv3x3_bias_relu_f32": (
+            "cuda", "fabric_tpu_torch/csrc/conv3x3_bias_relu_f32.cu",
+            "fabric_tpu/ops/pallas_conv.py:91"),
+        "double_conv3x3_bias_relu_f32": (
+            "cuda", "fabric_tpu_torch/csrc/double_conv3x3_bias_relu_f32.cu",
+            "fabric_tpu/ops/pallas_double_conv.py:190"),
+        "conv3x3_s8_f32": ("cuda", "fabric_tpu_torch/csrc/conv3x3_s8.cu",
+                           "fabric_tpu/infer/quant.py:176"),
     }
     kernels = []
     for name, (route, source, replaces) in sources.items():
@@ -4251,7 +4787,10 @@ def main() -> int:
           "levels; launches: the int8 serves; no single PyTorch call "
           "computes it), the int8 form at 131072 x 512 x 512 for "
           "int8_matmul (library: torch._int_mm; launches: its microbench "
-          "and the shift-conv microbench)")
+          "and the shift-conv microbench); the *_f32 forms over one fp32 "
+          f"forward of {BATCH} tiles (rows 1-2: bound at the 67 TFLOP/s "
+          "FFMA rate, library cuDNN's fp32 conv + ReLU with TF32 off; "
+          "launches: the fp32 phase's serves)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

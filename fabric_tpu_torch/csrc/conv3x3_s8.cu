@@ -18,6 +18,10 @@
 //   split  two K segments (skip x K_skip, then up x K_up) into two
 //          accumulator sets: h = max(bf16(fma(float(a), k[c],
 //          float(b) * k2[c]) + bias[c]), 0), then int8 as above
+//   float32, int8_f32, split_f32: the float32 compute dtype's forms of
+//          bf16, int8 and split (fabric_tpu's dtype="float32" int8
+//          forward): h without the bf16 rounding, h = max(fma(float(acc),
+//          k[c], bias[c]), 0); float32 out, or int8 from that h
 // with the float operations spelled as intrinsics, so that each rounds as
 // the plain PyTorch version (ops/conv_s8.py) does and nvcc contracts
 // nothing else.
@@ -43,7 +47,16 @@
 namespace fabric {
 
 // What a launch writes.
-enum S8Mode { kRaw = 0, kInt8 = 1, kBf16 = 2, kSplit = 3 };
+enum S8Mode {
+  kRaw = 0, kInt8 = 1, kBf16 = 2, kSplit = 3,
+  kF32 = 4, kInt8F32 = 5, kSplitF32 = 6
+};
+
+// The split forms, and the forms whose h stays float32.
+__host__ __device__ constexpr bool s8_split(int mode) {
+  return mode == kSplit || mode == kSplitF32;
+}
+__host__ __device__ constexpr bool s8_f32(int mode) { return mode >= kF32; }
 
 // One K segment: an int8 NHWC input of cin channels and its weights
 // packed by ops/conv_s8.py pack_weight (cin_pad = cin rounded up to 32).
@@ -70,7 +83,7 @@ struct Epi {
 // PN = 64 three, two for the split form (whose parked sums leave a third
 // no shared memory).
 constexpr int s8_blocks_per_sm(int pn, int mode) {
-  return pn == 128 ? 1 : mode == kSplit ? 2 : 3;
+  return pn == 128 ? 1 : s8_split(mode) ? 2 : 3;
 }
 
 // Bytes of shared memory that park the split form's first sums: PN/2
@@ -79,7 +92,7 @@ __host__ __device__ constexpr int park_bytes(int pn) {
   return pn / 2 * kConsumers * 4;
 }
 
-// int8 code of a non-negative bf16 value h: clamp(rint(h * inv_s)).
+// int8 code of a non-negative value h: clamp(rint(h * inv_s)).
 __device__ __forceinline__ uint32_t quantize_s8(float h, float inv_s) {
   const float v = fminf(fmaxf(rintf(__fmul_rn(h, inv_s)), -127.f), 127.f);
   return (uint32_t)(unsigned char)(signed char)__float2int_rn(v);
@@ -90,7 +103,7 @@ __global__ void __launch_bounds__(kConvThreads, s8_blocks_per_sm(PN, MODE))
     conv3x3_s8_kernel(Seg s0, Seg s1, Epi ep, void* __restrict__ y, int n,
                       int h, int w, int cout, Geo g, int tiles_h,
                       int tiles_w, int stages, bool vec_out) {
-  constexpr bool kTwo = MODE == kSplit;
+  constexpr bool kTwo = s8_split(MODE);
   extern __shared__ __align__(128) unsigned char smem[];
   const int stage_bytes = PN * kKB, pbytes = patch_bytes(g);
   unsigned char* patch[2] = {smem + stages * stage_bytes,
@@ -160,7 +173,8 @@ __global__ void __launch_bounds__(kConvThreads, s8_blocks_per_sm(PN, MODE))
 
   // ---- epilogue ----
   const int n0 = nt * PN, t = lane & 3;
-  constexpr int kOut = MODE == kRaw ? 4 : MODE == kBf16 ? 2 : 1;
+  constexpr int kOut =
+      MODE == kRaw || MODE == kF32 ? 4 : MODE == kBf16 ? 2 : 1;
   unsigned char* rows[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -171,7 +185,8 @@ __global__ void __launch_bounds__(kConvThreads, s8_blocks_per_sm(PN, MODE))
                            (((size_t)on * h + oi) * w + oj) * cout * kOut
                      : nullptr;
   }
-  // the ReLU'd bf16 value of column 8j + 2t + e of row half
+  // the ReLU'd value of column 8j + 2t + e of row half (bf16-rounded but
+  // in the float32 forms)
   auto value = [&](int j, int half, int e) {
     const int i = 4 * j + 2 * half + e, col = n0 + 8 * j + 2 * t + e;
     const bool in = col < cout;
@@ -186,13 +201,15 @@ __global__ void __launch_bounds__(kConvThreads, s8_blocks_per_sm(PN, MODE))
     } else {
       v = __fmaf_rn(__int2float_rn(acc[i]), k, b);
     }
+    if constexpr (s8_f32(MODE)) return fmaxf(v, 0.f);
     return fmaxf(__bfloat162float(__float2bfloat16_rn(v)), 0.f);
   };
-  if constexpr (MODE == kRaw) {
+  if constexpr (MODE == kRaw || MODE == kF32) {
     uint32_t* const r32[2] = {reinterpret_cast<uint32_t*>(rows[0]),
                               reinterpret_cast<uint32_t*>(rows[1])};
     store32<PN>(
         [&](int j, int half, int e) {
+          if constexpr (MODE == kF32) return __float_as_uint(value(j, half, e));
           return (uint32_t)acc[4 * j + 2 * half + e];
         },
         n0, cout, r32, vec_out);
@@ -254,8 +271,8 @@ extern "C" int fabric_conv3x3_s8_smem_bytes(int pn, int tw, int tr, int ni,
 // pack_weight (N tiles of pn = 64 or 128 channels); for mode 3 (split)
 // also x2 (n, h, w, cin2) and wpk2, the second K segment.  k, k2, bias:
 // (cout,) float32 (unused in mode 0); inv_s: the float32 reciprocal of the
-// output scale (modes 1 and 3).  y (n, h, w, cout): int32 (mode 0), int8
-// (1, 3) or bf16 (2).  (tw, tr, ni): log2 of the tile's columns, rows and
+// output scale (modes 1, 3, 5, 6).  y (n, h, w, cout): int32 (mode 0), int8
+// (1, 3, 5, 6), bf16 (2) or float32 (4).  (tw, tr, ni): log2 of the tile's columns, rows and
 // images, tw + tr + ni = 7.  Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int fabric_conv3x3_s8(const void* x, const void* wpk, int cin,
@@ -265,10 +282,10 @@ extern "C" int fabric_conv3x3_s8(const void* x, const void* wpk, int cin,
                                  int n, int h, int w, int cout, int pn,
                                  int tw, int tr, int ni, int stages,
                                  int mode, void* stream) {
-  const bool split = mode == kSplit;
+  const bool split = mode == kSplit || mode == kSplitF32;
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 ||
       (pn != 64 && pn != 128) || tw < 0 || tr < 0 || ni < 0 ||
-      tw + tr + ni != 7 || stages < 2 || mode < kRaw || mode > kSplit ||
+      tw + tr + ni != 7 || stages < 2 || mode < kRaw || mode > kSplitF32 ||
       reinterpret_cast<uintptr_t>(wpk) % 16 ||
       (mode != kRaw && (k == nullptr || bias == nullptr)) ||
       (split && (cin2 <= 0 || x2 == nullptr || k2 == nullptr ||
@@ -284,7 +301,8 @@ extern "C" int fabric_conv3x3_s8(const void* x, const void* wpk, int cin,
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const Epi ep{static_cast<const float*>(k), static_cast<const float*>(k2),
                static_cast<const float*>(bias), inv_s};
-  const int out_align = mode == kRaw ? 4 : mode == kBf16 ? 8 : 16;
+  const int out_align =
+      mode == kRaw || mode == kF32 ? 4 : mode == kBf16 ? 8 : 16;
   const bool vec_out =
       cout % out_align == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
   const Geo g{tw, tr, ni};
@@ -301,8 +319,14 @@ extern "C" int fabric_conv3x3_s8(const void* x, const void* wpk, int cin,
       return FABRIC_LAUNCH(kInt8);
     case kBf16:
       return FABRIC_LAUNCH(kBf16);
-    default:
+    case kSplit:
       return FABRIC_LAUNCH(kSplit);
+    case kF32:
+      return FABRIC_LAUNCH(kF32);
+    case kInt8F32:
+      return FABRIC_LAUNCH(kInt8F32);
+    default:
+      return FABRIC_LAUNCH(kSplitF32);
   }
 #undef FABRIC_LAUNCH
 }

@@ -34,7 +34,11 @@ cast to the compute dtype first, scale products in float32.  Where
 fused multiply-add, so does the port (``torch.addcmul``; on the card the
 kernel's ``fmaf``).
 The calibration forward applies ReLU after each conv, so it runs each site
-on the bf16 conv kernel (``ops/conv.py``), tapping the input's absmax first.
+on the conv kernel of the compute dtype (``ops/conv.py``, bf16 or float32),
+tapping the input's absmax first.  In float32 (``dtype=torch.float32``, as
+``fabric_tpu``'s ``dtype="float32"``) every float step of the int8 forward
+stays float32: the conv sites' epilogues are ``conv3x3_s8_q``'s float32
+forms, the calibration forward runs the fp32 conv kernels.
 """
 
 from __future__ import annotations
@@ -176,10 +180,12 @@ class StatsBlocks:
     """The exact folded forward's 2-D blocks with their calibration taps,
     shared by every family: :meth:`dc` runs a folded DoubleConv as two
     conv3x3_bias_relu launches (the site's input absmax tapped first, on
-    weights packed once), :meth:`decode` the Up stack and the head, its
-    upsample the local one with ``local_upsample``."""
+    weights packed once for the compute ``dtype``), :meth:`decode` the Up
+    stack and the head, its upsample the local one with
+    ``local_upsample``."""
 
-    def __init__(self, folded, local_upsample: bool = False):
+    def __init__(self, folded, local_upsample: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
         self.folded = folded
         self.upsample = _upsample(local_upsample)
         self.sites = dict(derive_conv_sites(folded))
@@ -188,8 +194,8 @@ class StatsBlocks:
         for name, path in self.sites.items():
             k = _get(folded, path)["kernel"]
             if k.dim() == 4 and name != "bottleneck_lstm.gates":
-                self.packed[name] = conv_ops.pack_weight(k) if on_card \
-                    else None
+                self.packed[name] = conv_ops.pack_weight(k, dtype) \
+                    if on_card else None
 
     def dc(self, x: torch.Tensor, block: str, stats: dict) -> torch.Tensor:
         for conv in ("conv1", "conv2"):
@@ -224,7 +230,7 @@ def make_stats_forward(folded, dtype=torch.bfloat16, local_upsample=False,
         from fabric_tpu_torch.infer import quant_multidate
         return quant_multidate.make_stats_forward(folded, dtype, model,
                                                   local_upsample)
-    blocks = StatsBlocks(folded, local_upsample)
+    blocks = StatsBlocks(folded, local_upsample, dtype)
 
     @torch.inference_mode()
     def forward(x_d1, x_d2):

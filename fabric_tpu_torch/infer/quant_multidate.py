@@ -32,14 +32,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from fabric_tpu_torch.infer.quant import (Int8Blocks, StatsBlocks, _absmax,
                                           _get, q)
 from fabric_tpu_torch.models.blocks import max_pool2x2
 from fabric_tpu_torch.models.unet3d import conv3d_same, spatial_pool
 from fabric_tpu_torch.models.unet_lstm import ConvLSTMCell, multi_date_fuse
-from fabric_tpu_torch.ops import conv_s8
+from fabric_tpu_torch.ops import conv_s8, fp32_conv
 
 _ENC = ("inc", "down1", "down2", "down3", "down4")
 
@@ -48,8 +47,8 @@ def _gate_conv(folded, x: torch.Tensor) -> torch.Tensor:
     """The ConvLSTM gate conv of ``x`` = [x_t, h]: 3x3 SAME in x's dtype
     plus the bias in x's dtype (flax ``nn.Conv``)."""
     p = folded["bottleneck_lstm"]["gates"]
-    y = F.conv2d(x.permute(0, 3, 1, 2),
-                 p["kernel"].to(x.dtype).permute(3, 2, 0, 1), padding=1)
+    y = fp32_conv.conv(x.permute(0, 3, 1, 2),
+                       p["kernel"].to(x.dtype).permute(3, 2, 0, 1), padding=1)
     return y.permute(0, 2, 3, 1) + p["bias"].to(x.dtype)
 
 
@@ -58,7 +57,7 @@ def make_stats_forward(folded, dtype=torch.bfloat16, model: str = "unet_lstm",
     """The exact folded forward ``(seq) -> (logits, {site: absmax})`` of a
     multi-date ``model`` over an (N, T, H, W, C) stack (its decoder on the
     local upsample where ``local_upsample``)."""
-    blocks = StatsBlocks(folded, local_upsample)
+    blocks = StatsBlocks(folded, local_upsample, dtype)
 
     def dc3(x, block, stats):
         for conv in ("conv1", "conv2"):

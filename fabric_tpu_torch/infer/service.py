@@ -227,11 +227,6 @@ class ScenePredictor:
         self.clip_warn_ratio = clip_warn_ratio
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
-        if (self.device.type == "cuda" and fold_bn
-                and self.dtype != torch.bfloat16):
-            raise NotImplementedError("the conv kernels compute in bfloat16; "
-                                      "serve folded with cfg.dtype="
-                                      "'bfloat16'")
         variables = None
         if checkpoint and folded is None:
             variables = ckpt.load_variables(ckpt.resolve(checkpoint))

@@ -91,7 +91,7 @@ def build_model(cfg, device, generator: torch.Generator | None = None,
     model = model.to(device).train(train)
     for m in model.modules():  # pack the serving kernels' weights once
         if isinstance(m, DoubleConv) and m.fold_bn:
-            m.packed_kernels()
+            m.packed_kernels(dtype)
         elif isinstance(m, ConvLSTMCell) and m.exact_crops and not train:
-            m.signed_gates()
+            m.signed_gates(dtype)
     return model

@@ -9,14 +9,16 @@ Parameter names and layouts follow ``fabric_tpu``'s flax tree (``conv1``
 computes in the activations' dtype.
 
 Folded DoubleConv blocks (BatchNorm folded into the convs) are the serving
-path and run on the hand-written conv kernels, dispatched like
-``fabric_tpu/models/blocks.py:115-152`` with ``use_pallas``: the fused
-double-conv kernel where its gate holds, otherwise two conv3x3 launches,
-both on the block's kernels packed once (``DoubleConv.packed_kernels``).
+path and run on the hand-written conv kernels of the activations' dtype
+(bf16 or float32), dispatched like ``fabric_tpu/models/blocks.py:115-152``
+with ``use_pallas``: the fused double-conv kernel where its gate for that
+dtype holds, otherwise two conv3x3 launches, both on the block's kernels
+packed once for that dtype (``DoubleConv.packed_kernels``).
 Blocks with BatchNorm train (batch statistics, ``TorchBatchNorm``'s rules)
 or evaluate from running averages; in eval the conv bias, BatchNorm and
 ReLU are one ``bn_relu_inference`` kernel launch (``ops/bn_relu.py``).
-Their convs are ``F.conv2d`` (cuDNN on the card): ``fabric_tpu`` computes
+Their convs are ``F.conv2d`` (cuDNN on the card, in full float32 for
+float32 whatever the TF32 flags say: ``ops/fp32_conv.py``): ``fabric_tpu`` computes
 them with XLA's ``nn.Conv`` outside any Pallas kernel
 (``blocks.py:168-174``), a plain large product that stays a library call
 here, not an unported kernel.
@@ -40,13 +42,13 @@ rows of the global upsample.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from fabric_tpu_torch.ops import bn_relu as bn_relu_ops
 from fabric_tpu_torch.parallel import distributed, spatial
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import double_conv as double_conv_ops
+from fabric_tpu_torch.ops import fp32_conv
 from fabric_tpu_torch.ops import s2d_conv
 from fabric_tpu_torch.ops.resize import (pad_to_match,
                                         upsample2x_align_corners,
@@ -81,9 +83,9 @@ class Conv(nn.Module):
         level: the rank's rows, from a halo)."""
         k = self.kernel.shape[0] // 2
         x, pad_h = spatial.halo_rows(x, k)
-        y = F.conv2d(x.permute(0, 3, 1, 2),
-                     self.kernel.to(x.dtype).permute(3, 2, 0, 1),
-                     padding=(pad_h, k))
+        y = fp32_conv.conv(x.permute(0, 3, 1, 2),
+                           self.kernel.to(x.dtype).permute(3, 2, 0, 1),
+                           padding=(pad_h, k))
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -177,18 +179,20 @@ class DoubleConv(nn.Module):
             self.bn1 = BatchNorm(cout)
             self.bn2 = BatchNorm(cout)
 
-    def packed_kernels(self) -> tuple:
-        """The folded kernels packed for the conv kernels
+    def packed_kernels(self, dtype: torch.dtype = torch.bfloat16) -> tuple:
+        """The folded kernels packed for the conv kernels of ``dtype``
         (``conv_ops.pack_weight``), made at the first call and kept until
-        the kernels change (in place or replaced).  ``build_model`` makes
-        them, so that an exported program holds them as constants."""
+        the kernels or the dtype change.  ``build_model`` makes them for
+        the model's dtype, so that an exported program holds them as
+        constants."""
         k1, k2 = self.conv1.kernel, self.conv2.kernel
         key = weights_key(k1, k2)
-        if key is not None and getattr(self, "_packed_key", None) != key:
+        if key is not None and getattr(self, "_packed_key",
+                                       None) != (key, dtype):
             with torch.no_grad():
-                self._packed = (conv_ops.pack_weight(k1),
-                                conv_ops.pack_weight(k2))
-            self._packed_key = key
+                self._packed = (conv_ops.pack_weight(k1, dtype),
+                                conv_ops.pack_weight(k2, dtype))
+            self._packed_key = (key, dtype)
         return self._packed
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -198,8 +202,8 @@ class DoubleConv(nn.Module):
                 raise ValueError("fold_bn is an inference-only transform")
             _, h, w, cin = x.shape
             cout = c2.kernel.shape[-1]
-            packed = self.packed_kernels()
-            if double_conv_ops.supports(h, w, cin, cout, cout):
+            packed = self.packed_kernels(x.dtype)
+            if double_conv_ops.supports(h, w, cin, cout, cout, x.dtype):
                 return double_conv_ops.double_conv3x3_bias_relu(
                     x, c1.kernel, c1.bias, c2.kernel, c2.bias, packed)
             x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias, packed[0])

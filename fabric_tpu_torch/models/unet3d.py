@@ -8,8 +8,10 @@ each skip collapses T by max, the bottleneck by mean; the decoder is
 BiDateNet's 2-D Up stack and head.
 
 The 3-D convs are ``F.conv3d`` in the compute dtype with the bias added in
-that dtype (flax's ``nn.Conv``): ``fabric_tpu`` computes them with XLA,
-outside any Pallas kernel.  With BatchNorm unfolded, each 3-D conv's bias,
+that dtype (flax's ``nn.Conv``; in full float32 for float32 whatever the
+TF32 flags say, ``ops/fp32_conv.py``): ``fabric_tpu`` computes them with
+XLA, outside any Pallas kernel.  Folded, the decoder's 2-D blocks serve on
+the conv kernels of the compute dtype (bf16 or float32).  With BatchNorm unfolded, each 3-D conv's bias,
 BatchNorm and ReLU run on the eval-BatchNorm kernel over the (N*T, H, W,
 C) view, as the 2-D blocks do.  In train mode (``forward(seq,
 train=True)``) each 3-D conv adds its bias in the compute dtype, then
@@ -26,11 +28,11 @@ input.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from fabric_tpu_torch.models.blocks import (BatchNorm, OutConv, Up, _weight,
                                             max_pool2x2)
+from fabric_tpu_torch.ops import fp32_conv
 from fabric_tpu_torch.parallel import spatial
 
 
@@ -39,9 +41,9 @@ def conv3d_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     without bias; the output is contiguous NDHWC (on a split level: the
     rank's rows, from a halo)."""
     x, pad_h = spatial.halo_rows(x, 1, axis=2)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3),
-                 kernel.to(x.dtype).permute(4, 3, 0, 1, 2),
-                 padding=(1, pad_h, 1))
+    y = fp32_conv.conv(x.permute(0, 4, 1, 2, 3),
+                       kernel.to(x.dtype).permute(4, 3, 0, 1, 2),
+                       padding=(1, pad_h, 1))
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 

@@ -20,10 +20,11 @@ Fullconv serving (``infer/fullconv.py``) needs a band of a scene to compute
 each pixel as the whole scene does, and cuDNN picks its algorithm by
 shape: on the H100, at base 64, a band's gate conv rounded otherwise than
 the whole scene's.  So a model built with ``local_upsample`` (the fullconv
-model) runs its gate conv on the conv kernel, whose per-pixel sums do not
-depend on the image's size: one launch computes relu(z) and relu(-z) from
-the kernel concatenated with its negation, and z is their difference,
-exact in bf16 (:func:`signed_conv`).  Each date's gate conv widens the
+model) runs its gate conv on the conv kernel of its dtype (bf16 or
+float32), whose per-pixel sums do not depend on the image's size: one
+launch computes relu(z) and relu(-z) from the kernel concatenated with its
+negation, and z is their difference, exact in either dtype
+(:func:`signed_conv`).  Each date's gate conv widens the
 receptive field by one 3x3 conv at stride 16: 109 + 16 T px, which is
 what the fullconv halo must cover (``fullconv.halo_for``).
 
@@ -36,9 +37,10 @@ signed route runs on the conv kernel, which has no backward, and
 ``fabric_tpu`` computes that conv with XLA outside any Pallas kernel.  An
 eval forward after an optimizer step takes the signed weights anew
 (:meth:`ConvLSTMCell.signed_gates` keys on the gate tensors' versions).
-The conv kernel takes bf16 only, so the signed route is a bf16 eval
-forward's, on the card and (on its plain version) on the CPU alike: an
-fp32 or fp64 eval forward computes the gate conv with ``self.gates``.
+The conv kernel takes bf16 and float32, so the signed route is a bf16 or
+float32 eval forward's (on the kernel of that dtype), on the card and (on
+its plain version) on the CPU alike: an fp64 eval forward computes the
+gate conv with ``self.gates``.
 
 Inside ``parallel/spatial.sharded`` each block runs at its level, as in
 BiDateNet; the ConvLSTM at the bottleneck's (4), its gate conv reading a
@@ -70,7 +72,7 @@ def signed_conv(x: torch.Tensor, signed_kernel: torch.Tensor,
     kernel: ``signed_kernel`` is [K, -K] along the output channels and
     ``signed_bias`` [b, -b], so the launch gives [relu(z), relu(-z)], the
     second the exact negation of the first's sums, and z is their
-    difference (one of the two is 0)."""
+    difference (one of the two is 0), in bf16 or float32 alike."""
     y = conv_ops.conv3x3_bias_relu(x, signed_kernel, signed_bias, packed)
     c = y.shape[-1] // 2
     return y[..., :c] - y[..., c:]
@@ -85,17 +87,20 @@ class ConvLSTMCell(nn.Module):
         self.exact_crops = exact_crops
         self.gates = Conv(cin + features, 4 * features)
 
-    def signed_gates(self) -> tuple:
-        """([K, -K], [b, -b], the packed [K, -K]) for :func:`signed_conv`,
-        made once and again when the weights change (``build_model`` makes
-        them, so that an exported program holds them as constants)."""
+    def signed_gates(self, dtype: torch.dtype = torch.bfloat16) -> tuple:
+        """([K, -K], [b, -b], [K, -K] packed for the conv kernel of
+        ``dtype``) for :func:`signed_conv`, made once and again when the
+        weights or the dtype change (``build_model`` makes them for the
+        model's dtype, so that an exported program holds them as
+        constants)."""
         k, b = self.gates.kernel, self.gates.bias
         key = weights_key(k, b)
-        if key is not None and getattr(self, "_signed_key", None) != key:
+        if key is not None and getattr(self, "_signed_key",
+                                       None) != (key, dtype):
             with torch.no_grad():
                 kk, bb = torch.cat([k, -k], -1), torch.cat([b, -b])
-                self._signed = (kk, bb, conv_ops.pack_weight(kk))
-            self._signed_key = key
+                self._signed = (kk, bb, conv_ops.pack_weight(kk, dtype))
+            self._signed_key = (key, dtype)
         return self._signed
 
     @staticmethod
@@ -113,15 +118,15 @@ class ConvLSTMCell(nn.Module):
     def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                 train: bool = False):
         xh = torch.cat([x, h], dim=-1)
-        # the signed route where the conv kernel takes xh: bf16 eval, on
-        # the card and (its plain version) on the CPU alike
+        # the signed route where the conv kernel takes xh: a bf16 or
+        # float32 eval, on the card and (its plain version) on the CPU alike
         signed = (self.exact_crops and not train
-                  and xh.dtype == torch.bfloat16)
+                  and xh.dtype in (torch.bfloat16, torch.float32))
         if not signed:
             z = self.gates(xh)
         else:
             ext, pad = spatial.halo_rows(xh, 1)
-            z = signed_conv(ext, *self.signed_gates())
+            z = signed_conv(ext, *self.signed_gates(xh.dtype))
             if not pad:  # the kernel's rows of the halo-extended input
                 z = z[:, 1:-1]
         return self.step(z, c)

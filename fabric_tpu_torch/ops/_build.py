@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("conv3x3_bias_relu", "double_conv3x3_bias_relu", "int8_matmul",
-           "conv3x3_s8", "bn_relu", "siamese_s8")
+           "conv3x3_s8", "bn_relu", "siamese_s8", "conv3x3_bias_relu_f32",
+           "double_conv3x3_bias_relu_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # these kernels round as their plain PyTorch versions: no float

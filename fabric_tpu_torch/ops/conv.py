@@ -1,18 +1,21 @@
-"""Fused 3x3 conv + bias + ReLU on NHWC bf16 (inference).
+"""Fused 3x3 conv + bias + ReLU on NHWC bf16 or float32 (inference).
 
 Counterpart of ``fabric_tpu/ops/pallas_conv.py:conv3x3_bias_relu``: with
 BatchNorm folded into the weights, a conv of a DoubleConv block is
-``relu(conv3x3_SAME(x, K) + b)``.  On a CUDA tensor :func:`conv3x3_bias_relu`
-launches the hand-written Hopper kernel ``csrc/conv3x3_bias_relu.cu`` (see
-its header for the design and what bounds it); on a CPU tensor it computes
+``relu(conv3x3_SAME(x, K) + b)``, computed in x's dtype as the Pallas
+kernel does.  On a CUDA tensor :func:`conv3x3_bias_relu` launches the
+hand-written Hopper kernel of x's dtype: ``csrc/conv3x3_bias_relu.cu``
+(bf16, wgmma) or ``csrc/conv3x3_bias_relu_f32.cu`` (float32, FFMA;
+counted on ``conv3x3_bias_relu.launches_f32``); see their headers for the
+designs and what bounds them.  On a CPU tensor it computes
 :func:`conv3x3_bias_relu_reference`, the plain PyTorch version the tests
 hold against the Pallas function.
 
-The kernels read their weights in a packed layout (:func:`pack_weight`).
-Callers that keep their weights pack them once and pass them in: the
-folded ``DoubleConv`` (``models/blocks.py``) and the int8 path's bf16
-calibration forward (``infer/quant.py``).  This module also holds the tile
-planner that both conv kernels share (:func:`tile_geometry`,
+The kernels read their weights in a packed layout of their dtype
+(:func:`pack_weight`).  Callers that keep their weights pack them once and
+pass them in: the folded ``DoubleConv`` (``models/blocks.py``) and the
+int8 path's calibration forward (``infer/quant.py``).  This module also
+holds the tile planner that the conv kernels share (:func:`tile_geometry`,
 :func:`n_tile`), mirrored from ``csrc/conv_tile.cuh``.
 """
 
@@ -24,13 +27,15 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from fabric_tpu_torch.ops import _build
+from fabric_tpu_torch.ops import _build, fp32_conv
 
 KB = 64          # kKB in csrc/conv_tile.cuh: bytes of K per staged chunk
 KC = KB // 2     # kKC: the same in bf16 channels
 PITCH = KB + 16  # kPitch: bytes per staged pixel
 STAGES = 4       # weight ring slots of the conv kernel
 MAX_SMEM = 232448  # 227 KB: the most shared memory a Hopper block may use
+KC_F32 = 8       # kConvKC in csrc/conv3x3_bias_relu_f32.cu: fp32 channels
+                 # per staged chunk; the fp32 packing pads Cin to it
 
 
 def _round_up(x: int, m: int) -> int:
@@ -97,8 +102,26 @@ def pack_blocks(k: torch.Tensor, pn: int, chunk: int) -> torch.Tensor:
     return torch.cat(pieces, dim=1).reshape(-1).contiguous()
 
 
-def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, Cout) HWIO kernel -> the kernels' packed bf16 weights, a
+def pack_weight_f32(kernel: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO kernel -> the float32 kernels' packed weights
+    (``csrc/conv_tile_f32.cuh`` stage_weights), a flat float32 tensor of
+    Cin8 * 9 * Cout4 elements laid out [ci][tap][co] (Cin zero-padded to a
+    multiple of 8, Cout to a multiple of 4): element (tap, ci, co) sits at
+    (ci * 9 + tap) * Cout4 + co, so a chunk of input channels is one
+    contiguous run and any N tile of it a strided one."""
+    cin, cout = kernel.shape[2], kernel.shape[3]
+    k = torch.zeros((_round_up(cin, KC_F32), 9, _round_up(cout, 4)),
+                    dtype=torch.float32, device=kernel.device)
+    k[:cin, :, :cout] = kernel.reshape(9, cin, cout).permute(1, 0, 2)
+    return k.reshape(-1)
+
+
+def pack_weight(kernel: torch.Tensor,
+                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO kernel -> the packed weights of the kernel
+    that computes in ``dtype``: float32 is :func:`pack_weight_f32`; any
+    other dtype gets the bf16 kernel's layout (a plain version on the CPU,
+    in float64 say, ignores it; the card takes bf16 and float32 only): a
     flat tensor of 9 * Cin16 * CoutP elements (Cin zero-padded to a
     multiple of 16, Cout to a multiple of the N tile PN = n_tile(Cout)).
 
@@ -109,6 +132,8 @@ def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
     ci, co) sits at tile*9*Cin16*PN + 9*c0*PN + tap*kc*PN + (n//8)*kc*8 +
     (k//8)*64 + (n%8)*8 + k%8, with tile, n = divmod(co, PN) and c0, k =
     the chunk of ci and the offset in it."""
+    if dtype == torch.float32:
+        return pack_weight_f32(kernel)
     cin, cout = kernel.shape[2], kernel.shape[3]
     pn = n_tile(cout)
     cin_pad, cout_pad = _round_up(cin, 16), _round_up(cout, pn)
@@ -118,28 +143,34 @@ def pack_weight(kernel: torch.Tensor) -> torch.Tensor:
     return pack_blocks(k, pn, KC)
 
 
-def check_packed(packed: torch.Tensor, kernel: torch.Tensor) -> None:
+def check_packed(packed: torch.Tensor, kernel: torch.Tensor,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
     """Raise unless ``packed`` is what :func:`pack_weight` makes for a
-    kernel of ``kernel``'s shape, on its device."""
+    kernel of ``kernel``'s shape and ``dtype``, on its device."""
     cin, cout = kernel.shape[2], kernel.shape[3]
-    want = 9 * _round_up(cin, 16) * _round_up(cout, n_tile(cout))
+    if dtype == torch.float32:
+        want = 9 * _round_up(cin, KC_F32) * _round_up(cout, 4)
+    else:
+        want = 9 * _round_up(cin, 16) * _round_up(cout, n_tile(cout))
     if (packed.dim() != 1 or packed.numel() != want
-            or packed.dtype != torch.bfloat16 or not packed.is_contiguous()
+            or packed.dtype != dtype or not packed.is_contiguous()
             or packed.device != kernel.device or packed.data_ptr() % 16):
         raise ValueError(f"packed weights must be a contiguous, 16-byte "
-                         f"aligned bf16 vector of {want} elements on "
+                         f"aligned {dtype} vector of {want} elements on "
                          f"{kernel.device} (pack_weight), got "
                          f"{tuple(packed.shape)} {packed.dtype} on "
                          f"{packed.device}")
 
 
 def check_operands(x: torch.Tensor, weights, biases) -> None:
-    """Validate what the CUDA kernels take: a contiguous bf16 NHWC tensor on
-    the card, HWIO 3x3 kernels chained by channel count, (Cout,) biases."""
+    """Validate what the CUDA kernels take: a contiguous bf16 or float32
+    NHWC tensor on the card, HWIO 3x3 kernels chained by channel count,
+    (Cout,) biases."""
     if x.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA conv kernels take bfloat16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA conv kernels take bfloat16 or float32, "
+                        f"got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"expected a contiguous (N, H, W, C) tensor, got "
                          f"shape {tuple(x.shape)}")
@@ -161,9 +192,12 @@ def check_operands(x: torch.Tensor, weights, biases) -> None:
 def conv3x3_bias_relu_reference(x: torch.Tensor, kernel: torch.Tensor,
                                 bias: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: the kernel cast to x's dtype as the CUDA kernel
-    takes it, fp32 conv, fp32 bias, ReLU, one rounding to x's dtype."""
+    takes it, fp32 conv, fp32 bias, ReLU, one rounding to x's dtype.  For
+    float32 x nothing is rounded but the fp32 sums: no bf16 step anywhere
+    (on the card the conv runs with TF32 off, ``ops/fp32_conv.py``)."""
     k = kernel.to(x.dtype).float().permute(3, 2, 0, 1)  # HWIO -> OIHW
-    y = F.conv2d(x.float().permute(0, 3, 1, 2), k, bias.float(), padding=1)
+    y = fp32_conv.conv(x.float().permute(0, 3, 1, 2), k, bias.float(),
+                       padding=1)
     return torch.relu(y).permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
@@ -177,10 +211,46 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("conv3x3_bias_relu_f32")
+    fn = lib.fabric_conv3x3_bias_relu_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_f32(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                packed: torch.Tensor | None) -> torch.Tensor:
+    """Launch csrc/conv3x3_bias_relu_f32.cu on validated operands
+    (counted)."""
+    if packed is None:
+        packed = pack_weight_f32(kernel)
+    check_packed(packed, kernel, torch.float32)
+    n, h, w, cin = x.shape
+    cout = kernel.shape[3]
+    tw, tr, ni = tile_geometry(h, w)
+    b = bias.float().contiguous()
+    y = torch.empty((n, h, w, cout), dtype=torch.float32, device=x.device)
+    lib = _lib_f32()
+    with _build.on_device(x.get_device()):
+        err = lib.fabric_conv3x3_bias_relu_f32(
+            x.data_ptr(), packed.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
+            w, cin, cout, _round_up(cin, KC_F32), _round_up(cout, 4),
+            n_tile(cout), tw, tr, ni, _build.raw_stream(x.get_device()))
+    _build.check(lib, err, "conv3x3_bias_relu_f32")
+    conv3x3_bias_relu.launches_f32 += 1
+    return y
+
+
 def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
             packed: torch.Tensor | None) -> torch.Tensor:
-    """Validate and launch csrc/conv3x3_bias_relu.cu (counted)."""
+    """Validate and launch the kernel of x's dtype (counted):
+    csrc/conv3x3_bias_relu.cu or csrc/conv3x3_bias_relu_f32.cu."""
     check_operands(x, [kernel], [bias])
+    if x.dtype == torch.float32:
+        return _launch_f32(x, kernel, bias, packed)
     if packed is None:
         packed = pack_weight(kernel)
     check_packed(packed, kernel)
@@ -223,9 +293,10 @@ def _(x, kernel, bias, packed):
 def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
                       bias: torch.Tensor,
                       packed: torch.Tensor | None = None) -> torch.Tensor:
-    """relu(conv3x3_SAME(x, kernel) + bias).  x: (N, H, W, Cin); kernel:
-    (3, 3, Cin, Cout); bias: (Cout,); ``packed``: ``pack_weight(kernel)``,
-    made here when None.  Any H, W and channel counts.  Under
+    """relu(conv3x3_SAME(x, kernel) + bias) in x's dtype (bf16 or float32
+    on the card).  x: (N, H, W, Cin); kernel: (3, 3, Cin, Cout); bias:
+    (Cout,); ``packed``: ``pack_weight(kernel, x.dtype)``, made here when
+    None.  Any H, W and channel counts.  Under
     ``torch.export`` the call is the custom op; otherwise the launch (or
     on the CPU the plain version) directly, without the dispatcher's
     host cost."""
@@ -236,4 +307,5 @@ def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
     return _launch(x, kernel, bias, packed)
 
 
-conv3x3_bias_relu.launches = 0
+conv3x3_bias_relu.launches = 0      # the bf16 kernel's
+conv3x3_bias_relu.launches_f32 = 0  # the float32 kernel's

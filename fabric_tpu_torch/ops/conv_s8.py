@@ -6,8 +6,9 @@ the int8 serving forward's conv sites with their epilogue fused.
 ``preferred_element_type=int32``).  :func:`conv3x3_s8_q` is one conv site
 of the int8 forward as ``fabric_tpu`` computes it (XLA fuses the conv
 with its consumer): the conv, then the dequantize / bias / ReLU epilogue
-in float32 and bf16, then the requantization to int8 (or bf16 out), and
-in its split form the decoder's ``conv(skip, K_skip) + conv(up, K_up)``.
+in float32 and the compute dtype (bf16, or float32 with no bf16 step),
+then the requantization to int8 (or the compute dtype out), and in its
+split form the decoder's ``conv(skip, K_skip) + conv(up, K_up)``.
 
 On CUDA tensors both launch the hand-written Hopper kernel
 ``csrc/conv3x3_s8.cu`` (wgmma s8 on the core of ``csrc/conv_tile.cuh``,
@@ -41,7 +42,10 @@ from fabric_tpu_torch.ops import conv as conv_ops
 
 KB = conv_ops.KB  # kKB in csrc/conv_tile.cuh: int8 channels per chunk
 STAGES = 4        # weight ring slots
-_MODES = {"raw": 0, "int8": 1, "bf16": 2, "split": 3}
+# the kernel's modes (csrc/conv3x3_s8.cu); the float32 compute dtype's
+# forms of int8, bf16 and split are 5, 4 and 6
+_MODES = {"raw": 0, "int8": 1, "bf16": 2, "split": 3, "float32": 4,
+          "int8_f32": 5, "split_f32": 6}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,16 +69,17 @@ class Plan(NamedTuple):
 
 def plan(h: int, w: int, cout: int, mode: str = "int8") -> Plan:
     """The kernel's tiles for (h, w) images, cout output channels and a
-    launch ``mode`` ("raw", "int8", "bf16" or "split"; mirrors
+    launch ``mode`` (a key of ``_MODES``; mirrors
     csrc/conv3x3_s8.cu): PN 64 at up to 64 channels (three blocks per SM,
     two for the split form, whose parked sums leave a third no shared
     memory), else 128 (one block per SM); 128-pixel M tiles of whole small
     images, one per block."""
     pn = conv_ops.n_tile(cout)
     tw, tr, ni = conv_ops.tile_geometry(h, w)
+    split = mode.startswith("split")
     smem = (STAGES * pn * KB + 2 * conv_ops.patch_bytes((tw, tr, ni))
-            + 16 * STAGES + (pn * 512 if mode == "split" else 0))
-    blocks = 1 if pn == 128 else 2 if mode == "split" else 3
+            + 16 * STAGES + (pn * 512 if split else 0))
+    blocks = 1 if pn == 128 else 2 if split else 3
     return Plan(pn, tw, tr, ni, 1 << ni, blocks, smem)
 
 
@@ -104,7 +109,8 @@ def conv3x3_s8_q_reference(x: torch.Tensor, wq: torch.Tensor,
                            dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of :func:`conv3x3_s8_q`: the exact convs, then
     ``fabric_tpu``'s epilogue in PyTorch (``torch.addcmul`` where XLA
-    contracts a multiply-add)."""
+    contracts a multiply-add).  With ``dtype`` float32 h is the float32
+    epilogue's value itself: no bf16 step anywhere."""
     a = conv3x3_s8_reference(x, wq).float()
     if up is None:
         h = torch.relu(torch.addcmul(bias, a, scale).to(dtype))
@@ -291,18 +297,25 @@ conv3x3_s8.launches = 0
 
 
 def _launch_q(x, wq, scale, bias, s_out, packed, up, dtype) -> torch.Tensor:
-    """One int8 conv site on the card (counted)."""
-    if dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3_s8_q computes in bfloat16 on the card, "
-                        f"got {dtype}")
+    """One int8 conv site on the card (counted: the float32 forms on
+    ``conv3x3_s8_q.launches_f32``)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"conv3x3_s8_q computes in bfloat16 or float32 on "
+                        f"the card, got {dtype}")
     if up is not None and s_out is None:
         raise ValueError("the split form writes int8: give s_out")
     mode = "bf16" if s_out is None else "int8" if up is None else "split"
+    f32 = dtype == torch.float32
+    if f32:
+        mode = {"bf16": "float32", "int8": "int8_f32",
+                "split": "split_f32"}[mode]
     inv = 0.0 if s_out is None else float(np.float32(1) / np.float32(s_out))
-    y = _launch(mode, x, wq, packed,
-                torch.bfloat16 if s_out is None else torch.int8, scale, bias,
-                inv, up)
-    conv3x3_s8_q.launches += 1
+    y = _launch(mode, x, wq, packed, dtype if s_out is None else torch.int8,
+                scale, bias, inv, up)
+    if f32:
+        conv3x3_s8_q.launches_f32 += 1
+    else:
+        conv3x3_s8_q.launches += 1
     return y
 
 
@@ -355,8 +368,8 @@ def conv3x3_s8_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     ``up`` = (x_up, wq_up, scale_up, packed_up): the decoder's split form,
     h = relu(fma(a, scale, b * scale_up) + bias) with a and b the exact
     convs of (x, wq) and (x_up, wq_up) (int8 out only).  On the card the
-    compute dtype is bf16 (the kernel's).  Under ``torch.export`` the call
-    is the custom op."""
+    compute dtype is bf16 or float32 (the kernel's modes for either).
+    Under ``torch.export`` the call is the custom op."""
     if torch.compiler.is_exporting():
         x_up, wq_up, scale_up, packed_up = up or (None,) * 4
         return conv3x3_s8_q_op(x, wq, scale, bias,
@@ -368,4 +381,5 @@ def conv3x3_s8_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     return _launch_q(x, wq, scale, bias, s_out, packed, up, dtype)
 
 
-conv3x3_s8_q.launches = 0
+conv3x3_s8_q.launches = 0      # the bf16 forms
+conv3x3_s8_q.launches_f32 = 0  # the float32 forms

@@ -2,14 +2,18 @@
 on the SM (inference, BatchNorm folded).
 
 Counterpart of ``fabric_tpu/ops/pallas_double_conv.py:
-double_conv3x3_bias_relu``.  On a CUDA tensor
-:func:`double_conv3x3_bias_relu` launches ``csrc/double_conv3x3_bias_relu.cu``
-(G whole images per block, the G x (H+2) x (W+2) x Cmid intermediate in
-shared memory; see its header); on a CPU tensor it computes
-:func:`double_conv3x3_bias_relu_reference`.  :func:`plan` lays a block out
-within the shared-memory budget (:func:`fits`); :func:`supports`, the
-callers' gate, adds where the fused kernel beat two
-:func:`~fabric_tpu_torch.ops.conv.conv3x3_bias_relu` launches on the H100.
+double_conv3x3_bias_relu``, in x's dtype as there.  On a CUDA tensor
+:func:`double_conv3x3_bias_relu` launches the kernel of x's dtype:
+``csrc/double_conv3x3_bias_relu.cu`` (bf16) or
+``csrc/double_conv3x3_bias_relu_f32.cu`` (float32; counted on
+``double_conv3x3_bias_relu.launches_f32``), G whole images per block with
+the G x (H+2) x (W+2) x Cmid intermediate in shared memory (see their
+headers); on a CPU tensor it computes :func:`double_conv3x3_bias_relu_reference`.
+:func:`plan` and :func:`plan_f32` lay a block out within the shared-memory
+budget, 2 bytes an intermediate element in bf16 and 4 in float32
+(:func:`fits`); :func:`supports`, the callers' gate, adds where the fused
+kernel beat two :func:`~fabric_tpu_torch.ops.conv.conv3x3_bias_relu`
+launches on the H100.
 """
 
 from __future__ import annotations
@@ -21,11 +25,12 @@ from typing import NamedTuple
 import torch
 
 from fabric_tpu_torch.ops import _build
-from fabric_tpu_torch.ops.conv import (KC, MAX_SMEM, _round_up,
-                                       check_operands, check_packed,
+from fabric_tpu_torch.ops.conv import (KC, KC_F32, MAX_SMEM, _log2_ceil,
+                                       _round_up, check_operands,
+                                       check_packed,
                                        conv3x3_bias_relu_reference, n_tile,
-                                       pack_weight, patch_bytes,
-                                       tile_geometry)
+                                       pack_weight, pack_weight_f32,
+                                       patch_bytes, tile_geometry)
 
 
 class Plan(NamedTuple):
@@ -70,24 +75,77 @@ def plan(h: int, w: int, cin: int, cmid: int, cout: int) -> Plan | None:
     return None
 
 
-def fits(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
-    """Can the fused kernel run this block at all (shared memory)?"""
+class PlanF32(NamedTuple):
+    """A block of the float32 fused kernel: ``group`` whole images in
+    ``bm`` (32, 64 or 128) pixel slots, ``smem`` bytes."""
+    group: int
+    bm: int
+    smem: int
+
+
+def smem_bytes_f32(g: int, h: int, w: int, cmid: int, bm: int) -> int:
+    """Shared memory one float32 block needs (double_smem_bytes in the
+    CUDA source): the fp32 intermediate of its g images with its zero frame
+    (channels rounded up to 8 plus 4 of bank padding), and two stages of
+    an input patch and weights of kc = 1024 / bn channels (bn = 16384 /
+    bm output channels), 4 bytes an element."""
+    bn = 16384 // bm
+    kc = 1024 // bn
+    frame = g * (h + 2) * (w + 2)
+    inter = _round_up(frame * (_round_up(cmid, KC_F32) + 4), 4)
+    return 4 * (inter + 2 * (_round_up(frame * kc, 4) + kc * 9 * bn))
+
+
+def plan_f32(h: int, w: int, cin: int, cmid: int,
+             cout: int) -> PlanF32 | None:
+    """The float32 block layout, or None where none fits 227 KB: the most
+    whole images whose pixels fill at most 128 slots (bm the power of two
+    >= their pixels, at least 32) and whose fp32 intermediate fits."""
+    if min(h, w, cin, cmid, cout) <= 0 or h * w > 128:
+        return None
+    for g in range(128 // (h * w), 0, -1):
+        bm = max(32, 1 << _log2_ceil(g * h * w))
+        smem = smem_bytes_f32(g, h, w, cmid, bm)
+        if smem <= MAX_SMEM:
+            return PlanF32(g, bm, smem)
+    return None
+
+
+def fits(h: int, w: int, cin: int, cmid: int, cout: int,
+         dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Can the fused kernel of ``dtype`` run this block at all (shared
+    memory)?"""
+    if dtype == torch.float32:
+        return plan_f32(h, w, cin, cmid, cout) is not None
     return plan(h, w, cin, cmid, cout) is not None
 
 
-def supports(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
-    """The callers' gate: the fused kernel where it fits and both convs are
-    wider than 64 channels.  On the H100 (chip_smoke.py, both ways at each
-    level of a 256-tile forward at patch 64) it beat two conv launches at
-    down2-4 and up2 and tied at up1 (128-512 channels), and lost at up3
-    (64 channels: wgmma N = 64 with one block per SM, where the separate
-    convs run three)."""
+def supports(h: int, w: int, cin: int, cmid: int, cout: int,
+             dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The callers' gate.  bf16: the fused kernel where it fits and both
+    convs are wider than 64 channels.  On the H100 (chip_smoke.py, both
+    ways at each level of a 256-tile forward at patch 64) it beat two conv
+    launches at down2-4 and up2 and tied at up1 (128-512 channels), and
+    lost at up3 (64 channels: wgmma N = 64 with one block per SM, where
+    the separate convs run three).  float32: where the fp32 intermediate
+    fits (:func:`plan_f32`) and both convs fill the block's bn = 16384 / bm
+    output channels, which narrower convs would leave idle (at patch 64:
+    down4, bn 512, and up1, bn 256).  The float32 gate does not ask for
+    speed: there the fused kernel loses to two fp32 conv launches
+    (``gate f32`` lines of chip_smoke.py), and it stays on the path so that
+    row 2's float32 form serves as row 2 does in ``fabric_tpu``; the
+    3xTF32 redesign that would earn it its place waits in ROADMAP.md
+    queue 2."""
+    if dtype == torch.float32:
+        p = plan_f32(h, w, cin, cmid, cout)
+        return p is not None and min(cmid, cout) >= 16384 // p.bm
     return fits(h, w, cin, cmid, cout) and min(cmid, cout) > 64
 
 
 def double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2):
     """Plain PyTorch version: two fp32 convs, the intermediate rounded to
-    x's dtype between them, as the kernel keeps it."""
+    x's dtype between them, as the kernel keeps it.  For float32 x nothing
+    is rounded but the fp32 sums: no bf16 step anywhere."""
     return conv3x3_bias_relu_reference(
         conv3x3_bias_relu_reference(x, w1, b1), w2, b2)
 
@@ -102,9 +160,53 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("double_conv3x3_bias_relu_f32")
+    fn = lib.fabric_double_conv3x3_bias_relu_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_f32(x, w1, b1, w2, b2, w1pk, w2pk) -> torch.Tensor:
+    """Launch csrc/double_conv3x3_bias_relu_f32.cu on validated operands
+    (counted)."""
+    n, h, w, cin = x.shape
+    cmid, cout = w1.shape[3], w2.shape[3]
+    p = plan_f32(h, w, cin, cmid, cout)
+    if p is None:
+        raise ValueError(
+            f"double_conv3x3_bias_relu: a float32 block of {h}x{w} images "
+            f"with {cmid} intermediate channels does not fit {MAX_SMEM} "
+            f"bytes of shared memory; run it as two conv3x3_bias_relu "
+            f"launches")
+    if w1pk is None or w2pk is None:
+        w1pk, w2pk = pack_weight_f32(w1), pack_weight_f32(w2)
+    check_packed(w1pk, w1, torch.float32)
+    check_packed(w2pk, w2, torch.float32)
+    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
+    y = torch.empty((n, h, w, cout), dtype=torch.float32, device=x.device)
+    lib = _lib_f32()
+    with _build.on_device(x.get_device()):
+        err = lib.fabric_double_conv3x3_bias_relu_f32(
+            x.data_ptr(), w1pk.data_ptr(), b1f.data_ptr(), w2pk.data_ptr(),
+            b2f.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
+            _round_up(cin, KC_F32), _round_up(cmid, KC_F32),
+            _round_up(cmid, 4), _round_up(cout, 4), p.group, p.bm,
+            _build.raw_stream(x.get_device()))
+    _build.check(lib, err, "double_conv3x3_bias_relu_f32")
+    double_conv3x3_bias_relu.launches_f32 += 1
+    return y
+
+
 def _launch(x, w1, b1, w2, b2, w1pk, w2pk) -> torch.Tensor:
-    """Validate and launch csrc/double_conv3x3_bias_relu.cu (counted)."""
+    """Validate and launch the kernel of x's dtype (counted):
+    csrc/double_conv3x3_bias_relu.cu or its float32 form."""
     check_operands(x, [w1, w2], [b1, b2])
+    if x.dtype == torch.float32:
+        return _launch_f32(x, w1, b1, w2, b2, w1pk, w2pk)
     n, h, w, cin = x.shape
     cmid, cout = w1.shape[3], w2.shape[3]
     p = plan(h, w, cin, cmid, cout)
@@ -159,10 +261,11 @@ def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
                              b1: torch.Tensor, w2: torch.Tensor,
                              b2: torch.Tensor,
                              packed: tuple | None = None) -> torch.Tensor:
-    """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding.
-    x: (N, H, W, Cin); w1: (3, 3, Cin, Cmid); w2: (3, 3, Cmid, Cout);
-    ``packed``: ``(pack_weight(w1), pack_weight(w2))``, made here when
-    None.  On the card, raises where :func:`fits` fails.  Under
+    """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding, in
+    x's dtype (bf16 or float32 on the card).  x: (N, H, W, Cin); w1: (3,
+    3, Cin, Cmid); w2: (3, 3, Cmid, Cout); ``packed``: ``(pack_weight(w1,
+    x.dtype), pack_weight(w2, x.dtype))``, made here when None.  On the
+    card, raises where :func:`fits` fails for x's dtype.  Under
     ``torch.export`` the call is the custom op."""
     w1pk, w2pk = packed if packed is not None else (None, None)
     if torch.compiler.is_exporting():
@@ -172,4 +275,5 @@ def double_conv3x3_bias_relu(x: torch.Tensor, w1: torch.Tensor,
     return _launch(x, w1, b1, w2, b2, w1pk, w2pk)
 
 
-double_conv3x3_bias_relu.launches = 0
+double_conv3x3_bias_relu.launches = 0      # the bf16 kernel's
+double_conv3x3_bias_relu.launches_f32 = 0  # the float32 kernel's

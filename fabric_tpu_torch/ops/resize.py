@@ -28,7 +28,10 @@ import torch
 import torch.nn.functional as F
 
 # A float32 forward's matmuls run in full float32, never TF32 (the default
-# already, stated here because the reference relies on it).
+# already, stated here because the reference relies on it).  cuDNN's
+# convolutions default to TF32, and a flag set here would not survive a
+# caller who sets it back: the port's float32 convs pass TF32 off per call
+# instead (ops/fp32_conv.py).
 torch.backends.cuda.matmul.allow_tf32 = False
 
 

@@ -10,8 +10,9 @@ w[2*a2+a-1-di, 2*b2+b-1-dj, ci, co]``, zero where a tap falls outside
 unshifted output instead of a d2s + s2d round trip.  ``fabric_tpu``
 wrote this for the TPU's 128-lane matrix unit, where a 64-channel conv
 fills half of it; it computes it with XLA convs, not Pallas, so this is
-plain PyTorch: ``F.conv2d`` for the 2x2 VALID conv (cuDNN on the card),
-and no hand kernel is owed.
+plain PyTorch: ``F.conv2d`` for the 2x2 VALID conv (cuDNN on the card, in
+full float32 for float32: ``ops/fp32_conv.py``), and no hand kernel is
+owed.
 
 :func:`conv3x3_lane_packed` is the form the models train with
 (``cfg.lane_pack``): the packed forward with ``fabric_tpu``'s hand-written
@@ -32,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fabric_tpu_torch.ops import fp32_conv
 
 
 def _selection() -> np.ndarray:
@@ -101,8 +104,8 @@ def conv2x2(xs: torch.Tensor, w2: torch.Tensor,
     """The packed conv: 2x2 VALID at 4*Ci -> 4*Co channels, NHWC, in xs's
     dtype; ``bias`` tiled over the four output sub-pixels and rounded to
     that dtype before it is added."""
-    y = F.conv2d(xs.permute(0, 3, 1, 2),
-                 w2.to(xs.dtype).permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    y = fp32_conv.conv(xs.permute(0, 3, 1, 2),
+                       w2.to(xs.dtype).permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.repeat(4).to(y.dtype)
     return y
@@ -111,8 +114,8 @@ def conv2x2(xs: torch.Tensor, w2: torch.Tensor,
 def direct_conv3x3(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """The direct 3x3 SAME conv of NHWC x by an HWIO kernel, in x's
     dtype, without a bias."""
-    y = F.conv2d(x.permute(0, 3, 1, 2),
-                 kernel.to(x.dtype).permute(3, 2, 0, 1), padding=1)
+    y = fp32_conv.conv(x.permute(0, 3, 1, 2),
+                       kernel.to(x.dtype).permute(3, 2, 0, 1), padding=1)
     return y.permute(0, 2, 3, 1)
 
 
@@ -165,10 +168,11 @@ class _LanePacked(torch.autograd.Function):
             else:
                 dx = direct_conv3x3(g, kt)
         if ctx.needs_input_grad[1]:
-            dk = torch.nn.grad.conv2d_weight(
-                x.permute(0, 3, 1, 2),
-                (kernel.shape[3], kernel.shape[2], 3, 3),
-                g.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
+            with fp32_conv.no_tf32():
+                dk = torch.nn.grad.conv2d_weight(
+                    x.permute(0, 3, 1, 2),
+                    (kernel.shape[3], kernel.shape[2], 3, 3),
+                    g.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
             dk = dk.to(kernel.dtype)
         if ctx.needs_input_grad[2]:
             db = g.sum((0, 1, 2)).to(ctx.bias_dtype)

@@ -20,6 +20,9 @@ COUNTERS = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
             fused.fused_mul_relu, bn_relu.bn_relu_inference,
             conv_s8.conv3x3_s8, conv_s8.conv3x3_s8_q,
             fuse_s8.siamese_fuse_s8)
+# the float32 forms' counters: attributes of the same wrappers
+F32_COUNTERS = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+                conv_s8.conv3x3_s8_q)
 
 
 @pytest.fixture
@@ -30,7 +33,8 @@ def card():
 
 
 def _counts() -> dict:
-    return {fn.__name__: fn.launches for fn in COUNTERS}
+    return {**{fn.__name__: fn.launches for fn in COUNTERS},
+            **{fn.__name__ + "_f32": fn.launches_f32 for fn in F32_COUNTERS}}
 
 
 def _launched(fn) -> tuple:
@@ -110,17 +114,35 @@ def _pair(seed, h=200, w=240):
 def test_aot_serves_the_kernels_on_the_card(card, tmp_path, kw):
     """An artifact exported on the card serves the in-process masks bit
     for bit, through the same kernel launches."""
+    _aot_serves_the_kernels(tmp_path, kw, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"quant": "int8"},
+                                {"fullconv_band_rows": 128}],
+                         ids=["grid", "int8", "fullconv"])
+def test_f32_aot_serves_the_kernels_on_the_card(card, tmp_path, kw):
+    """The same in float32: the exported program calls the fp32 forms
+    through the same custom ops, and no bf16 kernel."""
+    n_in = _aot_serves_the_kernels(tmp_path, kw, "float32")
+    assert not {"conv3x3_bias_relu", "double_conv3x3_bias_relu",
+                "conv3x3_s8_q"} & set(n_in), n_in
+    assert {"conv3x3_bias_relu_f32", "conv3x3_s8_q_f32"} & set(n_in), n_in
+
+
+def _aot_serves_the_kernels(tmp_path, kw, dtype) -> dict:
     d1, d2 = _pair(1)
-    base = ScenePredictor(_cfg(), bucket=128, device="cuda", **kw)
+    base = ScenePredictor(_cfg(dtype=dtype), bucket=128, device="cuda", **kw)
     base.predict(*_pair(2))  # int8: calibrates
     aot.export_aot(base, str(tmp_path), [d1.shape[:2]])
-    served = ScenePredictor(_cfg(), bucket=128, device="cuda",
+    served = ScenePredictor(_cfg(dtype=dtype), bucket=128, device="cuda",
                             aot_dir=str(tmp_path), **kw)
     want, n_in = _launched(lambda: base.predict(d1, d2))
     got, n_aot = _launched(lambda: served.predict(d1, d2))
     assert served._aot_keys == {(256, 256)}
     np.testing.assert_array_equal(got, want)
     assert n_aot == n_in and n_in
+    return n_in
 
 
 @pytest.mark.cuda

@@ -147,10 +147,14 @@ def test_fused_kernel_matches_plain(card, shape):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(card):
-    x = torch.zeros(1, 8, 8, 4, device=card)  # float32
+    x = torch.zeros(1, 8, 8, 4, device=card).half()  # bf16 and fp32 only
     k, b = torch.zeros(3, 3, 4, 4, device=card), torch.zeros(4, device=card)
     with pytest.raises(TypeError):
         conv.conv3x3_bias_relu(x, k, b)
+    with pytest.raises(TypeError):
+        conv.conv3x3_bias_relu(x.double(), k, b)
+    with pytest.raises(ValueError, match="pack_weight"):  # bf16 layout
+        conv.conv3x3_bias_relu(x.float(), k, b, conv.pack_weight(k))
     big = torch.zeros(1, 64, 64, 64, device=card, dtype=torch.bfloat16)
     k64, b64 = (torch.zeros(3, 3, 64, 64, device=card),
                 torch.zeros(64, device=card))
@@ -569,8 +573,8 @@ def test_int8_kernels_refuse_what_they_do_not_take(card):
         conv_s8.conv3x3_s8_q(x, wq, k.cpu(), k, 0.1)
     with pytest.raises(ValueError, match="one device"):
         conv_s8.conv3x3_s8_q(x, wq.cpu(), k, k, 0.1)
-    with pytest.raises(TypeError):
-        conv_s8.conv3x3_s8_q(x, wq, k, k, 0.1, dtype=torch.float32)
+    with pytest.raises(TypeError):  # bf16 and float32 only
+        conv_s8.conv3x3_s8_q(x, wq, k, k, 0.1, dtype=torch.float16)
     with pytest.raises(ValueError, match="s_out"):
         conv_s8.conv3x3_s8_q(x, wq, k, k, None, None, (x, wq, k, None))
     with pytest.raises(ValueError, match="one device"):
@@ -817,10 +821,14 @@ def test_fullconv_banded_equals_whole_on_card(card, model, quant):
     bit, band_batch 3 equals 1 (bi-date), and the streamed predictor from
     host arrays equals the in-device one; base 16, a 600 x 200 scene in
     the 608 x 208 bucket, band 160 (3 bands and a tail)."""
+    _fullconv_banded_equals_whole(card, model, quant, "bfloat16")
+
+
+def _fullconv_banded_equals_whole(card, model, quant, dtype):
     from fabric_tpu_torch import Config
     from fabric_tpu_torch.infer import fullconv
     from fabric_tpu_torch.infer.service import ScenePredictor
-    cfg = Config(model=model, model_base=16, num_dates=3)
+    cfg = Config(model=model, model_base=16, num_dates=3, dtype=dtype)
     kw = dict(bucket=16, device=card, quant=quant, fullconv_band_rows=160)
     pred = ScenePredictor(cfg, **kw)
     pred_s = ScenePredictor(cfg, fullconv_stream=True, **kw)
@@ -833,16 +841,17 @@ def test_fullconv_banded_equals_whole_on_card(card, model, quant):
         mask = pred.predict(*scenes)
         streamed = pred_s.predict(*scenes)
         whole = fullconv.make_fullconv_scene_infer(
-            pred._forward, (608, 208), band_rows=1024)(*x)
+            pred._forward, (608, 208), band_rows=1024, dtype=pred.dtype)(*x)
         batched = fullconv.make_fullconv_scene_infer(
-            pred._forward, (608, 208), band_rows=160, band_batch=3)(*x)
+            pred._forward, (608, 208), band_rows=160, dtype=pred.dtype,
+            band_batch=3)(*x)
         np.testing.assert_array_equal(batched.cpu().numpy()[:600, :200],
                                       mask)
     else:
         mask = pred.predict_multidate(scenes)
         streamed = pred_s.predict_multidate(scenes)
         whole = fullconv.make_fullconv_scene_infer_multidate(
-            pred._forward, (608, 208), 3, band_rows=1024)(x)
+            pred._forward, (608, 208), 3, band_rows=1024, dtype=pred.dtype)(x)
     np.testing.assert_array_equal(whole.cpu().numpy()[:600, :200], mask)
     np.testing.assert_array_equal(streamed, mask)
 
@@ -942,21 +951,22 @@ def test_signed_gate_cache_follows_the_optimizer_on_card(card):
     weights cached on the gate tensors' version.  After a train step
     (F.conv2d gates, cuDNN) updates them in place, the cache holds the new
     [K, -K] and the eval forward equals a fresh model's on the new
-    variables, bit for bit.  In fp32, which the conv kernel does not
-    take, the eval forward computes the gate conv with cuDNN instead."""
+    variables, bit for bit.  In fp32 the same, on the fp32 conv kernel
+    (its own launch counter)."""
     from fabric_tpu_torch import Config
     from fabric_tpu_torch.models import build_model
     variables, batch = _multidate_case("unet_lstm", seed=1)
     x = torch.from_numpy(batch["imgs"]).to(card)
-    for dtype, launches in (("bfloat16", 3), ("float32", 0)):  # T = 3
+    for dtype, counter in (("bfloat16", "launches"),
+                           ("float32", "launches_f32")):
         _, _, state = _multidate_step("unet_lstm", card, variables, batch,
                                       local_upsample=True, dtype=dtype)
         model, cell = state.model, state.model.bottleneck_lstm
-        before = conv.conv3x3_bias_relu.launches
+        before = getattr(conv.conv3x3_bias_relu, counter)
         with torch.no_grad():
             got = model(x)
-        assert conv.conv3x3_bias_relu.launches == before + launches
-        kk, _, packed = cell.signed_gates()
+        assert getattr(conv.conv3x3_bias_relu, counter) == before + 3  # T=3
+        kk, _, packed = cell.signed_gates(model.dtype)
         assert torch.equal(kk, torch.cat([cell.gates.kernel,
                                           -cell.gates.kernel], -1))
         assert packed is not None
@@ -997,3 +1007,333 @@ def test_loader_dev_shm_check_raises_before_it_allocates(card, tmp_path,
                            num_workers=7, prefetch=1, device=card,
                            multi_date=True)
     assert made == []
+
+
+# ---- float32 serving: the fp32 forms of rows 1, 2 and 5b ----
+
+F32_DOUBLE_SHAPES = [  # where ops/double_conv.plan_f32 admits a block
+    (9, 4, 4, 512, 512, 512), (3, 8, 8, 1024, 256, 256),  # down4, up1
+    (2, 8, 8, 16, 32, 32), (1, 6, 6, 4, 4, 4), (5, 1, 1, 16, 32, 2),
+    (7, 3, 5, 13, 40, 40), (6, 4, 4, 13, 64, 2), (3, 11, 11, 24, 70, 36)]
+F32_S8Q_SHAPES = [(n, h, w, cin, cout, mode) for n, h, w, cin, cout, mode
+                  in S8Q_SHAPES if n < 1000]
+
+
+def _f32_close(got: torch.Tensor, ref: torch.Tensor) -> None:
+    """The fp32 forms against their plain versions (fp32 sums in another
+    order, TF32 off on both sides): relative L2 <= 1e-5 and max |diff| <=
+    1e-4 of the largest output."""
+    d = (got - ref).double()
+    scale = ref.double().abs().max().item()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert d.norm().item() <= 1e-5 * max(ref.double().norm().item(), 1e-30)
+    assert d.abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES)
+def test_conv_f32_kernel_matches_plain(card, n, h, w, cin, cout):
+    x, k, b = (torch.from_numpy(a).to(card)
+               for a in _conv_case(0, n, h, w, cin, cout))
+    before = conv.conv3x3_bias_relu.launches_f32
+    got = conv.conv3x3_bias_relu(x, k, b)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_bias_relu.launches_f32 == before + 1
+    _f32_close(got, conv.conv3x3_bias_relu_reference(x, k, b))
+    assert torch.equal(conv.conv3x3_bias_relu(
+        x, k, b, conv.pack_weight(k, torch.float32)), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_DOUBLE_SHAPES)
+def test_double_conv_f32_kernel_matches_plain(card, shape):
+    """Within the fp32 bounds of the plain version, and bit-equal to two
+    fp32 conv launches: each sum runs in the conv kernel's order and the
+    intermediate stays fp32."""
+    n, h, w, cin, cmid, cout = shape
+    assert double_conv.fits(h, w, cin, cmid, cout, torch.float32)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(n, h, w, cin, generator=g).to(card)
+    w1 = (torch.randn(3, 3, cin, cmid, generator=g) / (9 * cin) ** .5)
+    w2 = (torch.randn(3, 3, cmid, cout, generator=g) / (9 * cmid) ** .5)
+    b1, b2 = torch.randn(cmid, generator=g), torch.randn(cout, generator=g)
+    w1, b1, w2, b2 = (t.to(card) for t in (w1, b1, w2, b2))
+    before = double_conv.double_conv3x3_bias_relu.launches_f32
+    got = double_conv.double_conv3x3_bias_relu(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert double_conv.double_conv3x3_bias_relu.launches_f32 == before + 1
+    _f32_close(got, double_conv.double_conv3x3_bias_relu_reference(
+        x, w1, b1, w2, b2))
+    two = conv.conv3x3_bias_relu(conv.conv3x3_bias_relu(x, w1, b1), w2, b2)
+    assert torch.equal(got, two)
+
+
+@pytest.mark.cuda
+def test_f32_double_conv_refuses_what_does_not_fit(card):
+    big = torch.zeros(1, 16, 16, 64, device=card)
+    k, b = torch.zeros(3, 3, 64, 64, device=card), torch.zeros(64,
+                                                               device=card)
+    assert not double_conv.fits(16, 16, 64, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        double_conv.double_conv3x3_bias_relu(big, k, b, k, b)
+    with pytest.raises(TypeError):
+        double_conv.double_conv3x3_bias_relu(big.double(), k, b, k, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,mode", F32_S8Q_SHAPES)
+def test_conv_s8_q_f32_kernel_matches_plain(card, n, h, w, cin, cout, mode):
+    """The int8 conv site's float32 epilogue (h = relu(fma(acc, k, b)) with
+    no bf16 step, float32 out or int8 from that h): identical to its plain
+    version at float32."""
+    from fabric_tpu_torch.ops import conv_s8
+    rng = np.random.RandomState(n * h + w + cin)
+    x, wq, k, bias, s_out, up = _s8q_case(rng, card, n, h, w, cin, cout, mode)
+    before = conv_s8.conv3x3_s8_q.launches_f32, conv_s8.conv3x3_s8_q.launches
+    got = conv_s8.conv3x3_s8_q(x, wq, k, bias, s_out, None, up,
+                               torch.float32)
+    torch.cuda.synchronize()
+    assert (conv_s8.conv3x3_s8_q.launches_f32,
+            conv_s8.conv3x3_s8_q.launches) == (before[0] + 1, before[1])
+    assert got.dtype == (torch.float32 if mode == "bf16" else torch.int8)
+    ref = conv_s8.conv3x3_s8_q_reference(x, wq, k, bias, s_out, up,
+                                         torch.float32)
+    assert torch.equal(got, ref)
+    assert torch.equal(conv_s8.conv3x3_s8_q(
+        x, wq, k, bias, s_out, conv_s8.pack_weight(wq), up, torch.float32),
+        got)
+
+
+def _f32_counts() -> dict:
+    """The launches so far of the conv kernels' fp32 forms and of their
+    bf16 forms (rows 1, 2, 5b each)."""
+    from fabric_tpu_torch.ops import conv_s8
+    fns = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+           conv_s8.conv3x3_s8_q)
+    return {"f32": [fn.launches_f32 for fn in fns],
+            "bf16": [fn.launches for fn in fns]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,quant", [("bidate", None), ("bidate", "int8"),
+                                         ("unet_lstm", None),
+                                         ("unet_lstm", "int8"),
+                                         ("unet3d", None), ("unet3d", "int8")])
+def test_f32_folded_serving_on_card(card, model, quant):
+    """ScenePredictor(Config(dtype="float32")) serves folded on the card
+    through the fp32 kernels alone (no bf16 launch), with a mask that flips
+    against the same forward on the plain versions only where the plain
+    fp32 logit margin is within 1e-4 of the logit scale (exact); int8: the
+    same scales, identical to the plain int8 forward."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer.device_tiling import (
+        make_scene_infer, make_scene_infer_multidate)
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.ops import conv_s8
+    cfg = Config(model=model, patch_size=32, eval_batch_size=12,
+                 model_base=16, num_dates=3, dtype="float32")
+    pred = ScenePredictor(cfg, bucket=0, device=card, quant=quant)
+    rng = np.random.RandomState(5)
+    scenes = rng.randn(2 if model == "bidate" else 3, 96, 128,
+                       13).astype(np.float32)
+    serve = (lambda: pred.predict(*scenes)) if model == "bidate" else (
+        lambda: pred.predict_multidate(scenes))
+    serve()  # int8: calibrates
+    before = _f32_counts()
+    mask = serve()
+    launched = {k: [n - b for n, b in zip(v, before[k])]
+                for k, v in _f32_counts().items()}
+    assert launched["bf16"] == [0, 0, 0], launched
+    assert (launched["f32"][2] > 0) == (quant == "int8"), launched
+    # int8: the clip probe's calibration forward runs the fp32 convs too
+    assert sum(launched["f32"][:2]) > 0, launched
+    x = torch.from_numpy(scenes).to(card)
+
+    def infer(fwd):
+        if model == "bidate":
+            return make_scene_infer(fwd, 32, (96, 128), batch_size=12,
+                                    dtype=torch.float32)(*x)
+        return make_scene_infer_multidate(fwd, 32, (96, 128), 3,
+                                          batch_size=12,
+                                          dtype=torch.float32)(x)
+    saved = (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+             conv_s8.conv3x3_s8_q)
+    conv.conv3x3_bias_relu = lambda x, k, b, packed=None: \
+        conv.conv3x3_bias_relu_reference(x, k, b)
+    double_conv.double_conv3x3_bias_relu = \
+        lambda x, w1, b1, w2, b2, packed=None: \
+        double_conv.double_conv3x3_bias_relu_reference(x, w1, b1, w2, b2)
+    conv_s8.conv3x3_s8_q = lambda x, wq, k, b, s_out=None, packed=None, \
+        up=None, dtype=torch.bfloat16: conv_s8.conv3x3_s8_q_reference(
+            x, wq, k, b, s_out, up, dtype)
+    try:
+        plain = infer(pred._forward).cpu().numpy()
+        if quant is None:  # the plain logits' margin at each pixel
+            tiles = torch.stack([x[..., i:i + 32, j:j + 32, :]
+                                 for i in range(0, 96, 32)
+                                 for j in range(0, 128, 32)], 1)
+            with torch.no_grad():
+                if model == "bidate":
+                    logits = pred._forward(tiles[0], tiles[1])
+                else:
+                    logits = pred._forward(tiles.permute(1, 0, 2, 3, 4))
+    finally:
+        (conv.conv3x3_bias_relu, double_conv.double_conv3x3_bias_relu,
+         conv_s8.conv3x3_s8_q) = saved
+    flips = mask != plain
+    if quant is not None or not flips.any():
+        np.testing.assert_array_equal(mask, plain)
+        return
+    margin = (logits[..., 1] - logits[..., 0]).abs()
+    margin = margin.reshape(3, 4, 32, 32).permute(0, 2, 1, 3).reshape(
+        96, 128).cpu().numpy()
+    assert (margin[flips] <= 1e-4 * logits.abs().max().item()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,quant", [("bidate", "none"),
+                                         ("bidate", "int8"),
+                                         ("unet_lstm", "none"),
+                                         ("unet_lstm", "int8"),
+                                         ("unet3d", "none")])
+def test_fullconv_f32_banded_equals_whole_on_card(card, model, quant):
+    """The fullconv test above in float32: the fp32 kernels' sums do not
+    depend on the image's size either (UNetLSTM's signed gate conv on the
+    fp32 conv kernel), so banded = whole bit for bit."""
+    before = conv.conv3x3_bias_relu.launches_f32
+    _fullconv_banded_equals_whole(card, model, quant, "float32")
+    assert conv.conv3x3_bias_relu.launches_f32 > before or quant == "int8"
+
+
+_TF32_PIN = r"""
+import json, sys
+import numpy as np
+import torch
+from fabric_tpu_torch import Config
+from fabric_tpu_torch.losses import get_loss_fn
+from fabric_tpu_torch.models import build_model
+from fabric_tpu_torch.ops import fp32_conv
+from fabric_tpu_torch.train.state import create_state
+from fabric_tpu_torch.train.steps import make_train_step
+from fabric_tpu_torch.weights import init_variables
+
+if sys.argv[1] == "library":  # the control: cuDNN under the process's flags
+    fp32_conv.conv = lambda x, w, bias=None, padding=0, groups=1: (
+        torch.nn.functional.conv2d if x.dim() == 4 else
+        torch.nn.functional.conv3d)(x, w, bias, padding=padding,
+                                    groups=groups)
+cfg = Config(model_base=16, patch_size=32, batch_size=4, dtype="float32",
+             learning_rate=0.05)
+variables = init_variables(13, 2, 16, torch.Generator().manual_seed(3))
+rng = np.random.RandomState(3)
+img1 = rng.randn(4, 32, 32, 13).astype(np.float32)
+label = (rng.rand(4, 32, 32) < 0.3).astype(np.int32)
+img2 = img1 + 0.3 * rng.randn(*img1.shape).astype(np.float32)
+img2[label == 1] += 1.5
+batch = {"img1": img1, "img2": img2, "label": label,
+         "weight": np.ones(4, np.float32)}
+out = {}
+for dev in ("cuda", "cpu"):
+    model = build_model(cfg, dev, fold_bn=False, variables=variables,
+                        train=True)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        logits = model(b["img1"], b["img2"]).cpu().double()
+    state = create_state(cfg, model)
+    loss = get_loss_fn(cfg)(model(b["img1"], b["img2"], train=True),
+                            b["label"])
+    loss.backward()
+    grads = torch.cat([p.grad.reshape(-1).cpu().double()
+                       for p in model.parameters()])
+    out[dev] = (logits, loss.item(), grads)
+(lg, pg, gg), (lc, pc, gc) = out["cuda"], out["cpu"]
+print(json.dumps({
+    "logits": ((lg - lc).norm() / lc.norm()).item(),
+    "loss": abs(pg - pc) / abs(pc),
+    "grads": ((gg - gc).norm() / gc.norm()).item()}))
+"""
+
+
+@pytest.mark.cuda
+def test_float32_convs_ignore_the_tf32_flags(card, tmp_path):
+    """In a fresh process under PyTorch's default flags (cuDNN's TF32 on),
+    an unfolded BiDateNet's fp32 eval forward and one train step's loss
+    and gradients on the card agree with the CPU's: relative L2 of the
+    logits and relative loss within 1e-5, of the gradients within 1e-4
+    (fp32 sums in other orders; train-mode BatchNorm's variance keeps
+    fewer bits).  The control run, cuDNN as the flags leave it, misses
+    those bounds (TF32 keeps ~1e-3)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    got = {}
+    for mode in ("port", "library"):
+        run = subprocess.run([sys.executable, "-c", _TF32_PIN, mode],
+                             capture_output=True, text=True, env=env,
+                             cwd=str(tmp_path), timeout=300)
+        assert run.returncode == 0, run.stderr[-3000:]
+        got[mode] = json.loads(run.stdout.strip().splitlines()[-1])
+    print(got)
+    port, library = got["port"], got["library"]
+    assert port["logits"] <= 1e-5 and port["loss"] <= 1e-5
+    assert port["grads"] <= 1e-4
+    assert (library["logits"] > 1e-5 or library["loss"] > 1e-5
+            or library["grads"] > 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_f32_serving_modes_on_card(card, quant):
+    """The other serving modes in float32 on the card, each through the
+    fp32 kernels only: overlap (banded = unbanded; exact only, as int8
+    overlap serves the same sites), fleet packing (= per scene), and the
+    scene sharded over two shards of the card, grid and fullconv (=
+    one device)."""
+    from fabric_tpu_torch import Config
+    from fabric_tpu_torch.infer.service import ScenePredictor
+    from fabric_tpu_torch.parallel.mesh import make_mesh
+    kw = dict(patch_size=32, eval_batch_size=12, model_base=16,
+              dtype="float32")
+    rng = np.random.RandomState(11)
+    pair = tuple(rng.randn(96, 128, 13).astype(np.float32)
+                 for _ in range(2))
+    fleet = [tuple(rng.randn(64, 60, 13).astype(np.float32)
+                   for _ in range(2)) for _ in range(3)]
+    def counted(fn):
+        before = _f32_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = _f32_counts()
+        d = [a - b for k in ("f32", "bf16")
+             for a, b in zip(after[k], before[k])]
+        assert sum(d[:3]) > 0 and d[3:] == [0, 0, 0], d
+        return out
+
+    if quant is None:
+        over = dict(kw, infer_overlap=8)
+        a = ScenePredictor(Config(**over), bucket=0, device=card)
+        b = ScenePredictor(Config(**over), bucket=0, device=card,
+                           overlap_band_rows=2)
+        np.testing.assert_array_equal(counted(lambda: a.predict(*pair)),
+                                      counted(lambda: b.predict(*pair)))
+    pred = ScenePredictor(Config(**kw), bucket=64, device=card, quant=quant)
+    seq = [counted(lambda p=p: pred.predict(*p)) for p in fleet]
+    for got, want in zip(counted(lambda: pred.predict_many(fleet,
+                                                           pack="auto")),
+                         seq, strict=True):
+        np.testing.assert_array_equal(got, want)
+    mesh = make_mesh(2, devices=[card] * 2)
+    for band in (0, 256):
+        two = ScenePredictor(Config(**kw), device=card, quant=quant,
+                             fullconv_band_rows=band, mesh=mesh,
+                             shard_scene=True)
+        one = ScenePredictor(Config(**kw), device=card, quant=quant,
+                             fullconv_band_rows=band, bucket=two.bucket)
+        if quant:
+            one.predict(*pair)
+            two._use_scales(one._scales)
+        np.testing.assert_array_equal(counted(lambda: two.predict(*pair)),
+                                      counted(lambda: one.predict(*pair)))

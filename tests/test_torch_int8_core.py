@@ -251,3 +251,34 @@ def test_cpu_int8_sites_take_the_plain_versions():
                        conv_s8.conv3x3_s8_reference(x, wq))
     assert (conv_s8.conv3x3_s8.launches,
             conv_s8.conv3x3_s8_q.launches) == before
+
+
+def test_cpu_int8_f32_sites_take_the_plain_versions():
+    """The float32 compute dtype's sites (conv3x3_s8_q at float32) compute the
+    plain version at float32 on CPU tensors, in every form (float32 out,
+    int8 out, split), and count no launch; their launch plan is the bf16
+    form's."""
+    rng = np.random.RandomState(10)
+    x = torch.from_numpy(_s8(rng, 2, 4, 4, 13))
+    wq = torch.from_numpy(_s8(rng, 3, 3, 13, 24))
+    k = torch.from_numpy(rng.rand(24).astype(np.float32) * 1e-3)
+    b = torch.from_numpy(rng.randn(24).astype(np.float32))
+    up = (x.flip(0).contiguous(), wq.flip(3).contiguous(), k * 0.5, None)
+    before = (conv_s8.conv3x3_s8_q.launches,
+              conv_s8.conv3x3_s8_q.launches_f32)
+    for s_out, u in ((None, None), (0.05, None), (0.05, up)):
+        got = conv_s8.conv3x3_s8_q(x, wq, k, b, s_out, None, u,
+                                   torch.float32)
+        want = conv_s8.conv3x3_s8_q_reference(x, wq, k, b, s_out, u,
+                                              torch.float32)
+        assert got.dtype == (torch.float32 if s_out is None else torch.int8)
+        assert torch.equal(got, want)
+    # no bf16 step: the float32 h is the epilogue's value itself
+    h = conv_s8.conv3x3_s8_q(x, wq, k, b, dtype=torch.float32)
+    a = conv_s8.conv3x3_s8_reference(x, wq).float()
+    assert torch.equal(h, torch.relu(torch.addcmul(b, a, k)))
+    assert (conv_s8.conv3x3_s8_q.launches,
+            conv_s8.conv3x3_s8_q.launches_f32) == before
+    for bf16, f32 in (("int8", "int8_f32"), ("bf16", "float32"),
+                      ("split", "split_f32")):
+        assert conv_s8.plan(4, 4, 64, f32) == conv_s8.plan(4, 4, 64, bf16)

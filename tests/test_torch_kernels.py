@@ -200,3 +200,108 @@ def test_prepacked_call_matches_unpacked():
     assert torch.equal(
         double_conv.double_conv3x3_bias_relu(x, k, b, k2, b2, packed),
         double_conv.double_conv3x3_bias_relu(x, k, b, k2, b2))
+
+
+# ---- the float32 forms (rows 1 and 2 in fp32) ----
+
+@pytest.mark.parametrize("cin,cout", [(13, 70), (64, 64), (40, 2),
+                                       (1024, 256)])
+def test_f32_packed_weight_layout(cin, cout):
+    """pack_weight(k, float32) is the [Cin8][9][Cout4] layout its docstring
+    states: unpacked back to HWIO it is the kernel, bit for bit, and its
+    padding is zero."""
+    rng = np.random.RandomState(4)
+    k = torch.from_numpy(rng.randn(3, 3, cin, cout).astype(np.float32))
+    p = conv.pack_weight(k, torch.float32)
+    cin8, cout4 = -(-cin // 8) * 8, -(-cout // 4) * 4
+    assert p.dtype == torch.float32 and p.shape == (cin8 * 9 * cout4,)
+    assert torch.equal(p, conv.pack_weight_f32(k))
+    grid = p.reshape(cin8, 9, cout4)
+    hwio = grid[:cin, :, :cout].permute(1, 0, 2).reshape(3, 3, cin, cout)
+    assert torch.equal(hwio, k)
+    pad = grid.clone()
+    pad[:cin, :, :cout] = 0
+    assert not pad.any()
+    # element (tap, ci, co) at (ci * 9 + tap) * Cout4 + co
+    tap, ci, co = 5, cin - 1, cout - 1
+    assert p[(ci * 9 + tap) * cout4 + co] == k[tap // 3, tap % 3, ci, co]
+
+
+# level: (images per block, pixel slots bm) of the fp32 fused kernel's
+# plan at patch 64 where its fp32 intermediate fits
+F32_PLANS = {"down4": (2, 32), "up1": (1, 64)}
+
+
+def test_f32_double_conv_gate_at_patch_64():
+    """The fp32 intermediate is 4 bytes an element: only down4 (two 4x4
+    images, 223488 B) and up1 (one 8x8 image, 180928 B) fit 227 KB, and
+    both fill their block's output channels (bn = 16384 / bm), so the
+    fp32 gate sends exactly those two to the fused kernel; the bf16 gate
+    is unchanged."""
+    for level, (_, side, cin, cout) in LEVELS.items():
+        p = double_conv.plan_f32(side, side, cin, cout, cout)
+        assert (p is not None) == (level in F32_PLANS), level
+        assert double_conv.fits(side, side, cin, cout, cout,
+                                torch.float32) == (p is not None)
+        if p is None:
+            continue
+        assert (p.group, p.bm) == F32_PLANS[level], level
+        assert p.group * side * side <= p.bm
+        assert p.smem == double_conv.smem_bytes_f32(p.group, side, side,
+                                                     cout, p.bm)
+        assert p.smem <= double_conv.MAX_SMEM
+        # one more image would not fit
+        more = p.group + 1
+        bm = max(32, 1 << (more * side * side - 1).bit_length())
+        assert double_conv.smem_bytes_f32(more, side, side, cout,
+                                          bm) > double_conv.MAX_SMEM
+    assert double_conv.plan_f32(4, 4, 512, 512, 512).smem == 223488
+    assert double_conv.plan_f32(8, 8, 1024, 256, 256).smem == 180928
+    fused_blocks = {level for level, (_, side, cin, cout) in LEVELS.items()
+                    if double_conv.supports(side, side, cin, cout, cout,
+                                            torch.float32)}
+    assert fused_blocks == set(F32_PLANS)
+    # narrow convs leave a block's channels idle: two conv launches
+    assert double_conv.fits(4, 4, 64, 64, 64, torch.float32)
+    assert not double_conv.supports(4, 4, 64, 64, 64, torch.float32)
+    assert double_conv.plan_f32(16, 16, 8, 8, 8) is None  # 256 pixels
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES)
+def test_conv_f32_form_matches_pallas(n, h, w, cin, cout):
+    """The fp32 form's plain version (what a CPU tensor computes) against
+    the Pallas kernel in fp32, at the bf16 form's tolerance."""
+    x, k, b = _conv_case(6, n, h, w, cin, cout)
+    want = np.asarray(pallas_conv(jnp.asarray(x), jnp.asarray(k),
+                                  jnp.asarray(b)))
+    got = conv.conv3x3_bias_relu(*map(torch.from_numpy, (x, k, b)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+def test_f32_cpu_tensors_take_the_plain_versions():
+    """fp32 CPU tensors compute the plain versions (no rounding but the
+    fp32 sums) with or without fp32-packed weights, and count no launch;
+    a packing of one dtype is refused as the other's."""
+    counts = (conv.conv3x3_bias_relu.launches_f32,
+              double_conv.double_conv3x3_bias_relu.launches_f32)
+    x, k, b = map(torch.from_numpy, _conv_case(7, 2, 6, 5, 16, 24))
+    k2, b2 = torch.ones(3, 3, 24, 8) / 50, torch.zeros(8)
+    want = conv.conv3x3_bias_relu_reference(x, k, b)
+    assert torch.equal(conv.conv3x3_bias_relu(x, k, b), want)
+    assert torch.equal(conv.conv3x3_bias_relu(
+        x, k, b, conv.pack_weight(k, torch.float32)), want)
+    packed = (conv.pack_weight(k, torch.float32),
+              conv.pack_weight(k2, torch.float32))
+    two = conv.conv3x3_bias_relu_reference(want, k2, b2)
+    assert torch.equal(double_conv.double_conv3x3_bias_relu(
+        x, k, b, k2, b2, packed), two)
+    assert torch.equal(double_conv.double_conv3x3_bias_relu_reference(
+        x, k, b, k2, b2), two)
+    assert counts == (conv.conv3x3_bias_relu.launches_f32,
+                      double_conv.double_conv3x3_bias_relu.launches_f32)
+    conv.check_packed(packed[0], k, torch.float32)
+    with pytest.raises(ValueError):
+        conv.check_packed(packed[0], k)
+    with pytest.raises(ValueError):
+        conv.check_packed(conv.pack_weight(k), k, torch.float32)

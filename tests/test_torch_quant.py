@@ -228,16 +228,30 @@ def test_int8_scene_mask_matches_fabric_tpu(folded, checkpoint_dir):
     chunks of 4, the last zero-padded) served by ScenePredictor(quant=
     "int8") on the CPU, which calibrates on it, against fabric_tpu's
     make_scene_infer over make_int8_apply with the port's scales."""
+    _int8_scene_mask_matches(folded, checkpoint_dir, "bfloat16")
+
+
+def test_int8_f32_scene_mask_matches_fabric_tpu(folded, checkpoint_dir):
+    """The same with the float32 compute dtype (no bf16 step in the int8
+    forward's epilogues or its calibration forward), against fabric_tpu's
+    int8 forward at dtype float32: flips only under the same margin rule
+    (the two round the fp32 calibration absmaxes and the epilogues'
+    multiply-adds alike, so in practice none)."""
+    _int8_scene_mask_matches(folded, checkpoint_dir, "float32")
+
+
+def _int8_scene_mask_matches(folded, checkpoint_dir, dtype: str):
+    jdtype = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     d1, d2 = _pair(5, 70, 140)
-    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype="bfloat16",
+    cfg = Config(patch_size=PATCH, eval_batch_size=BATCH, dtype=dtype,
                  model_base=BASE)
     pred = ScenePredictor(cfg, checkpoint=checkpoint_dir, bucket=0,
                           device="cpu", quant="int8")
     got = pred.predict(d1, d2)
     assert pred._scales is not None and pred.last_clip_report is None
-    apply_q = jq.make_int8_apply(folded[0], pred._scales, jnp.bfloat16)
+    apply_q = jq.make_int8_apply(folded[0], pred._scales, jdtype)
     run = jax_scene_infer(apply_q, PATCH, (70, 140), batch_size=BATCH,
-                          dtype=jnp.bfloat16)
+                          dtype=jdtype)
     want = np.asarray(run({}, jnp.asarray(d1), jnp.asarray(d2)))
     assert got.shape == (70, 140) and got.dtype == np.uint8
     ys, xs, k, _, _ = _plan_grid(70, 140, PATCH, PATCH, BATCH)
@@ -247,7 +261,8 @@ def test_int8_scene_mask_matches_fabric_tpu(folded, checkpoint_dir):
     margin = _stitch((logits[..., 1] - logits[..., 0]).abs(), ys, xs, k, 70,
                      140, PATCH).numpy()
     flips = got != want
-    print(f"int8 scene: {int(flips.sum())} of {flips.size} pixels flipped")
+    print(f"int8 {dtype} scene: {int(flips.sum())} of {flips.size} pixels "
+          f"flipped")
     assert (margin[flips] < FLIP_MARGIN).all() and flips.mean() < 0.01
 
 
