@@ -89,13 +89,16 @@ BiDateNet width (13 bands, base 64, 2 classes, weights drawn from a seed):
   step (fp32 and bf16 bounds, the packed convs counted) and their step
   times; the int8 shift-conv microbench (the raw int8 conv kernel against
   nine int8 GEMM launches, exact);
-- float32 serving, with cuDNN's TF32 on (PyTorch's default) for the
-  phase, put back after: the fp32 forms of the conv kernels (rows 1, 2)
-  at the fp32 path's shapes against their plain versions (relative L2 <=
-  1e-5, max |diff| <= 1e-4 of the largest output), timed beside cuDNN's
-  fp32 conv with TF32 off and the bound at the 67 TFLOP/s FFMA rate, each
-  fused level also as two fp32 conv launches (bit-equal; the ``gate f32``
-  lines); the int8 conv's float32 modes at the 18 sites and the fusion
+- float32 serving, with cuDNN's TF32 on (PyTorch's default) and TF32
+  matmuls on (as a caller may set them) for the phase, both put back
+  after: the fp32 forms of the conv kernels (rows 1, 2; 3xTF32) at the
+  fp32 path's shapes against their plain versions (relative L2 <= 1e-5,
+  max |diff| <= 1e-4 of the largest output), timed beside cuDNN's fp32
+  conv with TF32 off and the 3xTF32 bound (three TF32 products per
+  float32 product at 495 TFLOP/s), each level where the fused kernel fits
+  also as two fp32 conv launches (bit-equal; the ``gate f32`` lines), row
+  1 at a fullconv band's 18 shapes (the ``fullconv kernel`` fp32 line);
+  the int8 conv's float32 modes at the 18 sites and the fusion
   kernel in fp32 at its 5 levels (identical); what the TF32 repair costs
   an fp32 BiDateNet train step (batch 128, patch 96; the ``tf32 repair
   cost`` line: its convs through ``ops/fp32_conv.py`` against plain
@@ -193,6 +196,7 @@ import torch.nn.functional as F
 PEAK_BF16_TENSOR = 989e12  # FLOP/s, H100 SXM dense (NVIDIA data sheet)
 PEAK_INT8_TENSOR = 1979e12  # OP/s, H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_ELEMENTWISE = 67e12   # FLOP/s, H100 SXM outside the tensor cores
+PEAK_TF32_TENSOR = 495e12  # FLOP/s, H100 SXM dense TF32 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # B/s, H100 SXM HBM3
 SEED = 0
 SCENE = 2048               # side of the main scene
@@ -4041,19 +4045,40 @@ def f32_counted(fn):
 
 def f32_calls(n_channels: int):
     """The fp32 conv kernel calls of one forward of BATCH tiles, each
-    DoubleConv block where the fp32 gate sends it."""
-    from fabric_tpu_torch.ops.double_conv import supports
+    DoubleConv block where the fp32 gate sends it; then (``gate``) the
+    fused kernel at the levels where it fits and the gate does not send
+    it, timed for the gate only."""
+    from fabric_tpu_torch.ops.double_conv import fits, supports
 
-    calls = []
+    calls, gate = [], []
     for level, n, s, cin, cout in level_shapes(n_channels):
         if supports(s, s, cin, cout, cout, torch.float32):
             calls.append(("double_conv3x3_bias_relu_f32",
                           (n, s, s, cin, cout, cout), level))
-        else:
-            calls.append(("conv3x3_bias_relu_f32", (n, s, s, cin, cout),
-                          level))
-            calls.append(("conv3x3_bias_relu_f32", (n, s, s, cout, cout),
-                          level))
+            continue
+        calls.append(("conv3x3_bias_relu_f32", (n, s, s, cin, cout),
+                      level))
+        calls.append(("conv3x3_bias_relu_f32", (n, s, s, cout, cout),
+                      level))
+        if fits(s, s, cin, cout, cout, torch.float32):
+            gate.append(("double_conv3x3_bias_relu_f32",
+                         (n, s, s, cin, cout, cout), level))
+    return calls, gate
+
+
+def f32_band_calls(h: int, w: int):
+    """The fp32 conv kernel calls of one bi-date fullconv band forward of
+    one h x w context window: each DoubleConv block as two row-1 launches
+    (the fused kernel's images are at most 128 pixels)."""
+    from fabric_tpu_torch.weights import block_channels
+
+    calls = []
+    for level, (cin, cout) in block_channels(13, BASE).items():
+        f = LEVEL_SIDE[level]
+        m = 1 if level.startswith("up") else 2
+        for ci in (cin, cout):
+            calls.append(("conv3x3_bias_relu_f32",
+                          (m, h // f, w // f, ci, cout), level))
     return calls
 
 
@@ -4073,8 +4098,9 @@ def check_f32_kernels(calls, reps: int = 3):
     """Each fp32 conv form against its plain version on the card at the
     fp32 path's shapes, timed beside the plain version, cuDNN's fp32
     F.conv2d + ReLU with TF32 off (twice for the double conv) and the
-    bound at the 67 TFLOP/s FFMA rate; each double-conv level also as two
-    fp32 conv launches (bit-equal: the fused kernel sums in the conv
+    bound of 3xTF32 (three TF32 products per float32 product at 495
+    TFLOP/s, or the bytes at 3.35 TB/s); each double-conv level also as
+    two fp32 conv launches (bit-equal: the fused kernel sums in the conv
     kernel's order).  Inputs drawn on the card."""
     from fabric_tpu_torch.ops import conv, double_conv, fp32_conv
 
@@ -4139,7 +4165,7 @@ def check_f32_kernels(calls, reps: int = 3):
         kms = device_ms(kern, reps)
         pms = device_ms(plain, 1)
         lms = device_ms(lib, reps)
-        t_ops, t_bytes = bound(2 * macs, nbytes, PEAK_ELEMENTWISE)
+        t_ops, t_bytes = bound(3 * 2 * macs, nbytes, PEAK_TF32_TENSOR)
         two_txt = ("" if two_ms is None else
                    f", as two fp32 conv launches {two_ms:.3f} ms "
                    f"({'bit-equal' if two_equal else 'DIFFERENT'})")
@@ -4326,12 +4352,14 @@ def f32_phase(root: str, d1, d2, smi: str) -> tuple[list, dict]:
     from fabric_tpu_torch.infer.device_tiling import make_scene_infer
     from fabric_tpu_torch.infer.service import ScenePredictor
     from fabric_tpu_torch.models import build_model
-    from fabric_tpu_torch.ops import fused
+    from fabric_tpu_torch.ops import fp32_matmul, fused
     from fabric_tpu_torch.tools.export import export_bundle
     from fabric_tpu_torch.train.state import create_state
 
-    saved = torch.backends.cudnn.allow_tf32
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = True  # a caller's TF32 matmuls
     total: dict = {}
 
     def add(counts):
@@ -4343,14 +4371,20 @@ def f32_phase(root: str, d1, d2, smi: str) -> tuple[list, dict]:
             fail(f"{label}: a bf16 kernel ran on the fp32 path: {bf16}")
 
     try:
-        calls = f32_calls(13)
+        calls, gate_calls = f32_calls(13)
         rows = check_f32_kernels(calls)
-        for r in rows:
-            if r["two_conv_ms"] is not None:
+        gate_rows = check_f32_kernels(gate_calls)
+        for path, group in (("fused", rows), ("two convs", gate_rows)):
+            for r in group:
+                if r["two_conv_ms"] is None:
+                    continue
+                faster = r["ms"] <= r["two_conv_ms"]
                 print(f"gate f32 {r['level']}: fused {r['ms']:.3f} ms, two "
-                      f"conv launches {r['two_conv_ms']:.3f} ms -> "
-                      f"{'fused' if r['ms'] < r['two_conv_ms'] else 'two convs'}"
-                      f" faster; on the path: fused", flush=True)
+                      f"3xTF32 conv launches {r['two_conv_ms']:.3f} ms -> "
+                      f"{'fused' if faster else 'two convs'} no slower; on "
+                      f"the path: {path}", flush=True)
+        ctx = FC_BAND + 2 * fullconv.halo_for("bidate")
+        band_rows = check_f32_kernels(f32_band_calls(ctx, SCENE), reps=2)
         rows += check_s8_f32_kernels()
         check_f32_fused()
         tf32_repair_cost(smi)
@@ -4371,10 +4405,9 @@ def f32_phase(root: str, d1, d2, smi: str) -> tuple[list, dict]:
         (mask, wall, peak), f32, bf16 = f32_counted(
             lambda: timed(lambda: pred.predict(d1, d2)))
         f32["fused_mul_relu"] = fused.fused_mul_relu.launches
-        want = {}
+        want = {name: 0 for name in F32_KERNELS.values()}
         for name, _, _ in calls:
             want[name] = want.get(name, 0) + 4  # 4 forwards of BATCH tiles
-        want["conv3x3_s8_q_f32"] = 0
         want["fused_mul_relu"] = 5 * 4  # row 3 in fp32, 5 a forward
         print(f"fp32 serve of the {SCENE}^2 pair: launches {f32} (expected "
               f"{want}), bf16 forms {bf16}; first predict {wall:.2f} s, "
@@ -4389,6 +4422,20 @@ def f32_phase(root: str, d1, d2, smi: str) -> tuple[list, dict]:
             pred.model, d1, d2, torch.float32)
         f32_margin_rule(f"fp32 {SCENE}^2 mask", mask, plain, margin,
                         plain_logits.abs().max().item())
+        # the control, not held: the float32 products unpinned, so TF32
+        # matmuls as the phase's flag asks (the port before the pin)
+        pinned, fp32_matmul._pinned = fp32_matmul._pinned, fp32_matmul._product
+        try:
+            loose = pred.predict(d1, d2)
+        finally:
+            fp32_matmul._pinned = pinned
+        flips = loose != plain
+        print(f"fp32 {SCENE}^2 mask with the products unpinned (TF32 "
+              f"matmuls) vs the plain-version forward: {int(flips.sum())} "
+              f"flips, largest plain margin at a flip "
+              f"{float(margin[flips].max()) if flips.any() else 0.0:.4g} "
+              f"(the pinned serve's bound "
+              f"{1e-4 * plain_logits.abs().max().item():.4g})", flush=True)
         walls = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -4442,6 +4489,7 @@ def f32_phase(root: str, d1, d2, smi: str) -> tuple[list, dict]:
               f"first call, peak {peak_fc / 2**20:.0f} MiB", flush=True)
         if not same or not f32["conv3x3_bias_relu_f32"]:
             fail("fp32 fullconv: banded differs from the whole scene")
+        band_kernel_summary(f"fp32, one band {ctx}x{SCENE}", band_rows, f32)
         del a1, a2, run
 
         # the multi-date families at T = F32_T
@@ -4485,8 +4533,12 @@ def f32_phase(root: str, d1, d2, smi: str) -> tuple[list, dict]:
         if not same:
             fail("the fp32 bundle does not serve as the fp32 model")
     finally:
-        torch.backends.cudnn.allow_tf32 = saved
-    return rows, total
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    # the kernels line: the fused kernel at the levels where it fits (on
+    # the path or not, as the gate decides)
+    return rows + [r for r in gate_rows if r["two_conv_ms"] is not None], \
+        total
 
 
 def main() -> int:
@@ -4788,9 +4840,11 @@ def main() -> int:
           "computes it), the int8 form at 131072 x 512 x 512 for "
           "int8_matmul (library: torch._int_mm; launches: its microbench "
           "and the shift-conv microbench); the *_f32 forms over one fp32 "
-          f"forward of {BATCH} tiles (rows 1-2: bound at the 67 TFLOP/s "
-          "FFMA rate, library cuDNN's fp32 conv + ReLU with TF32 off; "
-          "launches: the fp32 phase's serves)")
+          f"forward of {BATCH} tiles (rows 1-2: bound of 3xTF32, three TF32 "
+          "products per float32 product at 495 TFLOP/s, library cuDNN's "
+          "fp32 conv + ReLU with TF32 off; launches: the fp32 phase's "
+          "serves; double_conv3x3_bias_relu_f32 timed at the levels where "
+          "its cluster fits, which its gate leaves to two conv launches)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -71,7 +71,8 @@ def _register_ops() -> None:
     """Import the kernel modules, which register the custom ops a loaded
     program calls."""
     from fabric_tpu_torch.ops import (bn_relu, conv, conv_s8,  # noqa: F401
-                                      double_conv, fuse_s8, fused)
+                                      double_conv, fp32_matmul, fuse_s8,
+                                      fused)
 
 
 class _Forward(torch.nn.Module):
@@ -90,8 +91,9 @@ class _Forward(torch.nn.Module):
 
 
 def kernel_ops(program) -> dict[str, int]:
-    """{op name: count} of the ``fabric_tpu_torch::`` ops in an exported
-    program's graph."""
+    """{op name: count} of the kernels' ``fabric_tpu_torch::`` ops in an
+    exported program's graph (not ``fp32_product``, a float32 product's
+    precision pin, ``ops/fp32_matmul.py``)."""
     counts: Counter = Counter()
     for gm in program.graph_module.modules():
         if not isinstance(gm, torch.fx.GraphModule):
@@ -100,7 +102,8 @@ def kernel_ops(program) -> dict[str, int]:
             target = node.target
             if (node.op == "call_function"
                     and isinstance(target, torch._ops.OpOverload)
-                    and target.namespace == OPS):
+                    and target.namespace == OPS
+                    and target._opname != "fp32_product"):
                 counts[target._opname] += 1
     return dict(sorted(counts.items()))
 

@@ -49,7 +49,7 @@ import torch
 from fabric_tpu_torch.models import MULTI_DATE
 from fabric_tpu_torch.models.blocks import max_pool2x2
 from fabric_tpu_torch.ops import conv as conv_ops
-from fabric_tpu_torch.ops import conv_s8, fuse_s8
+from fabric_tpu_torch.ops import conv_s8, fp32_matmul, fuse_s8
 from fabric_tpu_torch.ops import fused as fused_ops
 from fabric_tpu_torch.ops.conv_s8 import quantize as q
 from fabric_tpu_torch.ops.resize import (pad_to_match,
@@ -253,7 +253,8 @@ def _outc(folded, y: torch.Tensor) -> torch.Tensor:
     """The 1x1 head in the compute dtype, float32 logits."""
     p = folded["outc"]["conv"]
     k = p["kernel"].reshape(p["kernel"].shape[2:])
-    return (y @ k.to(y.dtype) + p["bias"].to(y.dtype)).float()
+    return (fp32_matmul.matmul(y, k.to(y.dtype))
+            + p["bias"].to(y.dtype)).float()
 
 
 def stack_stats(stats: dict) -> tuple[list[str], torch.Tensor]:

@@ -48,7 +48,7 @@ from fabric_tpu_torch.ops import bn_relu as bn_relu_ops
 from fabric_tpu_torch.parallel import distributed, spatial
 from fabric_tpu_torch.ops import conv as conv_ops
 from fabric_tpu_torch.ops import double_conv as double_conv_ops
-from fabric_tpu_torch.ops import fp32_conv
+from fabric_tpu_torch.ops import fp32_conv, fp32_matmul
 from fabric_tpu_torch.ops import s2d_conv
 from fabric_tpu_torch.ops.resize import (pad_to_match,
                                         upsample2x_align_corners,
@@ -293,4 +293,5 @@ class OutConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.conv.kernel.reshape(self.conv.kernel.shape[2:])
-        return x @ k.to(x.dtype) + self.conv.bias.to(x.dtype)
+        return fp32_matmul.matmul(x, k.to(x.dtype)) + self.conv.bias.to(
+            x.dtype)

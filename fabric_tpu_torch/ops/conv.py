@@ -5,16 +5,18 @@ BatchNorm folded into the weights, a conv of a DoubleConv block is
 ``relu(conv3x3_SAME(x, K) + b)``, computed in x's dtype as the Pallas
 kernel does.  On a CUDA tensor :func:`conv3x3_bias_relu` launches the
 hand-written Hopper kernel of x's dtype: ``csrc/conv3x3_bias_relu.cu``
-(bf16, wgmma) or ``csrc/conv3x3_bias_relu_f32.cu`` (float32, FFMA;
-counted on ``conv3x3_bias_relu.launches_f32``); see their headers for the
-designs and what bounds them.  On a CPU tensor it computes
+(bf16, wgmma) or ``csrc/conv3x3_bias_relu_f32.cu`` (float32, 3xTF32 wgmma:
+three TF32 products per float32 product; counted on
+``conv3x3_bias_relu.launches_f32``); see their headers for the designs and
+what bounds them.  On a CPU tensor it computes
 :func:`conv3x3_bias_relu_reference`, the plain PyTorch version the tests
 hold against the Pallas function.
 
 The kernels read their weights in a packed layout of their dtype
-(:func:`pack_weight`).  Callers that keep their weights pack them once and
-pass them in: the folded ``DoubleConv`` (``models/blocks.py``) and the
-int8 path's calibration forward (``infer/quant.py``).  This module also
+(:func:`pack_weight`; the float32 kernels' split into TF32 hi and lo
+planes, :func:`split_tf32`).  Callers that keep their weights pack them
+once and pass them in: the folded ``DoubleConv`` (``models/blocks.py``)
+and the int8 path's calibration forward (``infer/quant.py``).  This module also
 holds the tile planner that the conv kernels share (:func:`tile_geometry`,
 :func:`n_tile`), mirrored from ``csrc/conv_tile.cuh``.
 """
@@ -34,8 +36,9 @@ KC = KB // 2     # kKC: the same in bf16 channels
 PITCH = KB + 16  # kPitch: bytes per staged pixel
 STAGES = 4       # weight ring slots of the conv kernel
 MAX_SMEM = 232448  # 227 KB: the most shared memory a Hopper block may use
-KC_F32 = 8       # kConvKC in csrc/conv3x3_bias_relu_f32.cu: fp32 channels
-                 # per staged chunk; the fp32 packing pads Cin to it
+KC_F32 = KB // 4  # the same in fp32 channels (csrc/conv_tile_tf32x3.cuh)
+K_STEP_F32 = 8    # fp32 channels of one TF32 wgmma K step (32 bytes): the
+                  # fp32 packing pads Cin to it
 
 
 def _round_up(x: int, m: int) -> int:
@@ -102,18 +105,68 @@ def pack_blocks(k: torch.Tensor, pn: int, chunk: int) -> torch.Tensor:
     return torch.cat(pieces, dim=1).reshape(-1).contiguous()
 
 
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away
+    from zero, as ``cvt.rna.tf32.f32``: a half unit of the 13 dropped bits
+    added to the magnitude, then the 13 bits cleared (float32 bits are
+    sign and magnitude, so one integer add serves both signs)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 a -> (hi, lo), the 3xTF32 split the float32 kernels make
+    (``csrc/conv_tile_tf32x3.cuh`` split; the weights' at pack time):
+    hi = tf32(a), lo = tf32(a - hi), both rounded to nearest, ties away
+    (a - hi is exact in float32).  hi + lo is within 2^-21 |a| of a, and
+    split(-a) = -split(a)."""
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
+
+
+def _pair_blocks(hi: torch.Tensor, lo: torch.Tensor, tiles: int, kk: int,
+                 pn: int, chunk: int, taps: int = 9) -> torch.Tensor:
+    """Two flat :func:`pack_blocks` layouts of one (taps, kk, tiles*pn)
+    kernel -> one, each hi block followed by the lo block of the same N
+    tile, K chunk and tap (what a ring slot of the float32 core holds)."""
+    h, lg = hi.reshape(tiles, -1), lo.reshape(tiles, -1)
+    full = kk // chunk * chunk
+    cut = taps * full * pn
+    pieces = []
+    if full:
+        shape = (tiles, full // chunk, taps, 1, pn * chunk)
+        pieces.append(torch.cat([h[:, :cut].reshape(shape),
+                                 lg[:, :cut].reshape(shape)], 3)
+                      .reshape(tiles, -1))
+    if full < kk:
+        shape = (tiles, taps, 1, pn * (kk - full))
+        pieces.append(torch.cat([h[:, cut:].reshape(shape),
+                                 lg[:, cut:].reshape(shape)], 2)
+                      .reshape(tiles, -1))
+    return torch.cat(pieces, dim=1).reshape(-1).contiguous()
+
+
 def pack_weight_f32(kernel: torch.Tensor) -> torch.Tensor:
     """(3, 3, Cin, Cout) HWIO kernel -> the float32 kernels' packed weights
-    (``csrc/conv_tile_f32.cuh`` stage_weights), a flat float32 tensor of
-    Cin8 * 9 * Cout4 elements laid out [ci][tap][co] (Cin zero-padded to a
-    multiple of 8, Cout to a multiple of 4): element (tap, ci, co) sits at
-    (ci * 9 + tap) * Cout4 + co, so a chunk of input channels is one
-    contiguous run and any N tile of it a strided one."""
+    (``csrc/conv_tile_tf32x3.cuh``): the kernel zero-padded to Cin8 (Cin
+    rounded up to the TF32 K step, 8) x CoutP (Cout rounded up to the N
+    tile PN = n_tile(Cout)), split into TF32 hi and lo planes
+    (:func:`split_tf32`), each plane laid out as the bf16 kernels' blocks
+    (:func:`pack_blocks`: [N tile][K chunk of 16 channels, the last one
+    may be 8][tap], each block PN channels x kc in the no-swizzle K-major
+    layout of 8 x 4 core matrices, the only one TF32 wgmma reads), and
+    each hi block followed by its lo block: a flat float32 tensor of 2 * 9
+    * Cin8 * CoutP elements."""
     cin, cout = kernel.shape[2], kernel.shape[3]
-    k = torch.zeros((_round_up(cin, KC_F32), 9, _round_up(cout, 4)),
-                    dtype=torch.float32, device=kernel.device)
-    k[:cin, :, :cout] = kernel.reshape(9, cin, cout).permute(1, 0, 2)
-    return k.reshape(-1)
+    pn = n_tile(cout)
+    cin_pad, cout_pad = _round_up(cin, K_STEP_F32), _round_up(cout, pn)
+    k = torch.zeros((9, cin_pad, cout_pad), dtype=torch.float32,
+                    device=kernel.device)
+    k[:, :cin, :cout] = kernel.reshape(9, cin, cout)
+    hi, lo = split_tf32(k)
+    return _pair_blocks(pack_blocks(hi, pn, KC_F32),
+                        pack_blocks(lo, pn, KC_F32), cout_pad // pn,
+                        cin_pad, pn, KC_F32)
 
 
 def pack_weight(kernel: torch.Tensor,
@@ -149,7 +202,8 @@ def check_packed(packed: torch.Tensor, kernel: torch.Tensor,
     kernel of ``kernel``'s shape and ``dtype``, on its device."""
     cin, cout = kernel.shape[2], kernel.shape[3]
     if dtype == torch.float32:
-        want = 9 * _round_up(cin, KC_F32) * _round_up(cout, 4)
+        want = 2 * 9 * _round_up(cin, K_STEP_F32) * _round_up(cout,
+                                                             n_tile(cout))
     else:
         want = 9 * _round_up(cin, 16) * _round_up(cout, n_tile(cout))
     if (packed.dim() != 1 or packed.numel() != want
@@ -223,7 +277,7 @@ def _lib_f32() -> ctypes.CDLL:
 
 def _launch_f32(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                 packed: torch.Tensor | None) -> torch.Tensor:
-    """Launch csrc/conv3x3_bias_relu_f32.cu on validated operands
+    """Launch csrc/conv3x3_bias_relu_f32.cu (3xTF32) on validated operands
     (counted)."""
     if packed is None:
         packed = pack_weight_f32(kernel)
@@ -237,8 +291,8 @@ def _launch_f32(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     with _build.on_device(x.get_device()):
         err = lib.fabric_conv3x3_bias_relu_f32(
             x.data_ptr(), packed.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
-            w, cin, cout, _round_up(cin, KC_F32), _round_up(cout, 4),
-            n_tile(cout), tw, tr, ni, _build.raw_stream(x.get_device()))
+            w, cin, cout, _round_up(cin, K_STEP_F32), n_tile(cout), tw, tr,
+            ni, STAGES, _build.raw_stream(x.get_device()))
     _build.check(lib, err, "conv3x3_bias_relu_f32")
     conv3x3_bias_relu.launches_f32 += 1
     return y

@@ -5,12 +5,13 @@ Counterpart of ``fabric_tpu/ops/pallas_double_conv.py:
 double_conv3x3_bias_relu``, in x's dtype as there.  On a CUDA tensor
 :func:`double_conv3x3_bias_relu` launches the kernel of x's dtype:
 ``csrc/double_conv3x3_bias_relu.cu`` (bf16) or
-``csrc/double_conv3x3_bias_relu_f32.cu`` (float32; counted on
-``double_conv3x3_bias_relu.launches_f32``), G whole images per block with
-the G x (H+2) x (W+2) x Cmid intermediate in shared memory (see their
-headers); on a CPU tensor it computes :func:`double_conv3x3_bias_relu_reference`.
-:func:`plan` and :func:`plan_f32` lay a block out within the shared-memory
-budget, 2 bytes an intermediate element in bf16 and 4 in float32
+``csrc/double_conv3x3_bias_relu_f32.cu`` (float32, 3xTF32; counted on
+``double_conv3x3_bias_relu.launches_f32``): in bf16 G whole images per
+block with the G x (H+2) x (W+2) x Cmid intermediate in its shared memory,
+in float32 G whole images per cluster of blocks, each holding a slice of
+the intermediate's channels (see their headers); on a CPU tensor it
+computes :func:`double_conv3x3_bias_relu_reference`.  :func:`plan` and
+:func:`plan_f32` lay a block out within the shared-memory budget
 (:func:`fits`); :func:`supports`, the callers' gate, adds where the fused
 kernel beat two :func:`~fabric_tpu_torch.ops.conv.conv3x3_bias_relu`
 launches on the H100.
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from fabric_tpu_torch.ops import _build
-from fabric_tpu_torch.ops.conv import (KC, KC_F32, MAX_SMEM, _log2_ceil,
+from fabric_tpu_torch.ops.conv import (KB, KC, K_STEP_F32, MAX_SMEM,
                                        _round_up, check_operands,
                                        check_packed,
                                        conv3x3_bias_relu_reference, n_tile,
@@ -76,39 +77,73 @@ def plan(h: int, w: int, cin: int, cmid: int, cout: int) -> Plan | None:
 
 
 class PlanF32(NamedTuple):
-    """A block of the float32 fused kernel: ``group`` whole images in
-    ``bm`` (32, 64 or 128) pixel slots, ``smem`` bytes."""
+    """A cluster of the float32 fused kernel: ``group`` whole images in an
+    M chunk of geometry (tw, tr, ni) (log2s; several chunks where an
+    image is taller or wider than one), ``cluster`` blocks, each holding
+    ``tiles1`` of conv1's N tiles of ``pn1`` channels (that slice of the
+    intermediate), ``stages`` ring slots, ``smem`` bytes a block."""
+    tw: int
+    tr: int
+    ni: int
     group: int
-    bm: int
+    tiles1: int
+    cluster: int
+    pn1: int
+    pn2: int
+    stages: int
     smem: int
 
 
-def smem_bytes_f32(g: int, h: int, w: int, cmid: int, bm: int) -> int:
-    """Shared memory one float32 block needs (double_smem_bytes in the
-    CUDA source): the fp32 intermediate of its g images with its zero frame
-    (channels rounded up to 8 plus 4 of bank padding), and two stages of
-    an input patch and weights of kc = 1024 / bn channels (bn = 16384 /
-    bm output channels), 4 bytes an element."""
-    bn = 16384 // bm
-    kc = 1024 // bn
-    frame = g * (h + 2) * (w + 2)
-    inter = _round_up(frame * (_round_up(cmid, KC_F32) + 4), 4)
-    return 4 * (inter + 2 * (_round_up(frame * kc, 4) + kc * 9 * bn))
+MAX_CLUSTER = 8  # blocks of a cluster the H100 schedules portably
+
+
+def smem_bytes_f32(h: int, w: int, cmid: int, cout: int, group: int,
+                   tiles1: int, stages: int) -> int:
+    """Shared memory one float32 block needs
+    (fabric_double_conv_f32_smem_bytes in the CUDA source): the ring
+    (``stages`` slots of a hi and a lo block of the wider conv's N tile x
+    16 fp32 channels), two staged patches of the chunk geometry, the
+    block's slice of the intermediate (``group`` images x H x W x (tiles1
+    * pn1 + 4) floats, rounded to 128 bytes) and the ring's barriers."""
+    geo = tile_geometry(h, w)
+    pn1 = n_tile(cmid)
+    stage = 2 * max(pn1, n_tile(cout)) * KB
+    inter = _round_up(group * h * w * (tiles1 * pn1 + 4) * 4, 128)
+    return stages * stage + 2 * patch_bytes(geo) + inter + 16 * stages
 
 
 def plan_f32(h: int, w: int, cin: int, cmid: int,
              cout: int) -> PlanF32 | None:
-    """The float32 block layout, or None where none fits 227 KB: the most
-    whole images whose pixels fill at most 128 slots (bm the power of two
-    >= their pixels, at least 32) and whose fp32 intermediate fits."""
+    """The float32 cluster layout, or None where none fits 227 KB a block:
+    images of at most 128 pixels (the conv kernel's M chunk), at most 8
+    blocks a cluster.  The most conv1 N tiles a block (the fewest blocks a
+    cluster) whose block holds a whole chunk's images with 3 or 4 ring
+    slots (on the H100, 2 tiles a block beat 1 by 4-32% at down3, down4
+    and up1, and 4 did not fit a chunk), else one tile a block with the
+    most images of a chunk and the most ring slots, 4 to 2, that fit."""
     if min(h, w, cin, cmid, cout) <= 0 or h * w > 128:
         return None
-    for g in range(128 // (h * w), 0, -1):
-        bm = max(32, 1 << _log2_ceil(g * h * w))
-        smem = smem_bytes_f32(g, h, w, cmid, bm)
-        if smem <= MAX_SMEM:
-            return PlanF32(g, bm, smem)
-    return None
+    pn1, pn2 = n_tile(cmid), n_tile(cout)
+    n_t1 = -(-cmid // pn1)
+    tw, tr, ni = tile_geometry(h, w)
+
+    def plan(tiles1, groups, stage_counts):
+        cluster = -(-n_t1 // tiles1)
+        if cluster > MAX_CLUSTER:
+            return None
+        for group in groups:
+            for stages in stage_counts:
+                smem = smem_bytes_f32(h, w, cmid, cout, group, tiles1,
+                                      stages)
+                if smem <= MAX_SMEM:
+                    return PlanF32(tw, tr, ni, group, tiles1, cluster, pn1,
+                                   pn2, stages, smem)
+        return None
+    for t in range(n_t1, 1, -1):
+        p = plan(t, (1 << ni,), (4, 3))
+        if p is not None:
+            return p
+    return plan(1, range(1 << ni, 0, -1), (4, 3, 2))
 
 
 def fits(h: int, w: int, cin: int, cmid: int, cout: int,
@@ -120,6 +155,16 @@ def fits(h: int, w: int, cin: int, cmid: int, cout: int,
     return plan(h, w, cin, cmid, cout) is not None
 
 
+# (H, W, Cin, Cmid, Cout) of the DoubleConv blocks where the fused float32
+# kernel was no slower than two float32 conv launches on the H100 (the
+# ``gate f32`` lines of chip_smoke.py): none.  At the levels of a 256-tile
+# forward at patch 64 where its cluster fits (down3, down4, up1) it took
+# 1.10-1.27x as long: the intermediate's round trip it saves is ~1% of
+# the two convs' time, less than what its serial conv1 -> conv2 chain
+# and the cluster's staging cost.
+F32_FUSED_SHAPES: frozenset = frozenset()
+
+
 def supports(h: int, w: int, cin: int, cmid: int, cout: int,
              dtype: torch.dtype = torch.bfloat16) -> bool:
     """The callers' gate.  bf16: the fused kernel where it fits and both
@@ -127,18 +172,14 @@ def supports(h: int, w: int, cin: int, cmid: int, cout: int,
     ways at each level of a 256-tile forward at patch 64) it beat two conv
     launches at down2-4 and up2 and tied at up1 (128-512 channels), and
     lost at up3 (64 channels: wgmma N = 64 with one block per SM, where
-    the separate convs run three).  float32: where the fp32 intermediate
-    fits (:func:`plan_f32`) and both convs fill the block's bn = 16384 / bm
-    output channels, which narrower convs would leave idle (at patch 64:
-    down4, bn 512, and up1, bn 256).  The float32 gate does not ask for
-    speed: there the fused kernel loses to two fp32 conv launches
-    (``gate f32`` lines of chip_smoke.py), and it stays on the path so that
-    row 2's float32 form serves as row 2 does in ``fabric_tpu``; the
-    3xTF32 redesign that would earn it its place waits in ROADMAP.md
-    queue 2."""
+    the separate convs run three).  float32: the shapes in
+    F32_FUSED_SHAPES, where the fused 3xTF32 kernel was no slower than two
+    float32 conv launches on the H100, and only where its cluster fits
+    (:func:`plan_f32`); none so far, so the float32 DoubleConvs run as two
+    conv launches."""
     if dtype == torch.float32:
-        p = plan_f32(h, w, cin, cmid, cout)
-        return p is not None and min(cmid, cout) >= 16384 // p.bm
+        return ((h, w, cin, cmid, cout) in F32_FUSED_SHAPES
+                and plan_f32(h, w, cin, cmid, cout) is not None)
     return fits(h, w, cin, cmid, cout) and min(cmid, cout) > 64
 
 
@@ -164,7 +205,7 @@ def _lib() -> ctypes.CDLL:
 def _lib_f32() -> ctypes.CDLL:
     lib = _build.load("double_conv3x3_bias_relu_f32")
     fn = lib.fabric_double_conv3x3_bias_relu_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -178,10 +219,10 @@ def _launch_f32(x, w1, b1, w2, b2, w1pk, w2pk) -> torch.Tensor:
     p = plan_f32(h, w, cin, cmid, cout)
     if p is None:
         raise ValueError(
-            f"double_conv3x3_bias_relu: a float32 block of {h}x{w} images "
+            f"double_conv3x3_bias_relu: a float32 cluster of {h}x{w} images "
             f"with {cmid} intermediate channels does not fit {MAX_SMEM} "
-            f"bytes of shared memory; run it as two conv3x3_bias_relu "
-            f"launches")
+            f"bytes of shared memory a block; run it as two "
+            f"conv3x3_bias_relu launches")
     if w1pk is None or w2pk is None:
         w1pk, w2pk = pack_weight_f32(w1), pack_weight_f32(w2)
     check_packed(w1pk, w1, torch.float32)
@@ -193,8 +234,8 @@ def _launch_f32(x, w1, b1, w2, b2, w1pk, w2pk) -> torch.Tensor:
         err = lib.fabric_double_conv3x3_bias_relu_f32(
             x.data_ptr(), w1pk.data_ptr(), b1f.data_ptr(), w2pk.data_ptr(),
             b2f.data_ptr(), y.data_ptr(), n, h, w, cin, cmid, cout,
-            _round_up(cin, KC_F32), _round_up(cmid, KC_F32),
-            _round_up(cmid, 4), _round_up(cout, 4), p.group, p.bm,
+            _round_up(cin, K_STEP_F32), _round_up(cmid, K_STEP_F32), p.pn1,
+            p.pn2, p.tw, p.tr, p.ni, p.group, p.tiles1, p.cluster, p.stages,
             _build.raw_stream(x.get_device()))
     _build.check(lib, err, "double_conv3x3_bias_relu_f32")
     double_conv3x3_bias_relu.launches_f32 += 1

@@ -16,9 +16,8 @@ card goes through :func:`conv`, which
   its duration (:func:`no_tf32`), and puts the caller's setting back.
 
 On the CPU, and for other dtypes, :func:`conv` is ``F.conv2d`` /
-``F.conv3d`` as they are.  The matmuls need nothing of the kind: PyTorch
-keeps float32 matmuls in full float32 unless a caller asks otherwise
-(``ops/resize.py`` states it).
+``F.conv3d`` as they are.  The float32 matmuls are pinned the same way
+(``ops/fp32_matmul.py``).
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ Counterpart of ``fabric_tpu/ops/resize.py``.  The align-corners resize is
 two matmuls with (out, in) interpolation matrices, as there, with the same
 rounding in a bf16 forward: each matrix is cast to the activation's dtype,
 and each matmul's output is rounded to that dtype (``resize.py:49-57``).
-The shift-invariant local upsample (:func:`upsample2x_local`), which the
+A float32 resize's two matmuls run in full float32 on the card whatever the
+caller's TF32 setting (``ops/fp32_matmul.py``).  The shift-invariant
+local upsample (:func:`upsample2x_local`), which the
 fullconv serving mode needs, interleaves each input with the midpoint of
 its next neighbour.  These are plain PyTorch ops; ``fabric_tpu`` left them
 to XLA, outside any Pallas kernel.
@@ -27,12 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# A float32 forward's matmuls run in full float32, never TF32 (the default
-# already, stated here because the reference relies on it).  cuDNN's
-# convolutions default to TF32, and a flag set here would not survive a
-# caller who sets it back: the port's float32 convs pass TF32 off per call
-# instead (ops/fp32_conv.py).
-torch.backends.cuda.matmul.allow_tf32 = False
+from fabric_tpu_torch.ops import fp32_matmul
 
 
 @functools.lru_cache(maxsize=128)
@@ -82,8 +79,8 @@ def resize_align_corners(x: torch.Tensor, out_h: int,
     _, h, w, _ = x.shape
     wh = _interp(out_h, h, x.device, x.dtype)
     ww = _interp(out_w, w, x.device, x.dtype)
-    y = torch.einsum("nhwc,Hh->nHwc", x, wh)
-    return torch.einsum("nhwc,Ww->nhWc", y, ww).contiguous()
+    y = fp32_matmul.einsum("nhwc,Hh->nHwc", x, wh)
+    return fp32_matmul.einsum("nhwc,Ww->nhWc", y, ww).contiguous()
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
@@ -114,8 +111,8 @@ def upsample2x_align_corners_rows(x: torch.Tensor, first: int,
     same products and roundings as :func:`upsample2x_align_corners`."""
     wh = _band_tensor(height, first, x.shape[1] - 2, x.device, x.dtype)
     ww = _interp(2 * x.shape[2], x.shape[2], x.device, x.dtype)
-    y = torch.einsum("nhwc,Hh->nHwc", x, wh)
-    return torch.einsum("nhwc,Ww->nhWc", y, ww).contiguous()
+    y = fp32_matmul.einsum("nhwc,Hh->nHwc", x, wh)
+    return fp32_matmul.einsum("nhwc,Ww->nhWc", y, ww).contiguous()
 
 
 def _up1d_local(x: torch.Tensor, axis: int,

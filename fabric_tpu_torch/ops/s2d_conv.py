@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fabric_tpu_torch.ops import fp32_conv
+from fabric_tpu_torch.ops import fp32_conv, fp32_matmul
 
 
 def _selection() -> np.ndarray:
@@ -62,8 +62,8 @@ def pack_kernel(kernel: torch.Tensor) -> torch.Tensor:
     block (a*2+b)*Ci + ci (phase-major), output block (di*2+dj)*Co + co
     (sub-pixel-major), matching :func:`s2d` / :func:`d2s`."""
     ci, co = kernel.shape[2], kernel.shape[3]
-    w2 = torch.einsum("ABabdeuv,uvic->ABabidec",
-                      _S.to(kernel.device, kernel.dtype), kernel)
+    w2 = fp32_matmul.einsum("ABabdeuv,uvic->ABabidec",
+                            _S.to(kernel.device, kernel.dtype), kernel)
     return w2.reshape(2, 2, 4 * ci, 4 * co)
 
 

@@ -1212,16 +1212,24 @@ import torch
 from fabric_tpu_torch import Config
 from fabric_tpu_torch.losses import get_loss_fn
 from fabric_tpu_torch.models import build_model
-from fabric_tpu_torch.ops import fp32_conv
+from fabric_tpu_torch.ops import fp32_conv, fp32_matmul
 from fabric_tpu_torch.train.state import create_state
 from fabric_tpu_torch.train.steps import make_train_step
 from fabric_tpu_torch.weights import init_variables
 
-if sys.argv[1] == "library":  # the control: cuDNN under the process's flags
+if sys.argv[1] == "library":  # the control: cuDNN and cuBLAS under the
+    # process's flags, the matmul flag on
+    torch.backends.cuda.matmul.allow_tf32 = True
     fp32_conv.conv = lambda x, w, bias=None, padding=0, groups=1: (
         torch.nn.functional.conv2d if x.dim() == 4 else
         torch.nn.functional.conv3d)(x, w, bias, padding=padding,
                                     groups=groups)
+    fp32_matmul._pinned = fp32_matmul._product
+elif sys.argv[1] == "unpinned":  # the convs pinned, the products not (the
+    # port before its products were pinned)
+    fp32_matmul._pinned = fp32_matmul._product
+if len(sys.argv) > 2:  # the caller's float32 matmul precision
+    torch.set_float32_matmul_precision(sys.argv[2])
 cfg = Config(model_base=16, patch_size=32, batch_size=4, dtype="float32",
              learning_rate=0.05)
 variables = init_variables(13, 2, 16, torch.Generator().manual_seed(3))
@@ -1247,10 +1255,31 @@ for dev in ("cuda", "cpu"):
                        for p in model.parameters()])
     out[dev] = (logits, loss.item(), grads)
 (lg, pg, gg), (lc, pc, gc) = out["cuda"], out["cpu"]
-print(json.dumps({
-    "logits": ((lg - lc).norm() / lc.norm()).item(),
-    "loss": abs(pg - pc) / abs(pc),
-    "grads": ((gg - gc).norm() / gc.norm()).item()}))
+res = {"logits": ((lg - lc).norm() / lc.norm()).item(),
+       "loss": abs(pg - pc) / abs(pc),
+       "grads": ((gg - gc).norm() / gc.norm()).item()}
+if len(sys.argv) > 3:  # the folded serving forward as an exported program
+    class Eval(torch.nn.Module):  # on the card, against the CPU's
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, a, b):
+            return self.model(a, b)
+    args = {dev: tuple(torch.from_numpy(batch[k]).to(dev)
+                       for k in ("img1", "img2")) for dev in ("cuda", "cpu")}
+    with torch.no_grad():
+        ref = build_model(cfg, "cpu", fold_bn=True, variables=variables)(
+            *args["cpu"]).double()
+        program = torch.export.export(
+            Eval(build_model(cfg, "cuda", fold_bn=True,
+                             variables=variables)).eval(),
+            args["cuda"], strict=False)
+        le = program.module()(*args["cuda"]).cpu().double()
+    res["exported"] = ((le - ref).norm() / ref.norm()).item()
+    res["pins"] = sum("fp32_product" in str(n.target)
+                      for n in program.graph.nodes)
+print(json.dumps(res))
 """
 
 
@@ -1261,8 +1290,9 @@ def test_float32_convs_ignore_the_tf32_flags(card, tmp_path):
     and gradients on the card agree with the CPU's: relative L2 of the
     logits and relative loss within 1e-5, of the gradients within 1e-4
     (fp32 sums in other orders; train-mode BatchNorm's variance keeps
-    fewer bits).  The control run, cuDNN as the flags leave it, misses
-    those bounds (TF32 keeps ~1e-3)."""
+    fewer bits).  The control run, cuDNN and cuBLAS as the flags leave them
+    with the matmul flag turned on, misses those bounds (TF32 keeps
+    ~1e-3)."""
     import json
     import os
     import subprocess
@@ -1282,6 +1312,81 @@ def test_float32_convs_ignore_the_tf32_flags(card, tmp_path):
     assert port["grads"] <= 1e-4
     assert (library["logits"] > 1e-5 or library["loss"] > 1e-5
             or library["grads"] > 1e-4)
+
+
+@pytest.mark.cuda
+def test_float32_products_ignore_the_matmul_precision(card, tmp_path):
+    """The same in a fresh process whose caller asked for TF32 matmuls
+    (``torch.set_float32_matmul_precision("high")``): the upsamples' and
+    the head's products are pinned per call (ops/fp32_matmul.py), so the
+    logits and loss stay within 1e-5 of the CPU's and the gradients within
+    1e-4; and the folded serving forward exported on the card agrees with
+    the CPU's within 1e-5, its graph holding the pin's op for each product
+    (8 upsample matmuls and the head).  Printed beside it, not held: the same run with the products
+    unpinned (what the port computed before the pin)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    got = {}
+    for mode, extra in (("port", ["export"]), ("unpinned", [])):
+        run = subprocess.run([sys.executable, "-c", _TF32_PIN, mode, "high",
+                              *extra], capture_output=True, text=True,
+                             env=env, cwd=str(tmp_path), timeout=300)
+        assert run.returncode == 0, run.stderr[-3000:]
+        got[mode] = json.loads(run.stdout.strip().splitlines()[-1])
+    print(got)
+    got = got["port"]
+    assert got["logits"] <= 1e-5 and got["loss"] <= 1e-5
+    assert got["grads"] <= 1e-4
+    assert got["exported"] <= 1e-5 and got["pins"] == 9
+
+
+@pytest.mark.cuda
+def test_f32_long_k_at_up1(card):
+    """up1's convs at the main path's count (256 tiles of 8x8; 1024 -> 256
+    -> 256, the longest K of the fp32 path: 9216 products a sum), single
+    and fused, within the fp32 bounds of the plain version; the fused
+    kernel equals two conv launches bit for bit."""
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(256, 8, 8, 1024, generator=g).to(card)
+    w1 = (torch.randn(3, 3, 1024, 256, generator=g) / 96).to(card)
+    w2 = (torch.randn(3, 3, 256, 256, generator=g) / 48).to(card)
+    b1, b2 = (torch.randn(256, generator=g).to(card) * 0.1 for _ in range(2))
+    one = conv.conv3x3_bias_relu(x, w1, b1)
+    _f32_close(one, conv.conv3x3_bias_relu_reference(x, w1, b1))
+    two = conv.conv3x3_bias_relu(one, w2, b2)
+    _f32_close(two, double_conv.double_conv3x3_bias_relu_reference(
+        x, w1, b1, w2, b2))
+    fused_y = double_conv.double_conv3x3_bias_relu(x, w1, b1, w2, b2)
+    assert torch.equal(fused_y, two)
+
+
+@pytest.mark.cuda
+def test_f32_signed_gate_conv_negates_exactly(card):
+    """UNetLSTM's signed gate conv in float32 on the 3xTF32 kernel: the
+    launch of [K, -K] (bias [b, -b]) on -x gives the launch on x with its
+    halves swapped, bit for bit (the sums of -K and of -x are the same
+    negation: the TF32 splits and the products are sign-symmetric), one of
+    each pair is 0, and their difference, the gate's z, is within the fp32
+    bounds of the plain conv."""
+    from fabric_tpu_torch.models.unet_lstm import signed_conv
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(3, 16, 16, 96, generator=g).to(card)
+    k = (torch.randn(3, 3, 96, 128, generator=g) / 29).to(card)
+    b = (torch.randn(128, generator=g) * 0.1).to(card)
+    kk, bb = torch.cat([k, -k], -1), torch.cat([b, -b])
+    y = conv.conv3x3_bias_relu(x, kk, bb)
+    neg = conv.conv3x3_bias_relu(-x, kk, -bb)
+    assert torch.equal(neg, torch.cat([y[..., 128:], y[..., :128]], -1))
+    assert not (torch.minimum(y[..., :128], y[..., 128:]) != 0).any()
+    z = signed_conv(x, kk, bb)
+    plain = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), k.double().permute(3, 2, 0, 1),
+        b.double(), padding=1).permute(0, 2, 3, 1)
+    _f32_close(z, plain.float())
 
 
 @pytest.mark.cuda

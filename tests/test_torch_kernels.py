@@ -204,40 +204,69 @@ def test_prepacked_call_matches_unpacked():
 
 # ---- the float32 forms (rows 1 and 2 in fp32) ----
 
+def _unpack_f32(p: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """pack_weight(k, float32) read back, element by element from the
+    layout its docstring states: (plane, tap, Cin8, CoutP), plane 0 hi
+    and 1 lo; block (tile, chunk, tap) at tile * 2*9*Cin8*PN + 2*9*c0*PN
+    + tap * 2*kc*PN, its hi block then its lo block (kc*PN each), element
+    (n, k) of a block at (n//8)*kc*8 + (k//4)*32 + (n%8)*4 + k%4."""
+    pn = conv.n_tile(cout)
+    cin8, coutp = -(-cin // 8) * 8, -(-cout // pn) * pn
+    plane, tap, ci, co = np.meshgrid(np.arange(2), np.arange(9),
+                                     np.arange(cin8), np.arange(coutp),
+                                     indexing="ij")
+    tile, n = co // pn, co % pn
+    c0 = ci // 16 * 16
+    kc = np.minimum(16, cin8 - c0)
+    k = ci - c0
+    idx = (tile * 2 * 9 * cin8 * pn + 2 * 9 * c0 * pn + tap * 2 * kc * pn
+           + plane * kc * pn + (n // 8) * kc * 8 + (k // 4) * 32
+           + (n % 8) * 4 + k % 4)
+    assert p.numel() == idx.size and len(np.unique(idx)) == idx.size
+    return p[torch.from_numpy(idx.reshape(-1))].reshape(2, 9, cin8, coutp)
+
+
 @pytest.mark.parametrize("cin,cout", [(13, 70), (64, 64), (40, 2),
                                        (1024, 256)])
 def test_f32_packed_weight_layout(cin, cout):
-    """pack_weight(k, float32) is the [Cin8][9][Cout4] layout its docstring
-    states: unpacked back to HWIO it is the kernel, bit for bit, and its
-    padding is zero."""
+    """pack_weight(k, float32) is the split, padded block layout its
+    docstring states: read back, the hi and lo planes are split_tf32 of
+    the kernel bit for bit (hi + lo within 2^-21 of it), and the padding is
+    zero."""
     rng = np.random.RandomState(4)
     k = torch.from_numpy(rng.randn(3, 3, cin, cout).astype(np.float32))
     p = conv.pack_weight(k, torch.float32)
-    cin8, cout4 = -(-cin // 8) * 8, -(-cout // 4) * 4
-    assert p.dtype == torch.float32 and p.shape == (cin8 * 9 * cout4,)
+    pn = conv.n_tile(cout)
+    cin8, coutp = -(-cin // 8) * 8, -(-cout // pn) * pn
+    assert p.dtype == torch.float32 and p.shape == (2 * 9 * cin8 * coutp,)
     assert torch.equal(p, conv.pack_weight_f32(k))
-    grid = p.reshape(cin8, 9, cout4)
-    hwio = grid[:cin, :, :cout].permute(1, 0, 2).reshape(3, 3, cin, cout)
-    assert torch.equal(hwio, k)
+    conv.check_packed(p, k, torch.float32)
+    grid = _unpack_f32(p, cin, cout)
+    hi, lo = conv.split_tf32(k.reshape(9, cin, cout))
+    assert torch.equal(grid[0, :, :cin, :cout], hi)
+    assert torch.equal(grid[1, :, :cin, :cout], lo)
+    whole = (grid[0] + grid[1])[:, :cin, :cout].double()
+    assert ((whole - k.reshape(9, cin, cout).double()).abs()
+            <= 2.0 ** -21 * k.reshape(9, cin, cout).double().abs()).all()
     pad = grid.clone()
-    pad[:cin, :, :cout] = 0
+    pad[:, :, :cin, :cout] = 0
     assert not pad.any()
-    # element (tap, ci, co) at (ci * 9 + tap) * Cout4 + co
-    tap, ci, co = 5, cin - 1, cout - 1
-    assert p[(ci * 9 + tap) * cout4 + co] == k[tap // 3, tap % 3, ci, co]
 
 
-# level: (images per block, pixel slots bm) of the fp32 fused kernel's
-# plan at patch 64 where its fp32 intermediate fits
-F32_PLANS = {"down4": (2, 32), "up1": (1, 64)}
+# level: (images per cluster, conv1 N tiles per block, blocks per
+# cluster, ring slots) of the fp32 fused kernel's plan at patch 64
+F32_PLANS = {"down3": (2, 2, 2, 4), "down4": (8, 2, 2, 3),
+             "up1": (2, 2, 1, 4)}
 
 
 def test_f32_double_conv_gate_at_patch_64():
-    """The fp32 intermediate is 4 bytes an element: only down4 (two 4x4
-    images, 223488 B) and up1 (one 8x8 image, 180928 B) fit 227 KB, and
-    both fill their block's output channels (bn = 16384 / bm), so the
-    fp32 gate sends exactly those two to the fused kernel; the bf16 gate
-    is unchanged."""
+    """The fp32 fused kernel keeps a group of whole images (one 128-pixel
+    M chunk: 8 of 4x4, 2 of 8x8) in a cluster of blocks, each holding 256
+    of the intermediate's channels (two conv1 N tiles; four would not fit
+    a chunk's images): it fits down3, down4 and up1 (228400-230720 B a
+    block, under 227 KB), not the levels of 16x16 and larger images; the
+    fp32 gate sends none of them to it (on the H100 it was slower than two
+    conv launches at all three); the bf16 gate is unchanged."""
     for level, (_, side, cin, cout) in LEVELS.items():
         p = double_conv.plan_f32(side, side, cin, cout, cout)
         assert (p is not None) == (level in F32_PLANS), level
@@ -245,26 +274,28 @@ def test_f32_double_conv_gate_at_patch_64():
                                 torch.float32) == (p is not None)
         if p is None:
             continue
-        assert (p.group, p.bm) == F32_PLANS[level], level
-        assert p.group * side * side <= p.bm
-        assert p.smem == double_conv.smem_bytes_f32(p.group, side, side,
-                                                     cout, p.bm)
+        assert (p.group, p.tiles1, p.cluster, p.stages) == F32_PLANS[level]
+        assert p.group * side * side == 128 and p.pn1 == p.pn2 == 128
+        assert p.cluster * p.tiles1 * p.pn1 == cout
+        assert p.smem == double_conv.smem_bytes_f32(
+            side, side, cout, cout, p.group, p.tiles1, p.stages)
         assert p.smem <= double_conv.MAX_SMEM
-        # one more image would not fit
-        more = p.group + 1
-        bm = max(32, 1 << (more * side * side - 1).bit_length())
-        assert double_conv.smem_bytes_f32(more, side, side, cout,
-                                          bm) > double_conv.MAX_SMEM
-    assert double_conv.plan_f32(4, 4, 512, 512, 512).smem == 223488
-    assert double_conv.plan_f32(8, 8, 1024, 256, 256).smem == 180928
+        # four tiles a block (down3, down4) would not hold the chunk's
+        # images with 3 ring slots
+        if cout >= 4 * 128:
+            assert double_conv.smem_bytes_f32(
+                side, side, cout, cout, p.group, 4, 3) > double_conv.MAX_SMEM
+    assert double_conv.plan_f32(4, 4, 512, 512, 512).smem == 228400
+    assert double_conv.plan_f32(8, 8, 1024, 256, 256).smem == 230720
     fused_blocks = {level for level, (_, side, cin, cout) in LEVELS.items()
                     if double_conv.supports(side, side, cin, cout, cout,
                                             torch.float32)}
-    assert fused_blocks == set(F32_PLANS)
-    # narrow convs leave a block's channels idle: two conv launches
+    assert fused_blocks == set() and not double_conv.F32_FUSED_SHAPES
     assert double_conv.fits(4, 4, 64, 64, 64, torch.float32)
     assert not double_conv.supports(4, 4, 64, 64, 64, torch.float32)
     assert double_conv.plan_f32(16, 16, 8, 8, 8) is None  # 256 pixels
+    # 4096 channels: a chunk's images in 8 blocks would need 4 tiles each
+    assert double_conv.plan_f32(4, 4, 8, 4096, 8) is None
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES)
