@@ -3659,7 +3659,7 @@ import torch.distributed as tdist
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 from fabric_tpu_torch.config import Config
-from fabric_tpu_torch.ops import bn_relu, fused
+from fabric_tpu_torch.ops import bn_relu, fused, s2d_conv
 from fabric_tpu_torch.parallel import distributed
 from fabric_tpu_torch.train.loop import train
 from fabric_tpu_torch.weights import flatten_tree, variables_of
@@ -3672,6 +3672,8 @@ if world > 1:  # NCCL refuses two ranks on one card: gloo
 counters = (fused.fused_mul_relu, bn_relu.bn_relu_inference)
 for fn in counters:
     fn.launches = 0
+for k in s2d_conv.packed_counts:
+    s2d_conv.packed_counts[k] = 0
 torch.cuda.reset_peak_memory_stats()
 t0 = time.perf_counter()
 state, history = train(cfg, device="cuda:0", run_scene_inference=True)
@@ -3684,8 +3686,8 @@ np.savez(os.path.join(os.environ["DP_OUT"], f"vars_{rank}.npz"),
 with open(os.path.join(os.environ["DP_OUT"], f"history_{rank}.json"),
           "w") as f:
     json.dump({"history": history, "launches": launches, "wall_s": wall,
-               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20},
-              f)
+               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+               "packed": dict(s2d_conv.packed_counts)}, f)
 distributed.shutdown()
 """
 
@@ -3918,10 +3920,16 @@ def dp_train_phase(root: str) -> dict:
     return {"base": base, "once": runs["once"], "init": init}
 
 
-# sp_train: (run, model, mesh); UNetLSTM's global batch and 5-date cities
-SP_RUNS = (("a", "bidate", (1, 2, 1)), ("b", "bidate", (2, 2, 1)),
-           ("c", "unet_lstm", (1, 2, 2)))
+# sp_train: (run, model, mesh, options; a run with options has its own
+# 1-process run); UNetLSTM's global batch and 5-date cities; the worlds
+# (a mesh run's ranks, or 1 process) that share the card at a time
+SP_RUNS = (("a", "bidate", (1, 2, 1), {}), ("b", "bidate", (2, 2, 1), {}),
+           ("c", "unet_lstm", (1, 2, 2), {}),
+           ("d", "bidate", (1, 2, 1), {"lane_pack": True,
+                                       "lane_pack_bwd": True,
+                                       "steps_per_epoch": 2}))
 SP_MD_BATCH, SP_MD_STEPS = 32, 2
+SP_WORLDS_AT_ONCE = 2
 SP_MD_CITIES = {"alpha": (384, 384), "val": (288, 288)}
 
 
@@ -3933,12 +3941,21 @@ def sp_train_phase(root: str, dp: dict, smi: str) -> dict:
     inference: (a) BiDateNet at mesh (1, 2, 1) and (b) at (2, 2, 1), global
     batch 128, 3 steps, against dp_train's 1-process run of the same
     settings; (c) UNetLSTM base 64, T = 5, at (1, 2, 2), global batch 32,
-    2 steps, on a small 5-date dataset, against its own 1-process run.
+    2 steps, on a small 5-date dataset, against its own 1-process run;
+    (d) BiDateNet with lane_pack and lane_pack_bwd at (1, 2, 1), as (a),
+    2 steps, against its own 1-process run with them: level 0 (inc, up4)
+    splits into 48-row halves, whose packed convs read a halo of whole
+    s2d blocks; every rank, and the 1 process, must have run packed
+    forward convs, packed dgrads and packed eval convs (validation's;
+    ``s2d_conv.packed_counts``), so that no direct path passes unseen.
     Each held to dp_train's bounds (``_held``), the ranks equal, rank 0
-    alone writing.  Prints each rank's launches of rows 3 and 4 and peak
-    allocated memory against the 1-process run's, and each run's wall
-    time; returns the launches summed over every rank.  Ranks sharing one
-    card give no scaling figure."""
+    alone writing.  The runs go SP_WORLDS_AT_ONCE at a time (their
+    processes start, import and load data for most of a run's time).
+    Prints each rank's launches of rows 3 and 4 (and in (d) its packed
+    convs) and peak allocated memory against the 1-process run's, and
+    each run's wall time beside another run's; returns the launches
+    summed over every rank.  Ranks sharing one card give no scaling
+    figure."""
     from fabric_tpu_torch.config import Config
     from fabric_tpu_torch.data.synthetic import generate_synthetic_dataset
     from fabric_tpu_torch.weights import flatten_tree, init_variables
@@ -3953,15 +3970,25 @@ def sp_train_phase(root: str, dp: dict, smi: str) -> dict:
     md_init = flatten_tree(init_variables(
         13, 2, BASE, torch.Generator().manual_seed(md_cfg["seed"]),
         "unet_lstm")[0])
-    md_once = _loop_run(root, "sp_md_once", md_cfg, 1)
+    jobs = {"md_once": ("sp_md_once", md_cfg, 1)}
+    for run, name, (d, s, m), options in SP_RUNS:
+        base = dict(dp["base"] if name == "bidate" else md_cfg, **options)
+        if options:
+            jobs[run + "_once"] = (f"sp_{run}_once", base, 1)
+        jobs[run] = (f"sp_{run}", dict(base, mesh_data=d, mesh_spatial=s,
+                                       mesh_model=m), d * s * m)
+    with concurrent.futures.ThreadPoolExecutor(SP_WORLDS_AT_ONCE) as pool:
+        done = dict(zip(jobs, pool.map(lambda job: _loop_run(root, *job),
+                                       jobs.values())))
     total = {"fused_mul_relu": 0, "bn_relu_inference": 0}
     failed = []
-    for run, name, (d, s, m) in SP_RUNS:
-        base, single, init = ((dp["base"], dp["once"], dp["init"])
-                              if name == "bidate"
-                              else (md_cfg, md_once, md_init))
-        cfg = dict(base, mesh_data=d, mesh_spatial=s, mesh_model=m)
-        out, ranks, wall = _loop_run(root, f"sp_{run}", cfg, d * s * m)
+    for run, name, (d, s, m), options in SP_RUNS:
+        single, init = ((dp["once"], dp["init"]) if name == "bidate"
+                        else (done["md_once"], md_init))
+        if options:
+            single = done[run + "_once"]
+        cfg = jobs[run][1]
+        out, ranks, wall = done[run]
         held = _held(single[1][0], ranks, init)
         only_rank0 = _rank0_alone(out, single[0], ranks)
         one = single[1][0][1]
@@ -3976,7 +4003,16 @@ def sp_train_phase(root: str, dp: dict, smi: str) -> dict:
                        and (name != "bidate" or c["fused_mul_relu"] > 0)
                        and c == counts[-1] for c in counts[1:]) \
             and counts[0]["bn_relu_inference"] > 0
-        good = held["ok"] and only_rank0 and launched
+        # with lane_pack, packed forward convs, dgrads and (validation's)
+        # eval convs on every rank and in the 1 process
+        packed = [r[1]["packed"] for r in ranks]
+        packed_ok = not options or all(
+            v > 0 for p in packed + [one["packed"]] for v in p.values())
+        if options:
+            print(f"sp_train ({run}): {options}: packed convs by rank "
+                  f"{packed} (1 process: {one['packed']}): "
+                  f"{'ok' if packed_ok else 'NONE PACKED'}", flush=True)
+        good = held["ok"] and only_rank0 and launched and packed_ok
         print(f"sp_train ({run}): {name} base {BASE}, patch {T_PATCH}, "
               f"mesh {d}x{s}x{m} in {d * s * m} gloo ranks on one card, "
               f"global batch {cfg['batch_size']}, "
@@ -3991,14 +4027,15 @@ def sp_train_phase(root: str, dp: dict, smi: str) -> dict:
               f"peak allocated MiB by rank "
               f"{[round(r[1]['peak_mib']) for r in ranks]} against "
               f"{round(one['peak_mib'])} in 1 process; the command "
-              f"{wall:.1f} s (1 process {single[2]:.1f} s; ranks sharing "
+              f"{wall:.1f} s (1 process {single[2]:.1f} s; up to "
+              f"{SP_WORLDS_AT_ONCE} runs at a time and their ranks sharing "
               f"one card: no scaling figure); {smi}; "
               f"{'ok' if good else 'MISMATCH'}", flush=True)
         if not good:
             failed.append(run)
     if failed:
-        fail(f"sp_train runs {failed} differ from their 1-process runs or "
-             f"missed a kernel")
+        fail(f"sp_train runs {failed} differ from their 1-process runs, "
+             f"missed a kernel or packed no conv")
     return total
 
 

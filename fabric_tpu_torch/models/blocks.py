@@ -36,7 +36,11 @@ On a mesh's spatial axis (``parallel/spatial.py``) the blocks of a
 split level hold the rank's rows: a conv reads a halo and is VALID in H,
 BatchNorm sums over the ranks whose rows the level spans, a Down block
 into a gathered level gathers its input, and an Up block computes its
-rows of the global upsample.
+rows of the global upsample.  A lane-packed conv there (:meth:`Conv.packed`)
+reads the halo rows that make the rank's rows whole s2d blocks of the
+global image (``spatial.block_halo``), takes the VALID-in-H packed form
+and keeps the rank's rows of its output, in training and in eval; the
+gate reads the level's global rows, as ``fabric_tpu``'s does under GSPMD.
 """
 
 from __future__ import annotations
@@ -91,6 +95,29 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """SAME conv + bias in x's dtype (flax ``nn.Conv(dtype=...)``)."""
         return self.conv(x) + self.bias.to(x.dtype)
+
+    def packed(self, x: torch.Tensor,
+               pack_bwd: bool | None = None) -> torch.Tensor:
+        """The SAME conv lane-packed (``ops/s2d_conv.py``): with
+        ``pack_bwd`` None the eval form, without the bias; else
+        ``conv3x3_lane_packed`` with the bias.  On a split level, of the
+        rank's rows made whole s2d blocks by a halo, VALID in H, and cut
+        to the rank's rows (a copy: an odd shard's output has one row
+        more)."""
+        h = x.shape[1]
+        ext, first = spatial.block_halo(x)
+        pad_h = first is None
+        if pack_bwd is None:
+            s2d_conv.packed_counts["eval"] += 1
+            y = s2d_conv.s2d_conv3x3(ext, self.kernel, pad_h=pad_h)
+        else:
+            y = s2d_conv.conv3x3_lane_packed(
+                ext, self.kernel.to(x.dtype), self.bias, pack_bwd,
+                pad_h=pad_h, height=spatial.global_rows(h))
+        if y.shape[1] != h:
+            y = y[:, first:first + h].clone(
+                memory_format=torch.contiguous_format)
+        return y
 
 
 class BatchNorm(nn.Module):
@@ -209,22 +236,16 @@ class DoubleConv(nn.Module):
             x = conv_ops.conv3x3_bias_relu(x, c1.kernel, c1.bias, packed[0])
             return conv_ops.conv3x3_bias_relu(x, c2.kernel, c2.bias,
                                               packed[1])
-        lv = spatial.current()
-        if self.lane_pack and lv is not None and lv.split:
-            raise NotImplementedError(
-                "lane_pack on a level split over the spatial mesh axis is "
-                "not ported to fabric_tpu_torch yet: ROADMAP.md queue 1 "
-                "item 10d")
         for c, bn in ((c1, self.bn1), (c2, self.bn2)):
+            # the gate reads the level's global rows
             packed = self.lane_pack and s2d_conv.supports(
-                x.shape[1], x.shape[2], x.shape[3], c.kernel.shape[-1])
+                spatial.global_rows(x.shape[1]), x.shape[2], x.shape[3],
+                c.kernel.shape[-1])
             if train:
-                y = s2d_conv.conv3x3_lane_packed(
-                    x, c.kernel.to(x.dtype), c.bias,
-                    self.lane_pack_bwd) if packed else c(x)
+                y = c.packed(x, self.lane_pack_bwd) if packed else c(x)
                 x = torch.relu(bn(y)).to(x.dtype)
             elif packed:
-                x = bn.relu_eval(s2d_conv.s2d_conv3x3(x, c.kernel), c.bias)
+                x = bn.relu_eval(c.packed(x), c.bias)
             else:
                 # the conv bias rides in the kernel's prologue; the conv's
                 # NHWC output is contiguous (a channels-last cuDNN result

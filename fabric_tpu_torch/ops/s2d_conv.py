@@ -21,6 +21,21 @@ gradients, which are the direct conv's, since the packed forward *is* a
 in/out-swapped kernel (itself packed with ``pack_bwd`` where
 :func:`supports` admits it), wgrad the direct conv's, and db the sum.
 
+A level split over a mesh's spatial axis (``parallel/spatial.py``) takes
+the VALID-in-H form (``pad_h=False``): the rank's rows come with the halo
+rows that make them whole shifted s2d blocks of the global image (rows
+(2j - 1, 2j): ``spatial.block_halo``), :func:`s2d` pads W alone, and the
+2x2 conv yields the blocks' output rows, 2 fewer than it read.  An even
+shard takes one halo row a side; an odd one (49 rows of 98) starts or ends
+mid-block, so it takes one more on the side that reaches an even global
+row and drops the extra output row.  Its gradients, for the
+halo-extended input of h_e rows: dx the direct dgrad with H padding 2 (a
+full correlation; packed, g with one zero row a side and a SAME packed
+conv of h_e rows), dK the wgrad with padding (0, 1), db the sum; the
+halo's backward hands each halo row's gradient to its owner.  Both gates
+read the level's global height (``height``), as ``fabric_tpu``'s do under
+GSPMD, where they see the global shape.
+
 :func:`supports` is ``fabric_tpu``'s gate, copied as it is: it is the
 flag's meaning (which convs pack, and so where the two packages round
 alike), not a speed gate of the port.  Whether packing wins on the card is
@@ -56,6 +71,11 @@ def _selection() -> np.ndarray:
 
 _S = torch.from_numpy(_selection())
 
+# the packed convs run since a caller last zeroed them: conv3x3_lane_packed's
+# forwards and the dgrads that pack_bwd and the gate packed, and the eval
+# forms (``models/blocks.Conv.packed``)
+packed_counts = {"forward": 0, "dgrad": 0, "eval": 0}
+
 
 def pack_kernel(kernel: torch.Tensor) -> torch.Tensor:
     """(3, 3, Ci, Co) HWIO kernel -> (2, 2, 4*Ci, 4*Co) s2d kernel, input
@@ -67,16 +87,19 @@ def pack_kernel(kernel: torch.Tensor) -> torch.Tensor:
     return w2.reshape(2, 2, 4 * ci, 4 * co)
 
 
-def s2d(x: torch.Tensor) -> torch.Tensor:
+def s2d(x: torch.Tensor, pad_h: bool = True) -> torch.Tensor:
     """(N, H, W, C) -> shifted space-to-depth (N, H/2+1, W/2+1, 4C): 1 px
     of zeros on every side (the top/left pad is the phase shift), then
-    2x2 pixel blocks into channels.  H and W must be even."""
+    2x2 pixel blocks into channels.  H and W must be even.  ``pad_h``
+    False pads W alone, for rows that are whole shifted blocks already
+    (N, H/2, W/2+1, 4C)."""
     n, h, w, c = x.shape
     if h % 2 or w % 2:
         raise ValueError(f"s2d needs even H and W, got {h} x {w}")
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    xr = xp.reshape(n, h // 2 + 1, 2, w // 2 + 1, 2, c)
-    return xr.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2 + 1, w // 2 + 1,
+    ph = int(pad_h)
+    xp = F.pad(x, (0, 0, 1, 1, ph, ph))
+    xr = xp.reshape(n, h // 2 + ph, 2, w // 2 + 1, 2, c)
+    return xr.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2 + ph, w // 2 + 1,
                                                 4 * c)
 
 
@@ -111,19 +134,24 @@ def conv2x2(xs: torch.Tensor, w2: torch.Tensor,
     return y
 
 
-def direct_conv3x3(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """The direct 3x3 SAME conv of NHWC x by an HWIO kernel, in x's
-    dtype, without a bias."""
+def direct_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+                   pad_rows: int = 1) -> torch.Tensor:
+    """The direct 3x3 conv of NHWC x by an HWIO kernel, in x's dtype,
+    without a bias: SAME, or with ``pad_rows`` rows of zeros above and
+    below (W SAME either way)."""
     y = fp32_conv.conv(x.permute(0, 3, 1, 2),
-                       kernel.to(x.dtype).permute(3, 2, 0, 1), padding=1)
+                       kernel.to(x.dtype).permute(3, 2, 0, 1),
+                       padding=(pad_rows, 1))
     return y.permute(0, 2, 3, 1)
 
 
 def s2d_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
                 bias: torch.Tensor | None = None, *,
-                relu: bool = False) -> torch.Tensor:
-    """One 3x3 SAME stride-1 conv by lane packing (s2d, 2x2 conv, d2s)."""
-    y = conv2x2(s2d(x), pack_kernel(kernel.to(x.dtype)), bias)
+                relu: bool = False, pad_h: bool = True) -> torch.Tensor:
+    """One 3x3 SAME stride-1 conv by lane packing (s2d, 2x2 conv, d2s);
+    ``pad_h`` False: VALID in H, of rows that are whole shifted blocks
+    (H - 2 output rows)."""
+    y = conv2x2(s2d(x, pad_h), pack_kernel(kernel.to(x.dtype)), bias)
     if relu:
         y = torch.relu(y)
     return d2s(y, kernel.shape[-1])
@@ -148,40 +176,47 @@ class _LanePacked(torch.autograd.Function):
     """:func:`s2d_conv3x3` forward, the direct conv's gradients."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, pack_bwd):
+    def forward(ctx, x, kernel, bias, pack_bwd, pad_h, height):
         ctx.save_for_backward(x, kernel)
-        ctx.pack_bwd = pack_bwd
-        ctx.bias_dtype = bias.dtype
-        return s2d_conv3x3(x, kernel, bias)
+        ctx.conf = (pack_bwd, pad_h, height, bias.dtype)
+        packed_counts["forward"] += 1
+        return s2d_conv3x3(x, kernel, bias, pad_h=pad_h)
 
     @staticmethod
     def backward(ctx, g):
         # a gradient nobody asked for is not computed (XLA drops it as
         # dead code in fabric_tpu): the input image's dgrad, in inc
         x, kernel = ctx.saved_tensors
+        pack_bwd, pad_h, height, bias_dtype = ctx.conf
         dx = dk = db = None
         if ctx.needs_input_grad[0]:
             kt = kernel.flip(0, 1).transpose(2, 3)
-            if ctx.pack_bwd and supports(g.shape[1], g.shape[2],
-                                         kt.shape[2], kt.shape[3]):
-                dx = s2d_conv3x3(g, kt)
+            if pack_bwd and supports(height or g.shape[1], g.shape[2],
+                                     kt.shape[2], kt.shape[3]):
+                # VALID in H: the full correlation, the SAME conv of g
+                # with a zero row above and below
+                dx = s2d_conv3x3(
+                    g if pad_h else F.pad(g, (0, 0, 0, 0, 1, 1)), kt)
+                packed_counts["dgrad"] += 1
             else:
-                dx = direct_conv3x3(g, kt)
+                dx = direct_conv3x3(g, kt, 1 if pad_h else 2)
         if ctx.needs_input_grad[1]:
             with fp32_conv.no_tf32():
                 dk = torch.nn.grad.conv2d_weight(
                     x.permute(0, 3, 1, 2),
                     (kernel.shape[3], kernel.shape[2], 3, 3),
-                    g.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0)
+                    g.permute(0, 3, 1, 2),
+                    padding=(int(pad_h), 1)).permute(2, 3, 1, 0)
             dk = dk.to(kernel.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.sum((0, 1, 2)).to(ctx.bias_dtype)
-        return dx, dk, db, None
+            db = g.sum((0, 1, 2)).to(bias_dtype)
+        return dx, dk, db, None, None, None
 
 
 def conv3x3_lane_packed(x: torch.Tensor, kernel: torch.Tensor,
-                        bias: torch.Tensor,
-                        pack_bwd: bool = False) -> torch.Tensor:
+                        bias: torch.Tensor, pack_bwd: bool = False, *,
+                        pad_h: bool = True,
+                        height: int | None = None) -> torch.Tensor:
     """:func:`s2d_conv3x3` (x and ``kernel`` in one dtype, ``bias`` any)
     with ``fabric_tpu``'s hand-written gradients (its ``custom_vjp``):
 
@@ -189,8 +224,12 @@ def conv3x3_lane_packed(x: torch.Tensor, kernel: torch.Tensor,
            ``pack_bwd`` and :func:`supports` admit it]
       dK = the direct conv's wgrad
       db = sum of g over N, H, W
+
+    ``pad_h`` False: the VALID-in-H form of whole shifted blocks (the
+    module docstring), with its gradients.  ``height``: the image's global
+    rows, which the dgrad's gate reads (g's own rows when None).
     """
-    return _LanePacked.apply(x, kernel, bias, pack_bwd)
+    return _LanePacked.apply(x, kernel, bias, pack_bwd, pad_h, height)
 
 
 def supports(h: int, w: int, cin: int, cout: int) -> bool:

@@ -23,6 +23,12 @@ the blocks ask :func:`current`:
 - a conv of a split level reads k = size // 2 halo rows from each
   neighbour (:func:`halo_rows`: zeros past the global top and bottom, as
   SAME padding) and is VALID in H;
+- a lane-packed conv (``ops/s2d_conv.py``, ``lane_pack``) of a split
+  level reads the halo rows that extend the rank's rows to whole 2-row
+  blocks of the global image (:func:`block_halo`: one row a side for an
+  even shard, for an odd one two on the side that starts or ends
+  mid-block), is VALID in H and drops an odd shard's extra output row;
+  its gate reads the level's global rows (:func:`global_rows`);
 - BatchNorm sums over the batch group at a split level, and over the data
   group at a gathered one, where the S spatial ranks hold the same rows
   (:func:`stats_group`);
@@ -254,6 +260,34 @@ def halo_rows(x: torch.Tensor, k: int, axis: int = 1
     if lv is None or not lv.split or k == 0:
         return x, k
     return lv.halo(x, k, axis), 0
+
+
+def block_halo(x: torch.Tensor, axis: int = 1
+               ) -> tuple[torch.Tensor, int | None]:
+    """(x, None), or on a split level (ext, first) for a conv of whole
+    shifted space-to-depth blocks (global rows 2j - 1, 2j), VALID in H:
+    ext is the rank's rows [r0, r0 + h) with the halo rows that complete
+    their blocks, global rows [r0 - 1 - r0 % 2, r0 + h + 1 + (r0 + h) % 2)
+    (zeros past the image's top and bottom, as the s2d's padding), and
+    ``first`` = r0 % 2 is the rank's first row in the conv's output.  An
+    even shard takes a 1-row halo; an odd one a 2-row halo, cut to its
+    blocks (every rank runs the same collective)."""
+    lv = _current
+    if lv is None or not lv.split:
+        return x, None
+    h = x.shape[axis]
+    if h % 2 == 0:
+        return lv.halo(x, 1, axis), 0
+    r0 = lv.index * h
+    lo, hi = 1 - r0 % 2, 1 - (r0 + h) % 2  # halo rows left out
+    return lv.halo(x, 2, axis).narrow(axis, lo, h + 4 - lo - hi), r0 % 2
+
+
+def global_rows(h: int) -> int:
+    """The rows of the current level's whole image, of which the rank
+    holds h."""
+    lv = _current
+    return h * lv.count if lv is not None and lv.split else h
 
 
 def pool_input(x: torch.Tensor, axis: int = 1) -> torch.Tensor:

@@ -59,9 +59,9 @@ With ``cfg.output_store`` every save, and at the end the tracker
 directory, is mirrored to the store (``store.py``), and ``cfg.resume``
 may name a store URI.
 
-Options of ``fabric_tpu``'s loop that the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item (``lane_pack`` on a
-split level, item 10d, raises in ``models/blocks.py``).
+The loop takes every option of ``fabric_tpu``'s.  On a mesh's spatial
+axis ``lane_pack`` packs the convs of a split level from halo rows, as
+it packs them in one process (``models/blocks.py``).
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@ variables under fabric_tpu.parallel.mesh.make_mesh of the same shape, on
 the 8-device XLA CPU mesh of tests/conftest.py, in this process.  Sums
 go over the ranks in another order than over the whole batch, so fp32
 values agree within the bounds stated with each test; masks, counts and
-batches exactly.  Three launches: 2 ranks (the units, the (1, 2, 1)
-steps), 4 ranks (the (2, 2, 1), (1, 2, 2) and (1, 4, 1) steps and a
+batches exactly.  lane_pack's packed convs of a split level (ROADMAP.md
+item 10d) are held against the unsharded packed conv (units) and
+fabric_tpu's lane_pack step at patch 96 (its level 0 packs).  Three
+launches: 2 ranks (the units, the (1, 2, 1) steps), 4 ranks (the (2, 2, 1), (1, 2, 2) and (1, 4, 1) steps and a
 train.loop.train run at (2, 2, 1)) and 8 ranks (the (2, 4, 1) eval step
 of tests/test_sharding.py, which needs 8)."""
 
@@ -53,9 +55,13 @@ from fabric_tpu_torch.weights import flatten_tree, variables_of
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 240  # s, each subprocess
 BASE, N, T = 8, 4, 3
-# (model, patch) of each step; the meshes each runs at
-STEPS = {"bidate": 32, "unet_lstm": 32, "unet3d": 16}
-MESHES = {(1, 2, 1): ["bidate", "unet_lstm", "unet3d"],
+# (model, patch, options) of each step; the meshes each runs at.  At patch
+# 96 the lane_pack step's level 0 (inc, up4) packs, split over the ranks
+STEPS = {"bidate": ("bidate", 32, {}), "unet_lstm": ("unet_lstm", 32, {}),
+         "unet3d": ("unet3d", 16, {}),
+         "lane_pack": ("bidate", 96, {"lane_pack": True,
+                                      "lane_pack_bwd": True})}
+MESHES = {(1, 2, 1): ["bidate", "unet_lstm", "unet3d", "lane_pack"],
           (2, 2, 1): ["bidate"], (1, 2, 2): ["bidate"],
           (1, 4, 1): ["bidate"]}
 EVAL_MESH = (2, 4, 1)
@@ -113,10 +119,10 @@ def _wait(procs) -> None:
 # --- inputs: variables with non-trivial BatchNorm, batches with a padded row
 
 def variables(name, seed=0):
-    """A ``name`` tree (base 8) with non-trivial BatchNorm parameters and
-    running statistics, as numpy."""
+    """The tree of step ``name``'s model (base 8) with non-trivial
+    BatchNorm parameters and running statistics, as numpy."""
     params, stats = weights.init_variables(
-        13, 2, BASE, torch.Generator().manual_seed(seed), name)
+        13, 2, BASE, torch.Generator().manual_seed(seed), STEPS[name][0])
     rng = np.random.RandomState(seed)
 
     def walk(p, s):
@@ -134,11 +140,11 @@ def variables(name, seed=0):
 
 
 def batch(name, seed=1):
-    """N rows at the model's patch, the last of weight 0 (a padded row)."""
-    ps = STEPS[name]
+    """N rows at the step's patch, the last of weight 0 (a padded row)."""
+    model, ps, _ = STEPS[name]
     rng = np.random.RandomState(seed)
     label = (rng.rand(N, ps, ps) < 0.3).astype(np.int32)
-    if name == "bidate":
+    if model == "bidate":
         img1 = rng.randn(N, ps, ps, 13).astype(np.float32)
         img2 = img1 + 0.3 * rng.randn(N, ps, ps, 13).astype(np.float32)
         img2[label == 1] += 1.5
@@ -152,10 +158,12 @@ def batch(name, seed=1):
 
 
 def cfg_kw(name, **kw):
-    return {"model": name, "num_dates": T, "model_base": BASE,
-            "patch_size": STEPS[name], "batch_size": N,
+    model, ps, options = STEPS[name]
+    return {"model": model, "num_dates": T, "model_base": BASE,
+            "patch_size": ps, "batch_size": N,
             "eval_batch_size": N, "dtype": "float32",
-            "loss_function": "tversky", "learning_rate": 0.05, **kw}
+            "loss_function": "tversky", "learning_rate": 0.05, **options,
+            **kw}
 
 
 def _inputs(root) -> str:
@@ -190,6 +198,7 @@ from fabric_tpu_torch.metrics import confusion_counts
 from fabric_tpu_torch.models import build_model
 from fabric_tpu_torch.models.blocks import (BatchNorm, Conv, DoubleConv,
                                             Down, Up)
+from fabric_tpu_torch.ops import s2d_conv
 from fabric_tpu_torch.ops.resize import (upsample2x_align_corners,
                                         upsample2x_local)
 from fabric_tpu_torch.parallel import distributed as dist, spatial
@@ -245,10 +254,13 @@ def step_job(job):
                                    tree(name, "stats")))
     state = create_state(cfg, model)
     b = local_batch(name)
+    for k in s2d_conv.packed_counts:
+        s2d_conv.packed_counts[k] = 0
     if job["kind"] == "eval":
         st = steps.make_eval_step(model, get_loss_fn(cfg))(state, b)
     else:
         state, st = steps.make_train_step(model, get_loss_fn(cfg))(state, b)
+    st["packed"] = torch.tensor(list(s2d_conv.packed_counts.values()))
     return state_arrays(model, st)
 
 
@@ -429,15 +441,109 @@ def units_job(job):
     res["counts"] = (torch.stack([got[k] for k in sorted(got)]),
                      torch.stack([want[k] for k in sorted(want)]))
 
-    # lane_pack on a split level is not ported: a refusal naming item 10d
-    packed = DoubleConv(4, 4, fold_bn=False, lane_pack=True)
-    try:
-        with spatial.sharded(3), spatial.at(0):
-            packed(rnd(1, 3, 4, 4), True)
-        refused = 0
-    except NotImplementedError as e:
-        refused = int("queue 1 item 10d" in str(e))
-    res["lane_pack_10d"] = (torch.tensor(refused), torch.tensor(1))
+    # lane_pack on a split level: the packed conv of whole s2d blocks from
+    # a halo, VALID in H, and its gradients with pack_bwd off and on (at
+    # 96 x 96, where the gate packs the dgrad), against the unsharded
+    # packed conv; the packed convs each rank ran
+    def blank(blk):
+        with torch.no_grad():
+            for k, p in blk.named_parameters():
+                p.copy_(rnd(*p.shape) * (0.3 if k.endswith("kernel")
+                                         else 0.1)
+                        + (1.0 if k.endswith("scale") else 0.0))
+            for k, v in blk.named_buffers():
+                v.copy_(rnd(*v.shape).abs() * 0.5 + 0.5 if k.endswith("var")
+                        else rnd(*v.shape) * 0.1)
+        blk.requires_grad_(True)
+
+    def packed_run():
+        for k in s2d_conv.packed_counts:
+            s2d_conv.packed_counts[k] = 0
+        return lambda: torch.tensor(list(s2d_conv.packed_counts.values()))
+
+    pk = Conv(3, 4)
+    blank(pk)
+    x, gy = rnd(1, 96, 96, 3), rnd(1, 96, 96, 4)
+    for pack_bwd in (False, True):
+        tag = "lane_pack_bwd" if pack_bwd else "lane_pack"
+        xw = x.clone().requires_grad_(True)
+        with alone():
+            y = pk.packed(xw, pack_bwd)
+            (y * gy).sum().backward()
+        want = (y.detach(), xw.grad, pk.kernel.grad.clone(),
+                pk.bias.grad.clone())
+        pk.zero_grad()
+        counted = packed_run()
+        xl = rows_of(x, 96 // S).clone().requires_grad_(True)
+        with spatial.sharded(96 // S), spatial.at(0):
+            yl = pk.packed(xl, pack_bwd)
+        (yl * rows_of(gy, 96 // S)).sum().backward()
+        res[f"{tag}/y"] = (yl.detach(), rows_of(want[0], 96 // S))
+        res[f"{tag}/dx"] = (xl.grad, rows_of(want[1], 96 // S))
+        res[f"{tag}/dkernel"] = (summed(pk.kernel.grad), want[2])
+        res[f"{tag}/dbias"] = (summed(pk.bias.grad), want[3])
+        res[f"{tag}/packed"] = (counted(),
+                                torch.tensor([1, int(pack_bwd), 0]))
+        pk.zero_grad()
+
+    # the eval form (packed conv, eval BatchNorm + ReLU) through a
+    # lane_pack DoubleConv, its gate reading global rows: at 96 rows and
+    # at 98 (49-row shards, odd, the packed rows cut to the rank's)
+    ev = DoubleConv(3, 4, fold_bn=False, lane_pack=True)
+    blank(ev)
+    for hh in (96, 98):
+        x = rnd(2, hh, 96, 3)
+        with alone(), torch.no_grad():
+            want = ev(x, False)
+        counted = packed_run()
+        with spatial.sharded(hh // S), spatial.at(0), torch.no_grad():
+            got = ev(rows_of(x, hh // S), False)
+        res[f"lane_pack_eval/y{hh}"] = (got, rows_of(want, hh // S))
+        res[f"lane_pack_eval/packed{hh}"] = (counted(),
+                                             torch.tensor([0, 0, 2]))
+
+    # a lane_pack + lane_pack_bwd DoubleConv in training on 49-row shards
+    # of 98: the output, input and parameter gradients, statistics; every
+    # conv packed, its dgrad too (the gate reads 98 rows, not 49)
+    odd = DoubleConv(3, 4, fold_bn=False, lane_pack=True, lane_pack_bwd=True)
+    blank(odd)
+    init = {k: v.clone() for k, v in odd.state_dict().items()}
+    x, gy = rnd(2, 98, 96, 3), rnd(2, 98, 96, 4)
+    xw = x.clone().requires_grad_(True)
+    with alone():
+        y = odd(xw, True)
+        (y * gy).sum().backward()
+    want = {k: p.grad.clone() for k, p in odd.named_parameters()}
+    stats = {k: v.clone() for k, v in odd.named_buffers()}
+    odd.zero_grad()
+    odd.load_state_dict(init)
+    counted = packed_run()
+    xl = rows_of(x, 49).clone().requires_grad_(True)
+    with spatial.sharded(49), spatial.at(0):
+        yl = odd(xl, True)
+    (yl * rows_of(gy, 49)).sum().backward()
+    res["lane_pack_odd/y"] = (yl.detach(), rows_of(y.detach(), 49))
+    res["lane_pack_odd/dx"] = (xl.grad, rows_of(xw.grad, 49))
+    for k, p in odd.named_parameters():
+        res[f"lane_pack_odd/d:{k}"] = (summed(p.grad), want[k])
+    for k, v in odd.named_buffers():
+        res[f"lane_pack_odd/stat:{k}"] = (v.clone(), stats[k])
+    res["lane_pack_odd/packed"] = (counted(), torch.tensor([2, 2, 0]))
+
+    # the rows a packed conv reads: the rank's with the halo rows that make
+    # them whole blocks of the global image's shifted s2d (rows 2j - 1, 2j;
+    # zeros past its top and bottom), and the rank's first output row; a
+    # halo out of phase computes the same conv, rounded otherwise
+    for hh in (96, 98):
+        x, h = rnd(1, hh, 4, 2), hh // S
+        r0 = dist.coords()[1] * h
+        xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))  # row i at i + 1
+        with spatial.sharded(h), spatial.at(0):
+            ext, first = spatial.block_halo(rows_of(x, h))
+        res[f"lane_pack_odd/rows{hh}"] = (
+            ext, xp[:, r0 - r0 % 2:r0 + h + 2 + (r0 + h) % 2])
+        res[f"lane_pack_odd/rows{hh}_first"] = (torch.tensor(first),
+                                                torch.tensor(r0 % 2))
     return {f"{k}/{i}": t.numpy() for k, pair in res.items()
             for i, t in zip(("got", "want"), pair)}
 
@@ -471,6 +577,10 @@ def _jobs(root, data_dir):
                  "cfg": cfg_kw(name), "tag": _tag("step", mesh, name)})
     step_jobs[2].insert(0, {"kind": "units", "mesh": [1, 2, 1],
                             "tag": "units"})
+    step_jobs[2].append({"kind": "step", "mesh": [1, 2, 1],
+                         "model": "lane_pack",
+                         "cfg": cfg_kw("lane_pack", remat=True),
+                         "tag": "remat_lane_pack"})
     step_jobs[4].append({"kind": "loop", "mesh": [2, 2, 1],
                          "cfg": loop_cfg(root, data_dir, "loop", 2, 2),
                          "tag": "loop"})
@@ -559,7 +669,8 @@ def results(started, jax_steps):
 UNITS = ["conv", "up_local", "up_align", "gathered", "bn", "loss_tversky",
          "loss_tversky_compat", "loss_dice", "loss_dice_compat",
          "loss_jaccard", "loss_jaccard_compat", "loss_focal", "loss_ce",
-         "counts", "lane_pack_10d"]
+         "counts", "lane_pack", "lane_pack_bwd", "lane_pack_eval",
+         "lane_pack_odd"]
 
 
 @pytest.mark.parametrize("unit", UNITS)
@@ -568,27 +679,33 @@ def test_units_match_the_unsharded_ops(results, unit):
     gradients), of both upsamples at the shard boundary, of a Down block
     into a gathered level and the Up block back (parameter gradients and
     BatchNorm running statistics), of a split BatchNorm, every loss's value
-    and logit gradient, and the confusion counts (and lane_pack's refusal
-    at a split level, naming ROADMAP.md item 10d): the unsharded op's,
+    and logit gradient, the confusion counts, and lane_pack at a split
+    level (the packed conv of whole s2d blocks from a halo, VALID in H:
+    its forward, dx, dkernel and dbias with pack_bwd off and on at 96
+    rows; a DoubleConv's eval form at 96 and 98 rows; a lane_pack_bwd
+    DoubleConv in training on 49-row shards of 98; the halo rows that
+    make a 48- or 49-row shard whole s2d blocks): the unsharded op's,
     within 1e-5 of each quantity's largest magnitude (sums in another
-    order), the parameter gradients of the gathered blocks within 1e-5
-    of their largest (the conv biases ahead of a train-mode BatchNorm have
-    a gradient of 0 but for rounding); the local upsample and the counts
-    exactly; both ranks alike."""
+    order), the parameter gradients of the gathered and the odd-shard
+    blocks within 1e-5 of their largest (the conv biases ahead of a
+    train-mode BatchNorm have a gradient of 0 but for rounding); the
+    local upsample, the counts, the packed convs each rank ran (the gate
+    reads global rows: every one packs, the dgrads with pack_bwd) and the
+    blocks' rows exactly; both ranks alike."""
     for rank in results["units"]:
         keys = sorted({k.rsplit("/", 1)[0] for k in rank
                        if k.split("/")[0] == unit})
         assert keys, unit
-        grads = max(np.abs(rank[k + "/want"]).max() for k in keys
-                    if k.startswith("gathered/d:")) if unit == "gathered" \
-            else 0.0
+        grads = max([np.abs(rank[k + "/want"]).max() for k in keys
+                     if k.startswith(unit + "/d:")], default=0.0)
         for k in keys:
             got, want = rank[k + "/got"], rank[k + "/want"]
             assert got.shape == want.shape, k
-            if unit in ("up_local", "counts", "lane_pack_10d"):
+            if unit in ("up_local", "counts") or "/packed" in k \
+                    or "/rows" in k:
                 np.testing.assert_array_equal(got, want, err_msg=k)
                 continue
-            scale = grads if k.startswith("gathered/d:") \
+            scale = grads if k.startswith(unit + "/d:") \
                 else np.abs(want).max()
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale,
                                        err_msg=k)
@@ -641,6 +758,33 @@ def test_train_step_matches_fabric_tpu(results, jax_steps, mesh, name):
         np.testing.assert_allclose(first[k], v, rtol=0,
                                    atol=1e-5 * max(1.0, np.abs(v).max()),
                                    err_msg=k)
+
+
+def test_lane_pack_step_packs_on_every_rank(results):
+    """The lane_pack + lane_pack_bwd step at patch 96 on mesh (1, 2, 1):
+    the gate reads level 0's global 96 rows, not a rank's 48, so each rank
+    packed inc's and up4's four forward convs and the three dgrads that
+    lane_pack_bwd admits at base 8 (inc.conv2's, up4.conv1's and
+    up4.conv2's; inc.conv1's input is the image), none direct; the steps
+    without lane_pack packed none."""
+    for rank in results[_tag("step", (1, 2, 1), "lane_pack")]:
+        np.testing.assert_array_equal(rank["out/packed"], [4, 3, 0])
+    for rank in results[_tag("step", (1, 2, 1))]:
+        np.testing.assert_array_equal(rank["out/packed"], [0, 0, 0])
+
+
+def test_lane_pack_step_rematerialised_on_a_split_level(results):
+    """The same lane_pack step with ``remat``: each stage's recompute
+    re-enters its level, so the packed convs' halos run again inside it
+    (8 packed forwards a rank, the dgrads as before), and the step is
+    the one without remat, bit for bit, on every rank."""
+    for plain, remat in zip(results[_tag("step", (1, 2, 1), "lane_pack")],
+                            results["remat_lane_pack"], strict=True):
+        np.testing.assert_array_equal(remat["out/packed"], [8, 3, 0])
+        assert remat.keys() == plain.keys()
+        for k in plain:
+            if k != "out/packed":
+                np.testing.assert_array_equal(remat[k], plain[k], err_msg=k)
 
 
 def test_fabric_tpu_doubles_split_conv_kernel_updates_at_1x2x2(results,
