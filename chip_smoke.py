@@ -2853,10 +2853,9 @@ def multidate_train_phase(root: str, smi: str, md_data) -> dict:
               f"{epochs[0]['train_examples_per_sec']:.1f} in epoch 0), T = "
               f"{MD_T}, patch {T_PATCH}, batch {batch}, base "
               f"{MD_BASE[name]}, bf16, tversky + SGD, {workers} loader "
-              f"workers; the loop's step p50 "
-              f"{1e3 * last['train_p50_step_s']:.1f} ms, p95 "
-              f"{1e3 * last['train_p95_step_s']:.1f} ms (host clock, "
-              f"StepTimer); {step_ms:.1f} ms a step with the batch resident "
+              f"workers; the loop's wait for the loader "
+              f"{last['train_feed_wait_s']:.2f} s in the epoch; "
+              f"{step_ms:.1f} ms a step with the batch resident "
               f"on the card (CUDA events); peak memory {peak_mib:.0f} MiB "
               f"(model, optimizer and batch {base_mib:.0f} MiB; activations "
               f"{peak_mib - base_mib:.0f} MiB); train cd_losses per epoch "

@@ -37,6 +37,10 @@ workers on the 8 cores of an H100 host delivered 184 ms a batch of 128 x
   closed, for a program that must leave no process behind.
 - An exception in a worker reaches the caller as the DataLoader re-raises
   it; nothing falls back to the single thread.
+- The consumer's wait for a worker's batch and for a ring slot's copy to
+  the card adds to the ``loader.wait_s`` counter (``utils/profiling``);
+  while a profiler traces, each batch's ``loader.next``, ``loader.slot``
+  and ``loader.upload`` are spans with the batch's index as id.
 
 Both blocks live in ``/dev/shm``, and a process that writes past a full
 ``/dev/shm`` dies of SIGBUS rather than raising.  So each block is
@@ -66,6 +70,7 @@ from __future__ import annotations
 import gc
 import multiprocessing
 import shutil
+import time
 from typing import Iterator
 
 import numpy as np
@@ -74,6 +79,7 @@ import torch
 from fabric_tpu_torch.data.pipeline import (PatchSampler, batch_shapes,
                                             height_slice, make_batch,
                                             plan_epoch)
+from fabric_tpu_torch.utils import profiling
 
 SHM = "/dev/shm"
 
@@ -331,15 +337,21 @@ class BatchLoader:
                            for i, b in enumerate(batches)]
         it = iter(self._loader)
         for i in range(len(batches)):
+            t0 = time.perf_counter()
             if i >= 2:  # the next call hands batch i-2's slot to a worker
-                self._wait(i - 2)
-            slot = next(it)
-            if self.device.type == "cuda":
-                batch = {k: v.to(self.device, non_blocking=True)
-                         for k, v in self._slots[slot].items()}
-                self._events[slot].record()
-            else:
-                batch = {k: v.clone() for k, v in self._slots[slot].items()}
+                with profiling.span("loader.slot", id=i):
+                    self._wait(i - 2)
+            with profiling.span("loader.next", id=i):
+                slot = next(it)
+            profiling.count("loader.wait_s", time.perf_counter() - t0)
+            with profiling.span("loader.upload", id=i):
+                if self.device.type == "cuda":
+                    batch = {k: v.to(self.device, non_blocking=True)
+                             for k, v in self._slots[slot].items()}
+                    self._events[slot].record()
+                else:
+                    batch = {k: v.clone()
+                             for k, v in self._slots[slot].items()}
             yield batch
 
     def _wait(self, i: int) -> None:

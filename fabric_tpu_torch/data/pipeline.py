@@ -36,12 +36,16 @@
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
+import time
 from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
+
+from fabric_tpu_torch.utils import profiling
 
 
 class PatchSampler:
@@ -307,8 +311,11 @@ def prefetch_to_device(iterator: Iterator[dict], device, size: int = 2
                               name="fabric-prefetch")
     thread.start()
     try:
-        while True:
-            item = q.get()
+        for i in itertools.count():
+            t0 = time.perf_counter()
+            with profiling.span("loader.next", id=i):
+                item = q.get()
+            profiling.count("loader.wait_s", time.perf_counter() - t0)
             if item is sentinel:
                 if err:
                     raise err[0]

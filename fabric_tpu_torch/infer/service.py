@@ -34,6 +34,12 @@ ahead-of-time artifact (``infer/aot.py``: ``torch.export`` programs that
 call the kernels as custom ops), checked at start against this
 predictor's configuration and weights; a bucket the artifact lacks falls
 back to the in-process forward, on the same kernels.
+
+While a ``torch.profiler`` traces the process, each scene's (or pack's)
+dispatch is a ``serve.dispatch`` span (``utils/profiling.span``, the
+scene's index as its id) over its ``serve.pad``, ``serve.stage`` (the copy
+into the page-locked buffer, with its ``bytes``), ``serve.upload`` and
+``serve.launch`` (the runner's enqueue of the forward) spans.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from fabric_tpu_torch.infer.sharded_scene import (make_sharded_scene_infer,
                                                   put_scene_sharded,
                                                   replicas)
 from fabric_tpu_torch.models import MULTI_DATE, build_model, compute_dtype
+from fabric_tpu_torch.utils import profiling
 
 log = logging.getLogger("fabric_tpu_torch")
 
@@ -507,15 +514,16 @@ class ScenePredictor:
             "bucket_h": runner_key[0], "bucket_w": runner_key[1],
             "compiled": bool(new_runner),
             "wall_ms": round(wall_s * 1000.0, 2),
-            "mpx_per_sec": round(h * w / wall_s / 1e6, 3),
             "mode": self.serving_mode(),
             "quant": self.quant,
             "aot": runner_key in self._aot_keys,
         }
         if pipelined:
             # several scenes are in flight: this scene's wall clock
-            # overlaps its neighbours' compute
+            # overlaps its neighbours' compute, so it gives no rate
             rec["pipelined"] = True
+        else:
+            rec["mpx_per_sec"] = round(h * w / wall_s / 1e6, 3)
         if packed:
             # fleet-packed: this scene shared its forward with up to
             # packed - 1 others (wall_ms covers the pack)
@@ -640,15 +648,19 @@ class ScenePredictor:
         live until the copy is done), stacked on a new first axis of ``n``
         slots with zeros in the slots no array fills, or with ``n`` None
         the single array of ``slots`` as it is."""
-        first = torch.from_numpy(np.asarray(slots[0]))
-        shape = first.shape if n is None else (n,) + tuple(first.shape)
-        host = torch.empty(shape, dtype=first.dtype,
-                           pin_memory=self.device.type == "cuda")
-        view = host.unsqueeze(0) if n is None else host
-        for j, a in enumerate(slots):
-            view[j].copy_(torch.from_numpy(np.asarray(a)))
-        view[len(slots):].zero_()
-        return host.to(self.device, non_blocking=True), host
+        arrays = [np.asarray(a) for a in slots]
+        with profiling.span("serve.stage",
+                            bytes=sum(a.nbytes for a in arrays)):
+            first = torch.from_numpy(arrays[0])
+            shape = first.shape if n is None else (n,) + tuple(first.shape)
+            host = torch.empty(shape, dtype=first.dtype,
+                               pin_memory=self.device.type == "cuda")
+            view = host.unsqueeze(0) if n is None else host
+            for j, a in enumerate(arrays):
+                view[j].copy_(torch.from_numpy(a))
+            view[len(arrays):].zero_()
+        with profiling.span("serve.upload"):
+            return host.to(self.device, non_blocking=True), host
 
     def _pad(self, a: np.ndarray, ph: int, pw: int) -> np.ndarray:
         """Edge-pad the (H, W) axes of an (H, W, C) or (T, H, W, C) array
@@ -656,8 +668,16 @@ class ScenePredictor:
         h, w = a.shape[-3:-1]
         if (ph, pw) == (h, w):
             return a
-        return np.pad(a, [(0, 0)] * (a.ndim - 3)
-                      + [(0, ph - h), (0, pw - w), (0, 0)], mode="edge")
+        with profiling.span("serve.pad"):
+            return np.pad(a, [(0, 0)] * (a.ndim - 3)
+                          + [(0, ph - h), (0, pw - w), (0, 0)], mode="edge")
+
+    @staticmethod
+    def _launch(run, *args):
+        """The runner's call on uploaded scenes: the host's enqueue of the
+        forward."""
+        with profiling.span("serve.launch"):
+            return run(*args)
 
     def _dispatch(self, d1: np.ndarray, d2: np.ndarray):
         """Pad, upload and start one scene pair without waiting for it:
@@ -674,10 +694,10 @@ class ScenePredictor:
             # device: no device holds the whole scene
             a1, a2 = (put_scene_sharded(self._pad(d, ph, pw), self.mesh,
                                         self.dtype) for d in (d1, d2))
-            return run(a1, a2), h, w, None
+            return self._launch(run, a1, a2), h, w, None
         (a1, h1), (a2, h2) = (self._upload([self._pad(d, ph, pw)])
                               for d in (d1, d2))
-        return run(a1, a2), h, w, (h1, h2)
+        return self._launch(run, a1, a2), h, w, (h1, h2)
 
     def _dispatch_multidate(self, scenes: np.ndarray):
         """The multi-date form of :meth:`_dispatch`, for a (T, H, W, C)
@@ -689,7 +709,7 @@ class ScenePredictor:
         ph, pw = self._bucket_dims(h, w)
         run = self._get_runner(ph, pw)
         a, host = self._upload([self._pad(scenes, ph, pw)])
-        return run(a), h, w, host
+        return self._launch(run, a), h, w, host
 
     def _check_bidate(self, call: str) -> None:
         if self.multi_date:
@@ -710,10 +730,12 @@ class ScenePredictor:
         if self.quant == "int8":
             probe = self._int8_scene_prologue(crops())
             self._int8_probe_check(probe, self._scenes_predicted)
+        idx = self._scenes_predicted
         self._scenes_predicted += 1
         key = self._runner_key(*dims)
         new_runner = key not in self._runners
-        mask, h, w, _ = dispatch()
+        with profiling.span("serve.dispatch", id=idx):
+            mask, h, w, _ = dispatch()
         out = mask.cpu().numpy()[:h, :w]
         self._record_scene(scene_id, (h, w), key, new_runner,
                            time.perf_counter() - t0)
@@ -767,7 +789,8 @@ class ScenePredictor:
             self._scenes_predicted += 1
             key = self._runner_key(*dims_of(item))
             new_runner = key not in self._runners
-            dispatched = dispatch(item)
+            with profiling.span("serve.dispatch", id=idx):
+                dispatched = dispatch(item)
             report = self._int8_probe_check(probe, idx)
             pending.append((*dispatched, key, new_runner, sid, t0, report))
             while len(pending) > max(window, 1):
@@ -832,14 +855,19 @@ class ScenePredictor:
             pk = packs[bkey]
             new_runner = (*bkey, pk, "packed") not in self._runners
             run = self._get_packed_runner(*bkey, pk)
-            scenes = [e["scene"] for e in entries]
-            uploads = ([self._upload(scenes, pk)] if multidate else
-                       [self._upload([s[i] for s in scenes], pk)
-                        for i in (0, 1)])
-            pending.append((run(*(a for a, _ in uploads)), uploads, entries,
-                            bkey, new_runner))
+            with profiling.span("serve.dispatch", id=entries[0]["n"]):
+                scenes = [pad(e["item"], bkey) for e in entries]
+                uploads = ([self._upload(scenes, pk)] if multidate else
+                           [self._upload([s[i] for s in scenes], pk)
+                            for i in (0, 1)])
+                masks = self._launch(run, *(a for a, _ in uploads))
+            pending.append((masks, uploads, entries, bkey, new_runner))
             while len(pending) > max(window, 1):
                 drain()
+
+        def pad(item, bkey):
+            return (self._pad(item, *bkey) if multidate else
+                    tuple(self._pad(d, *bkey) for d in item))
 
         def drain():
             masks, _, entries, bkey, new_runner = pending.popleft()
@@ -864,14 +892,13 @@ class ScenePredictor:
                 # this scene joins a pack
                 report = self._int8_probe_check(
                     self._int8_scene_prologue(crops), self._scenes_predicted)
+            n = self._scenes_predicted
             self._scenes_predicted += 1
             h, w = item.shape[1:3] if multidate else item[0].shape[:2]
             bkey = self._bucket_dims(h, w)
             packs.setdefault(bkey, self._pack_for(pack, bkey))
-            scene = (self._pad(item, *bkey) if multidate else
-                     tuple(self._pad(d, *bkey) for d in item))
             groups.setdefault(bkey, []).append(
-                {"idx": i, "scene": scene, "h": h, "w": w, "sid": sid,
+                {"idx": i, "n": n, "item": item, "h": h, "w": w, "sid": sid,
                  "t0": t0, "report": report})
             if len(groups[bkey]) == packs[bkey]:
                 flush(bkey)

@@ -281,8 +281,8 @@ def train_check(steps: int, meshes: list[tuple[int, int, int]]) -> bool:
             print(f"train bf16, mesh {d}x{s}x{m} ({world} process(es)), "
                   f"global batch 128: steady epoch "
                   f"{recs[-1]['train_examples_per_sec']:.1f} train "
-                  f"examples/s, step p50 "
-                  f"{recs[-1]['train_p50_step_s'] * 1e3:.1f} ms; peak "
+                  f"examples/s, loader wait "
+                  f"{recs[-1]['train_feed_wait_s']:.2f} s; peak "
                   f"allocated per card {peaks} MiB", flush=True)
     return ok
 

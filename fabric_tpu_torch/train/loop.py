@@ -15,11 +15,13 @@ stat rows so far, so a resumed run finishes the epoch bit-identically; a
 SIGTERM (or ``guard.request()``) forces that save at the next step and
 unwinds with ``history["status"] == "preempted"``; a non-finite loss
 halts the run at the next host sync, before it can overwrite a finite
-periodic checkpoint.  Each train step is timed on the host clock
-(``utils/profiling.StepTimer``: the epoch record's ``steps``,
-``p50_step_s`` and ``p95_step_s``), and with ``cfg.profile_dir`` the first
-``cfg.profile_steps`` train steps are traced there (``torch.profiler``,
-the card's kernels included).
+periodic checkpoint.  The epoch's ``train_`` record carries its
+``examples_per_sec``, ``seconds``, ``steps`` and ``feed_wait_s`` (the
+seconds its steps waited for their batches: the epoch's share of the
+loader's ``loader.wait_s`` counter, ``utils/profiling.count``), and with
+``cfg.profile_dir`` the first ``cfg.profile_steps`` train steps are traced
+there (``torch.profiler``, the card's kernels included; the loader's
+``loader.*`` spans with them).
 
 Training on several cards runs one process per card in a
 ``torch.distributed`` group (``parallel/distributed.maybe_initialize``,
@@ -66,7 +68,6 @@ it packs them in one process (``models/blocks.py``).
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import random
@@ -171,20 +172,18 @@ def _check_finite(losses: np.ndarray, tracker, where: str) -> None:
 
 def _epoch(step_fn, state, batches, accumulator, train: bool,
            on_first_batch=None, on_step=None, tracker=None,
-           log_every: int = 0, prefix: str = "", timer=None) -> int:
+           log_every: int = 0, prefix: str = "") -> int:
     """One pass over ``batches``; returns the number of steps.  Per-step
     stats stay on the device and are read once at the end, except with
-    ``log_every`` > 0, which reads every step to stream running means.
-    ``timer`` (a ``StepTimer``) times each step call."""
+    ``log_every`` > 0, which reads every step to stream running means."""
     stream = tracker is not None and log_every > 0
     rows: list[dict] = []
     n = 0
     for i, batch in enumerate(batches):
-        with timer or contextlib.nullcontext():
-            if train:
-                state, stats = step_fn(state, batch)
-            else:
-                stats = step_fn(state, batch)
+        if train:
+            state, stats = step_fn(state, batch)
+        else:
+            stats = step_fn(state, batch)
         n += 1
         if i == 0 and on_first_batch is not None:
             on_first_batch(batch, stats)
@@ -563,12 +562,13 @@ def _run_epochs(cfg, state, batches, tracker, device, train_step,
         def on_step(s, stats):
             for callback in callbacks:
                 callback(s, stats)
-        timer = profiling.StepTimer()
+        waited = profiling.counters().get("loader.wait_s", 0.0)
         steps = _epoch(train_step, state, batches.train(epoch, skip),
                        train_acc, train=True,
                        on_step=on_step if callbacks else None,
                        tracker=tracker, log_every=cfg.log_every,
-                       prefix="batch_train_", timer=timer)
+                       prefix="batch_train_")
+        waited = profiling.counters().get("loader.wait_s", 0.0) - waited
         if profiler is not None:  # stops even on a short first epoch
             profiler.stop(state)
             profiler = None
@@ -576,13 +576,10 @@ def _run_epochs(cfg, state, batches, tracker, device, train_step,
         mean_train = train_acc.means()
         if steps:
             # the epoch's wall clock ends with the stats' host transfer,
-            # a sync; the StepTimer's percentiles are each step's host
-            # time (the card may still run it)
+            # a sync
             perf = {"examples_per_sec": steps * cfg.batch_size
-                    / train_seconds, "seconds": train_seconds}
-            perf.update({k: v for k, v in
-                         timer.summary(cfg.batch_size).items()
-                         if k in ("steps", "p50_step_s", "p95_step_s")})
+                    / train_seconds, "seconds": train_seconds,
+                    "steps": steps, "feed_wait_s": waited}
             tracker.log_metrics(perf, step=epoch, prefix="train_")
         tracker.log_metrics(mean_train, step=epoch, prefix="train_")
         log.info("epoch %d train %s", epoch,

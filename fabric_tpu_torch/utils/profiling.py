@@ -1,23 +1,55 @@
-"""Tracing and step timing (counterpart of
+"""Tracing, spans and counters (counterpart of
 ``fabric_tpu/utils/profiling.py``).
 
 - :func:`trace`: a ``torch.profiler`` trace of the work inside it,
   written into a directory in TensorBoard's profiler format (a Chrome
   trace, also readable by Perfetto): host activity always, the card's
   kernels when CUDA is in use.
-- :func:`annotate`: a named span in such a trace.
+- :func:`span`: a named interval of the program's work, recorded while a
+  ``torch.profiler`` traces this process (:func:`spans`), and a
+  ``record_function`` range in that trace.
+- :func:`count`: an always-on counter (:func:`counters`).
 - :func:`sync`: wait for the device work that feeds a tensor.
-- :class:`StepTimer`: per-step host-clock times and their summary, with
-  ``fabric_tpu``'s keys and values.
+
+A span is stamped on the clock that torch's profiler stamps its own host
+events with, the wall clock (``time.time_ns``; torch 2.11 and 2.13 both
+report a ``record_function`` event's ``start_ns()`` on it), so a span
+lies directly over the trace's device operations.  Its start is read
+before the ``record_function`` range opens and its end after it closes:
+the span covers its own trace event.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 import time
+from typing import NamedTuple
 
-import numpy as np
 import torch
+
+MAX_SPANS = 65536  # the record keeps the latest spans
+
+
+class Span(NamedTuple):
+    """One recorded span: ``start_ns`` and ``end_ns`` on the profiler's
+    clock, the enclosing span's name (``parent``, None at the top), the
+    ``id`` it was given or inherited from the enclosing span, and its
+    keyword ``fields``."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: str | None
+    id: object
+    fields: dict
+
+
+_spans: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_open = threading.local()  # .stack: this thread's open spans
+_counters: dict = {}
+_counters_lock = threading.Lock()
+_OFF = contextlib.nullcontext()
 
 
 def start_trace(logdir: str, cuda: bool | None = None):
@@ -48,9 +80,67 @@ def trace(logdir: str, cuda: bool | None = None):
         prof.stop()
 
 
-def annotate(name: str):
-    """A named span visible in profiler traces."""
-    return torch.profiler.record_function(name)
+class _Recording:
+    __slots__ = ("name", "id", "fields", "parent", "start", "range")
+
+    def __init__(self, name: str, id, fields: dict):
+        self.name, self.id, self.fields = name, id, fields
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        top = stack[-1] if stack else None
+        self.parent = top.name if top is not None else None
+        if self.id is None and top is not None:
+            self.id = top.id
+        self.start = time.time_ns()
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        end = time.time_ns()
+        _open.stack.pop()
+        _spans.append(Span(self.name, self.start, end, self.parent, self.id,
+                           self.fields))
+        return False
+
+
+def span(name: str, id=None, **fields):
+    """A context manager around one piece of the program's work.  While a
+    ``torch.profiler`` traces this process it opens a
+    ``record_function(name)`` range and, on exit, appends a :class:`Span`
+    to the record; ``id`` defaults to the enclosing span's, so the pieces
+    of one request share it.  Otherwise it is a shared no-op: one check,
+    no clock reading."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Recording(name, id, fields)
+
+
+def spans() -> list[Span]:
+    """The recorded spans (the latest ``MAX_SPANS``), in the order they
+    ended."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    _spans.clear()
+
+
+def count(name: str, value=1) -> None:
+    """Add ``value`` to counter ``name`` (always on)."""
+    with _counters_lock:
+        _counters[name] = _counters.get(name, 0) + value
+
+
+def counters() -> dict:
+    """A copy of every counter."""
+    with _counters_lock:
+        return dict(_counters)
 
 
 def _first_tensor(x):
@@ -75,38 +165,3 @@ def sync(x) -> None:
     t = _first_tensor(x)
     if t is not None and t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
-
-
-class StepTimer:
-    """Accumulates step wall-clock times; reports steps/s and
-    examples/s.  A step that is only enqueued on the card is timed as
-    such: the times describe the host's side of each step."""
-
-    def __init__(self) -> None:
-        self.times: list[float] = []
-        self._t0: float | None = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-        self._t0 = None
-
-    def summary(self, batch_size: int | None = None,
-                skip_first: int = 1) -> dict:
-        """{steps, mean_step_s, p50_step_s, p95_step_s, steps_per_sec[,
-        examples_per_sec]} over the times after the first ``skip_first``
-        (all of them if none is left)."""
-        times = self.times[skip_first:] or self.times
-        if not times:
-            return {}
-        mean = float(np.mean(times))
-        out = {"steps": len(self.times), "mean_step_s": mean,
-               "p50_step_s": float(np.percentile(times, 50)),
-               "p95_step_s": float(np.percentile(times, 95)),
-               "steps_per_sec": 1.0 / mean if mean else 0.0}
-        if batch_size:
-            out["examples_per_sec"] = batch_size / mean if mean else 0.0
-        return out

@@ -167,6 +167,37 @@ def test_many_workers_reuse_a_small_ring(data):
                     shuffle=True, seed=seed)) == 28
 
 
+def test_worker_epoch_records_the_loaders_wait(data):
+    """One worker, batch 5, 6 batches under a profiler: one ``loader.next``
+    and one ``loader.upload`` a batch and a ``loader.slot`` from the third
+    on, each with the batch's index as id, and ``loader.wait_s`` grows by
+    at least the next and slot spans' durations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fabric_tpu_torch.utils import profiling
+
+    dataset, md = data
+    with loader.BatchLoader(loader.share_dataset(dataset), md, 32, False, 5,
+                            shuffle=False, num_workers=1,
+                            device="cpu") as workers:
+        profiling.clear_spans()
+        before = profiling.counters().get("loader.wait_s", 0.0)
+        with profile(activities=[ProfilerActivity.CPU]):
+            n = sum(1 for _ in workers.epoch())
+        waited = profiling.counters()["loader.wait_s"] - before
+    spans = profiling.spans()
+    profiling.clear_spans()
+    assert n == 6
+    by_name = {name: [s.id for s in spans if s.name == name]
+               for name in ("loader.next", "loader.slot", "loader.upload")}
+    assert by_name == {"loader.next": list(range(6)),
+                       "loader.slot": list(range(2, 6)),
+                       "loader.upload": list(range(6))}
+    spent = sum(s.end_ns - s.start_ns for s in spans
+                if s.name in ("loader.next", "loader.slot")) / 1e9
+    assert spent * 0.999 - 1e-4 <= waited <= spent + 0.05 * n
+
+
 def test_worker_error_reaches_the_caller(data):
     """A patch of a city the dataset lacks fails in a worker; the error
     comes out of the epoch's iteration."""
